@@ -1,0 +1,181 @@
+"""Roofline cost model for adaptive kernel routing (planner ``mode="auto"``).
+
+The copy of the JAX package's cost model, priced with an H100 table
+instead of the TPU v5e one.  Every candidate ``KernelCall`` is priced
+twice — kernel route vs. the generic emitter's lowering — and routed
+only when the kernel is not meaningfully worse.
+
+Each estimate is ``max(bytes/HBM_bw, flops/peak)`` plus route-specific
+overheads (padding, launch, scratch, structure factors).  The overhead
+constants and the per-pattern formulas are the reference's, calibrated
+on the reference's own ablation; they stay as they are until they are
+measured on the card.  The formulas still price the TPU kernels'
+shapes (block padding, one-hot matmul FLOPs for the segment routes), so
+an "auto" decision here is the reference's decision under H100 rates,
+not a measured one.  The ledger calibration, the autotuner and the
+other kernels' hooks wait for their slices.
+
+``estimate(spec, meta)`` returns a :class:`CostEstimate`; ``meta`` is
+the planner-collected static description of the match.  Unknown sizes
+reject conservatively: a route we cannot price is a route we do not
+take (the generic lowering is always correct).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from math import ceil, log2
+
+#: NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense rates): HBM3 at
+#: 3.35 TB/s; 67 TFLOP/s FP32 and 34 TFLOP/s FP64 on the CUDA cores
+#: (no tensor cores: the port's kernels use none).  Rates assume the
+#: card's full 700 W power limit.
+HW_H100 = {
+    "hbm_bw": 3.35e12,          # B/s
+    "peak_flops_f32": 67e12,    # FLOP/s
+    "peak_flops_f64": 34e12,    # FLOP/s
+}
+
+#: route when kernel_s <= jnp_s * (1 + ROUTE_MARGIN): prefer the kernel
+#: on a near-tie (it strictly reduces HBM traffic on the real target).
+ROUTE_MARGIN = 0.10
+
+#: fixed per-launch overhead of a Pallas dispatch (grid setup + the
+#: kernel's own jit boundary) that the inlined jnp lowering never pays.
+LAUNCH_OVERHEAD_S = 1e-6
+
+#: generic-emitter accumulator machinery (mask broadcast, select chain,
+#: finalize combine) as a multiplicative tax on the jnp reduce lowering.
+REDUCE_STRUCTURE_TAX = 1.15
+
+#: random-access scatter stores achieve a fraction of streaming HBM
+#: bandwidth; .at[].add is modelled as this many streaming passes.
+SCATTER_PENALTY = 4.0
+
+#: sort-based keyed aggregation (the generic dictmerger lowering) moves
+#: roughly key+val+packed rows per comparison level; this scales the
+#: n*log2(n) byte volume.
+SORT_BYTES_PER_ROW = 24.0
+
+
+@dataclass(frozen=True)
+class CostEstimate:
+    """Priced routing decision for one matched pattern."""
+
+    kernel_s: float
+    jnp_s: float
+    routed: bool
+    why: str
+    #: where the kernel-side figure came from (always "roofline" until
+    #: the ledger calibration is ported).
+    source: str = "roofline"
+
+    def as_stats(self) -> dict:
+        return {
+            "kernel_us": round(self.kernel_s * 1e6, 3),
+            "jnp_us": round(self.jnp_s * 1e6, 3),
+            "routed": self.routed,
+            "why": self.why,
+            "source": self.source,
+        }
+
+
+REJECT_UNKNOWN = CostEstimate(
+    float("inf"), 0.0, False,
+    "unknown size: cannot price the kernel route, falling back to jnp",
+)
+
+
+def _roofline_s(bytes_moved: float, flops: float, elem_bytes: int) -> float:
+    peak = HW_H100["peak_flops_f64" if elem_bytes >= 8 else "peak_flops_f32"]
+    return max(bytes_moved / HW_H100["hbm_bw"], flops / peak)
+
+
+def _pad(n: int, block: int) -> int:
+    return int(ceil(max(n, 1) / block)) * block
+
+
+def _decide(kernel_s: float, jnp_s: float, why: str) -> CostEstimate:
+    routed = kernel_s <= jnp_s * (1.0 + ROUTE_MARGIN)
+    return CostEstimate(kernel_s, jnp_s, routed, why)
+
+
+# ---------------------------------------------------------------------------
+# Per-pattern cost hooks (wired onto KernelSpec.cost in registry.py).
+# Every hook takes the planner's `meta` dict and returns a CostEstimate.
+# ---------------------------------------------------------------------------
+
+
+def cost_filter_reduce(meta: dict) -> CostEstimate:
+    """Predicated multi-aggregate sum: one shared pass vs. the generic
+    merger accumulators.  Gate is padding + launch vs. structure tax."""
+    n = meta.get("n")
+    if not n:
+        return REJECT_UNKNOWN
+    cols = max(meta.get("cols", 1), 1)
+    ops = meta.get("ops", 1)
+    aggs = max(meta.get("n_aggs", 1), 1)
+    e = meta.get("elem_bytes", 8)
+    block = meta.get("block", 8 * 1024)
+    np_ = _pad(n, block)
+    # kernel: every column + the predicate mask stream once, padded;
+    # the multi-agg variant shares the mask/column loads across outputs.
+    k_bytes = np_ * (cols * e + 1) + aggs * e
+    k_flops = np_ * (ops + aggs)
+    kernel_s = _roofline_s(k_bytes, k_flops, e) + LAUNCH_OVERHEAD_S
+    j_bytes = (n * (cols * e + 1)) * REDUCE_STRUCTURE_TAX
+    j_flops = n * (ops + aggs)
+    jnp_s = _roofline_s(j_bytes, j_flops, e)
+    return _decide(kernel_s, jnp_s,
+                   f"n={n} cols={cols} aggs={aggs} pad={np_ - n}")
+
+
+def cost_vecmerger(meta: dict) -> CostEstimate:
+    """Scatter-add vs. one-hot MXU segment sum.  The kernel's 2*n*K
+    matmul FLOPs cross the scatter's memory bound as K grows; beyond the
+    VMEM tile bound the 'kernel' route degenerates to the same scatter
+    plus overhead, so it can never win there."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    e = meta.get("elem_bytes", 8)
+    block = meta.get("block", 512)
+    max_k = meta.get("max_k")
+    np_ = _pad(n, block)
+    j_bytes = n * (8 + 2 * e) * SCATTER_PENALTY + k * e
+    jnp_s = _roofline_s(j_bytes, n, e)
+    if max_k is not None and k > max_k:
+        # kops falls back to the ref segment-sum (itself a scatter):
+        # strictly the jnp cost plus dispatch — never routable.
+        return _decide(jnp_s * 1.2 + LAUNCH_OVERHEAD_S, jnp_s,
+                       f"n={n} K={k} exceeds VMEM tile bound {max_k}")
+    k_bytes = np_ * (4 + e) + k * e
+    k_flops = 2.0 * np_ * k
+    kernel_s = _roofline_s(k_bytes, k_flops, e) + LAUNCH_OVERHEAD_S
+    return _decide(kernel_s, jnp_s, f"n={n} K={k} pad={np_ - n}")
+
+
+def cost_dict_group(meta: dict) -> CostEstimate:
+    """Dense-int-key group-by: one-hot segment sums + compaction vs. the
+    generic sort-based dictmerger lowering."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    e = meta.get("elem_bytes", 8)
+    block = meta.get("block", 256)
+    np_ = _pad(n, block)
+    # kernel: stacked (vals, ones) scratch + one-hot matmul + K-compaction
+    k_bytes = np_ * (4 + 2 * e) + 2 * n * e + 4 * k * e
+    k_flops = 2.0 * np_ * k * 2 + k * max(log2(max(k, 2)), 1.0)
+    kernel_s = _roofline_s(k_bytes, k_flops, e) + 2 * LAUNCH_OVERHEAD_S
+    j_bytes = n * SORT_BYTES_PER_ROW * max(log2(max(n, 2)), 1.0)
+    jnp_s = _roofline_s(j_bytes, n, e)
+    return _decide(kernel_s, jnp_s, f"n={n} K={k} pad={np_ - n}")
+
+
+def estimate(spec, meta: dict) -> CostEstimate:
+    """Price one candidate through the spec's cost hook.  Specs without
+    a hook route unconditionally (the pre-cost-model behavior)."""
+    hook = getattr(spec, "cost", None)
+    if hook is None:
+        return CostEstimate(0.0, 0.0, True, "no cost hook: always route")
+    return hook(meta)

@@ -1,0 +1,115 @@
+"""Predicated filter+reduce — the fused form of the paper's Listing 10.
+
+    result(for(v, merger[+,0], (b,i,x) => if(p(x)) merge(b,x) else b))
+
+Wrappers over the CUDA kernel in ``csrc/filter_reduce.cu`` (the port of
+the TPU kernels ``filter_reduce_sum`` and ``filter_reduce_sum_multi``).
+A CUDA tensor launches the kernel — or raises; a CPU tensor takes the
+plain version in ``ref``.  Each wrapper counts its kernel launches in
+``.launches`` and its plain-version calls in ``.plain_calls``.
+
+Results keep the input dtype, as the TPU kernels do, and are bitwise
+the same from run to run (fixed grid, fixed summation order).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .ref import filter_reduce_sum as filter_reduce_sum_plain
+from .ref import filter_reduce_sum_multi as filter_reduce_sum_multi_plain
+
+#: threads per block and the grid cap of the partial-sum launch (the
+#: grid depends only on n, so a given n always sums in the same order)
+THREADS = 256
+MAX_BLOCKS = 1024
+#: aggregates per launch (csrc kMaxA); wider calls take several launches
+MAX_A = 4
+
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
+               torch.int64: 3}
+
+
+def grid_blocks(n: int) -> int:
+    """Blocks of the partial-sum launch: four rows per thread, capped."""
+    return max(1, min(MAX_BLOCKS, math.ceil(n / (THREADS * 4))))
+
+
+def _check_args(vals: torch.Tensor, pred: torch.Tensor) -> None:
+    if vals.device.type != "cuda" or pred.device != vals.device:
+        raise ValueError(
+            f"filter_reduce kernel takes CUDA tensors on one device, got "
+            f"{vals.device} and {pred.device}")
+    if vals.dtype not in DTYPE_CODES:
+        raise TypeError(f"filter_reduce kernel takes f32/f64/i32/i64 values, "
+                        f"got {vals.dtype}")
+    if pred.dtype != torch.bool or pred.ndim != 1 \
+            or pred.shape[0] != vals.shape[-1]:
+        raise ValueError("filter_reduce kernel needs a bool predicate of the "
+                         "values' length")
+    if not (vals.is_contiguous() and pred.is_contiguous()):
+        raise ValueError("filter_reduce kernel takes contiguous tensors")
+
+
+def _launch(vals: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """(A, n) values -> (A,) predicated sums on the card."""
+    a, n = vals.shape
+    out = torch.empty((a,), dtype=vals.dtype, device=vals.device)
+    nblocks = grid_blocks(n)
+    partials = torch.empty((nblocks, min(a, MAX_A)), dtype=vals.dtype,
+                           device=vals.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(vals.device):
+        for a0 in range(0, a, MAX_A):
+            rows = vals[a0:a0 + MAX_A]
+            rc = lib.weld_filter_reduce_sum(
+                DTYPE_CODES[vals.dtype], rows.data_ptr(), pred.data_ptr(), n,
+                rows.shape[0], partials.data_ptr(), nblocks,
+                out[a0:].data_ptr(), stream)
+            _build.check(rc, "filter_reduce kernel launch")
+    return out
+
+
+def filter_reduce_sum(x: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """sum(x[pred]) in one pass: x (n,), pred (n,) bool -> 0-dim tensor."""
+    if x.device.type == "cpu":
+        filter_reduce_sum.plain_calls += 1
+        return filter_reduce_sum_plain(x, pred)
+    if x.ndim != 1:
+        raise ValueError(f"filter_reduce_sum takes a 1-D column, got {x.shape}")
+    _check_args(x, pred)
+    if x.shape[0] == 0:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    out = _launch(x[None, :], pred)[0]
+    filter_reduce_sum.launches += 1
+    return out
+
+
+filter_reduce_sum.launches = 0
+filter_reduce_sum.plain_calls = 0
+
+
+def filter_reduce_sum_multi(vals: torch.Tensor,
+                            pred: torch.Tensor) -> torch.Tensor:
+    """Row-wise predicated sums: vals (A, n), pred (n,) -> (A,), with the
+    predicate and the value rows read once for all A aggregates."""
+    if vals.device.type == "cpu":
+        filter_reduce_sum_multi.plain_calls += 1
+        return filter_reduce_sum_multi_plain(vals, pred)
+    if vals.ndim != 2:
+        raise ValueError(f"filter_reduce_sum_multi takes (A, n) values, got "
+                         f"{vals.shape}")
+    _check_args(vals, pred)
+    if vals.shape[1] == 0 or vals.shape[0] == 0:
+        return torch.zeros((vals.shape[0],), dtype=vals.dtype,
+                           device=vals.device)
+    out = _launch(vals, pred)
+    filter_reduce_sum_multi.launches += 1
+    return out
+
+
+filter_reduce_sum_multi.launches = 0
+filter_reduce_sum_multi.plain_calls = 0
