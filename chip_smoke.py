@@ -7,17 +7,23 @@ Run from the root of a checkout on a machine with a CUDA card (and
 ``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
 kernels/csrc`` and then
 
-1. runs five phases through the frames a user calls — TPC-H Q6 and a
+1. runs seven phases through the frames a user calls — TPC-H Q6 and a
    Q1-style four-aggregate query on an SF10-sized lineitem (59,986,052
    rows), a 4096-key group-by over the same row count, PageRank
    iterations (4,096 vertices x 16,777,216 edges under
-   ``kernelize="always"``, 1,000,000 x 10,000,000 under ``"auto"``) and
-   the quickstart workflow (2,000,000 rows) — each checked against numpy
-   computed here, with every kernel launch counter zeroed just before a
-   phase and read just after;
+   ``kernelize="always"``, 1,000,000 x 10,000,000 under ``"auto"``, run
+   twice), the quickstart workflow (2,000,000 rows), the Star Schema
+   Benchmark's Q1.1 join (the SF10 lineitem as lineorder, 59,986,052
+   rows, against the 365 date rows of 1993: inner with a filter, left,
+   anti) and an m:n join on TPC-H partsupp's fan-out (16,777,216 probe
+   rows against 50,000 parts x 4 suppliers: inner, left) — each checked
+   against numpy computed here, with every kernel launch counter zeroed
+   just before a phase and read just after;
 2. holds each kernel against its plain PyTorch version on the card at the
    phases' shapes, for every dtype its planner spec takes, runs it twice
-   (the two results must be bitwise equal) and times kernel, plain
+   (the two results must be bitwise equal; ``hash_to_slot``, whose slot
+   numbers may differ between runs, is held to its contract and its
+   compacted slots to the plain version's) and times kernel, plain
    version and a one-call PyTorch yardstick with CUDA events;
 3. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
@@ -44,6 +50,8 @@ PEAK_OPS = {"float64": 34e12, "float32": 67e12, "int32": 67e12,
             "int64": 67e12}
 
 SF10_ROWS = 59_986_052
+#: days of SSB's date dimension, 1992-01-01 .. 1998-12-31
+SSB_DAYS = 2557
 
 
 @dataclass
@@ -54,6 +62,11 @@ class Sizes:
     pr_always: tuple = (4096, 16_777_216)
     pr_auto: tuple = (1_000_000, 10_000_000)
     quickstart: int = 2_000_000
+    join_m1_rows: int = SF10_ROWS
+    #: partsupp at SF 0.25: parts x suppliers per part
+    join_mn_parts: int = 50_000
+    join_mn_fanout: int = 4
+    join_mn_rows: int = 16_777_216
     timing_reps: int = 10
 
 
@@ -261,7 +274,12 @@ def _pagerank_iter(rank, src, dst, invdeg, nv, mode, stats):
 
 
 def phase_pagerank(mp: MainPath) -> None:
+    """PageRank's scatter under "always" (the segment kernel) and under
+    "auto" (K > MAX_K: the generic vecmerger, whose float sum is sorted
+    and reduced in row order), the latter twice: bitwise the same."""
+    previous = None
     for (nv, ne), mode in ((mp.sizes.pr_always, "always"),
+                           (mp.sizes.pr_auto, "auto"),
                            (mp.sizes.pr_auto, "auto")):
         rng = np.random.RandomState(mp.seed + 2)
         src = rng.randint(0, nv, ne).astype(np.int64)
@@ -286,6 +304,12 @@ def phase_pagerank(mp: MainPath) -> None:
             check(rejected.get("vecmerger_segment_sum", 0) > 0,
                   f"pagerank[auto] at K={nv} should stay on the generic "
                   f"path (the gate rejects K > MAX_K), got {stats['kernelplan']}")
+            if previous is not None:
+                check(np.array_equal(got.view(np.int64),
+                                     previous.view(np.int64)),
+                      "pagerank[auto]: repeated run differs bitwise")
+                log("  pagerank[auto] repeated run: bitwise identical")
+            previous = got
 
 
 def phase_quickstart(mp: MainPath) -> None:
@@ -311,6 +335,156 @@ def phase_quickstart(mp: MainPath) -> None:
         close(got, want, 1e-9, f"quickstart[{mode}]")
 
 
+def ssb_dates() -> np.ndarray:
+    """yyyymmdd of every day of SSB's date dimension, in order."""
+    days = np.datetime64("1992-01-01") + np.arange(SSB_DAYS)
+    y = days.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    d = (days - days.astype("datetime64[M]")).astype(np.int64) + 1
+    return (y * 10000 + m * 100 + d).astype(np.int64)
+
+
+def date_1993(seed: int) -> dict:
+    """The 365 date-dimension rows of 1993 (SSB Q1.1's ``d_year = 1993``):
+    key, week of the year and one float column."""
+    lut = ssb_dates()
+    first = int(np.searchsorted(lut, 19930101))
+    keys = lut[first:first + 365]
+    rng = np.random.RandomState(seed + 3)
+    return {"datekey": keys, "weeknum": np.arange(365, dtype=np.int64) // 7 + 1,
+            "rate": rng.uniform(0.0, 0.1, 365)}
+
+
+def partsupp(parts: int, fanout: int, seed: int) -> dict:
+    """TPC-H partsupp at `parts` parts: each part's `fanout` suppliers by
+    the generator's formula (S = parts / 20 suppliers), rows in part
+    order, a supply cost in cents."""
+    s = parts // 20
+    pk = np.repeat(np.arange(1, parts + 1, dtype=np.int64), fanout)
+    i = np.tile(np.arange(fanout, dtype=np.int64), parts)
+    sk = (pk + i * (s // 4 + (pk - 1) // s)) % s + 1
+    rng = np.random.RandomState(seed + 4)
+    return {"partkey": pk, "suppkey": sk,
+            "supplycost": rng.randint(100, 100_001, pk.shape[0]) / 100.0}
+
+
+def same_column(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    """Equal exactly: integers equal, floats bitwise (NaN as NaN)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype}{got.shape} vs numpy {want.dtype}{want.shape}")
+    if want.dtype.kind == "f":
+        nan = np.isnan(want)
+        check(np.array_equal(np.isnan(got), nan), f"{what}: NaN rows differ")
+        check(np.array_equal(got[~nan].view(np.int64),
+                             want[~nan].view(np.int64)),
+              f"{what}: values differ from numpy's")
+    else:
+        check(np.array_equal(got, want), f"{what}: values differ from numpy's")
+
+
+def same_table(got: dict, want: dict, what: str) -> None:
+    check(list(got) == list(want), f"{what}: columns {list(got)} vs "
+                                   f"{list(want)}")
+    for c in want:
+        same_column(got[c], want[c], f"{what}.{c}")
+
+
+def _join_runs(mp: MainPath, phase: str, how: str, fn, want: dict,
+               expect) -> None:
+    """Drive one join under "always" twice and "auto" once; each equal to
+    numpy, the two "always" results bitwise equal."""
+    from repro_torch.frames import weldrel
+
+    first = None
+    for mode in ("always", "always", "auto"):
+        res, _ = mp.run(f"{phase}.{how}", mode, fn, expect=expect)
+        got = {c: np.asarray(weldrel._host(res.cols[c])) for c in res.cols}
+        same_table(got, want, f"{phase}.{how}[{mode}]")
+        if mode == "always" and first is not None:
+            same_table(got, first, f"{phase}.{how}[always] repeat")
+            log(f"  {phase}.{how}[always] repeated run: bitwise identical")
+        if first is None:
+            first = got
+        del res, got
+
+
+def phase_join_m1(mp: MainPath, cols: dict) -> None:
+    """SSB Q1.1's join: lineorder (the lineitem columns + orderdate) with
+    the 1993 rows of the date dimension, m:1 on the date key."""
+    from repro_torch.frames import weldrel
+
+    n = cols["qty"].shape[0]
+    rng = np.random.RandomState(mp.seed + 5)
+    probe = dict(cols, orderdate=ssb_dates()[rng.randint(0, SSB_DAYS, n)])
+    date = date_1993(mp.seed)
+    pos = np.clip(np.searchsorted(date["datekey"], probe["orderdate"]),
+                  0, 364)
+    found = date["datekey"][pos] == probe["orderdate"]
+    expect = [("dict_hash_build", "hash_to_slot"),
+              ("dict_hash_build", "segment_sum"),
+              ("hash_probe", "dict_probe")]
+    for how in ("inner", "left", "anti"):
+        keep = {"inner": found & (probe["qty"] < 24.0), "left": None,
+                "anti": ~found}[how]
+        want = {c: (v if keep is None else v[keep]) for c, v in probe.items()}
+        if how != "anti":
+            p = pos if keep is None else pos[keep]
+            f = found if keep is None else found[keep]
+            want["weeknum"] = np.where(f, date["weeknum"][p], 0)
+            want["rate"] = np.where(f, date["rate"][p], np.nan)
+
+        def join(mode, stats, how=how):
+            t = weldrel.Table(probe)
+            q = weldrel.Query(t)
+            if how == "inner":
+                q = q.filter(t.col("qty") < 24.0)
+            return q.join(weldrel.Table(date), on="orderdate",
+                          right_on="datekey", how=how, kernelize=mode,
+                          collect_stats=stats)
+
+        _join_runs(mp, "join_m1", how, join, want, expect)
+        del want
+
+
+def phase_join_mn(mp: MainPath) -> None:
+    """An m:n join on partsupp's fan-out: lineitem-shaped rows with a part
+    key uniform over twice the part range, against every supplier of
+    each part."""
+    from repro_torch.frames import weldrel
+
+    s = mp.sizes
+    build = partsupp(s.join_mn_parts, s.join_mn_fanout, mp.seed)
+    probe = lineitem(s.join_mn_rows, mp.seed + 6)
+    rng = np.random.RandomState(mp.seed + 7)
+    probe["partkey"] = rng.randint(0, 2 * s.join_mn_parts,
+                                   s.join_mn_rows).astype(np.int64)
+    bk = build["partkey"]  # sorted: within a key, build-row order
+    lo = np.searchsorted(bk, probe["partkey"], side="left")
+    cnt = np.searchsorted(bk, probe["partkey"], side="right") - lo
+    expect = [("group_build", "hash_to_slot"), ("group_build", "slot_hist"),
+              ("group_probe", "group_probe")]
+    for how in ("inner", "left"):
+        rep = cnt if how == "inner" else np.maximum(cnt, 1)
+        rows = np.repeat(np.arange(s.join_mn_rows), rep)
+        ordinal = np.arange(rows.shape[0]) - np.repeat(np.cumsum(rep) - rep,
+                                                       rep)
+        hit = cnt[rows] > 0
+        gidx = np.where(hit, lo[rows] + ordinal, 0)
+        want = {c: v[rows] for c, v in probe.items()}
+        want["suppkey"] = np.where(hit, build["suppkey"][gidx], 0)
+        want["supplycost"] = np.where(hit, build["supplycost"][gidx], np.nan)
+        del rows, ordinal, hit, gidx
+        log(f"join_mn.{how}: {want['suppkey'].shape[0]} output rows")
+
+        def join(mode, stats, how=how):
+            return weldrel.Query(weldrel.Table(probe)).join(
+                weldrel.Table(build), on="partkey", how=how, kernelize=mode,
+                collect_stats=stats)
+
+        _join_runs(mp, "join_mn", how, join, want, expect)
+        del want
+
+
 # ---------------------------------------------------------------------------
 # each kernel against its plain version, timed
 # ---------------------------------------------------------------------------
@@ -327,6 +501,25 @@ def time_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps: int):
+    """Device time per call, summed over the CUDA activities (kernels and
+    memsets) of `reps` calls in a profiler trace — what the card spent,
+    without the host's launch path, which CUDA events around a tiny
+    kernel mostly measure.  None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / reps if us else None
 
 
 def _random(torch, gen, shape, dtype, dev):
@@ -459,6 +652,137 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     return rows
 
 
+def _exact_err(torch, got, want) -> float:
+    """Largest |difference| over the outputs of an integer/bool kernel
+    (0.0 when they are bitwise equal)."""
+    return max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+               if g.numel() else 0.0 for g, w in zip(got, want))
+
+
+def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
+                      dev="cuda") -> list:
+    """The join's four kernels at the join phases' shapes: dict_probe at
+    the m:1 probe (59,986,052 order dates against 365 date keys),
+    group_probe at the m:n probe (16,777,216 part keys against 50,000
+    groups), hash_to_slot and slot_hist at the m:n build (200,000 rows).
+    The probes and the histogram must equal their plain versions bitwise
+    and repeat bitwise; hash_to_slot is held to its contract, and its
+    compacted slots to the plain version's, run after run."""
+    from repro_torch.kernels import group_build as gb
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import hash_table as ht
+    from repro_torch.kernels import ref
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    n_m1 = sizes.join_m1_rows
+    lut = torch.from_numpy(ssb_dates()).to(dev)
+    dates = torch.from_numpy(date_1993(seed)["datekey"]).to(dev)
+    orderdate = lut[torch.randint(0, SSB_DAYS, (n_m1,), generator=gen,
+                                  device=dev)]
+    n_dates = torch.tensor(dates.shape[0], device=dev)
+    parts, fan = sizes.join_mn_parts, sizes.join_mn_fanout
+    pk = torch.from_numpy(partsupp(parts, fan, seed)["partkey"]).to(dev)
+    n_b = pk.shape[0]
+    ctab = ht.table_size(parts)
+    p_slots, p_table, _ = ref.hash_to_slot(pk, ctab)
+    cslots = ht.compact_slots(p_slots, p_table, parts)
+    groups = torch.unique(pk)
+    offsets = torch.arange(0, n_b + 1, fan, dtype=torch.int32, device=dev)
+    n_groups = torch.tensor(parts, device=dev)
+    n_mn = sizes.join_mn_rows
+    partkey = torch.randint(0, 2 * parts, (n_mn,), generator=gen, device=dev)
+    def lg(c):  # dependent loads of one binary search over c keys
+        return max(int(np.ceil(np.log2(max(c, 2)))), 1)
+
+    cases = [
+        # (name, kernel, plain, library, library name, bytes, operations,
+        #  source, TPU kernel); keys int64, slot_hist's slots int32
+        ("hash_to_slot", lambda: ht.hash_to_slot(pk, ctab),
+         lambda: ref.hash_to_slot(pk, ctab),
+         lambda: torch.unique(pk, return_inverse=True),
+         "torch.unique(return_inverse=True)", n_b * (8 + 4) + ctab * 8 + 4,
+         n_b, "hash_table.cu", "src/repro/kernels/hash_table.py:123"),
+        ("dict_probe", lambda: hp.dict_probe(dates, n_dates, orderdate),
+         lambda: ref.dict_probe(dates, n_dates, orderdate),
+         lambda: torch.searchsorted(dates, orderdate), "torch.searchsorted",
+         n_m1 * (8 + 4 + 1) + dates.shape[0] * 8 + 8,
+         n_m1 * lg(dates.shape[0]), "hash_probe.cu",
+         "src/repro/kernels/hash_probe.py:125"),
+        ("group_probe",
+         lambda: hp.group_probe(groups, offsets, n_groups, partkey),
+         lambda: ref.group_probe(groups, offsets, n_groups, partkey),
+         lambda: torch.searchsorted(groups, partkey), "torch.searchsorted",
+         n_mn * (8 + 4 + 1 + 4) + parts * 8 + (parts + 1) * 4 + 8,
+         n_mn * lg(parts), "hash_probe.cu",
+         "src/repro/kernels/hash_probe.py:83"),
+        ("slot_hist", lambda: gb.slot_hist(cslots, parts + 1),
+         lambda: ref.slot_hist(cslots, parts + 1),
+         lambda: torch.bincount(cslots, minlength=parts + 1),
+         "torch.bincount(minlength=num_slots)", n_b * 4 + (parts + 1) * 4,
+         n_b, "group_build.cu", "src/repro/kernels/group_build.py:73"),
+    ]
+    rows = []
+    for name, kern, plain, library, lib_name, nbytes, ops, src, tpu in cases:
+        dtype = "int32" if name == "slot_hist" else "int64"
+        first, second, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if name == "hash_to_slot":
+            for out in (first, second):
+                ht.check_contract(pk, ctab, *out)
+            got = [ht.compact_slots(o[0], o[1], ctab) for o in (first, second)]
+            err = _exact_err(torch, [got[0], first[2]], [want[0], want[2]])
+            check(torch.equal(got[0], got[1]),
+                  f"{name}: compacted slots differ between runs")
+            what = "contract ok, compacted slots == plain"
+        else:
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"{name}: two runs differ bitwise")
+            err = _exact_err(torch, first, want)
+            what = "bitwise == plain, bitwise_repeat=ok"
+        check(err == 0.0, f"{name}: kernel differs from its plain version "
+                          f"(max |diff| {err})")
+        reps = sizes.timing_reps
+        t_kernel = time_ms(torch, kern, reps)
+        t_plain = time_ms(torch, plain, reps)
+        t_lib = time_ms(torch, library, reps)
+        t_kernel2 = time_ms(torch, kern, reps)
+        t_device = device_ms(torch, kern, reps)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS[dtype] * 1e3
+        row = {
+            "dtype": dtype, "max_abs_err": err, "tolerance": 0.0,
+            "ms": min(t_kernel, t_kernel2), "ms_runs": [t_kernel, t_kernel2],
+            "device_ms": t_device,
+            "plain_ms": t_plain, "library_ms": t_lib,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops,
+        }
+        dev_txt = "not measured" if t_device is None else f"{t_device:.4f}"
+        log(f"kernel {name}[{dtype}] kernel_ms={row['ms']:.4f} (runs "
+            f"{t_kernel:.4f}, {t_kernel2:.4f}; profiler device_ms {dev_txt}) "
+            f"plain_ms={t_plain:.4f} "
+            f"library_ms={t_lib:.4f} ({lib_name}) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {what}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": launches[name],
+            "max_abs_err": err, "ms": row["ms"], "device_ms": t_device,
+            "plain_ms": t_plain,
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": t_lib, "library": lib_name, "dtype": dtype,
+            "per_dtype": [row],
+        })
+        del first, second, want
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -498,13 +822,16 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     log(f"lineitem: {sizes.lineitem} rows generated in "
         f"{time.perf_counter() - t0:.3f} s")
     phase_tpch(mp, cols)
+    phase_join_m1(mp, cols)
     del cols
     phase_groupby(mp)
     phase_pagerank(mp)
     phase_quickstart(mp)
+    phase_join_mn(mp)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches)
+    kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
     return {"kernels": kernels, "phase_ms": mp.phase_ms,
             "total_s": time.perf_counter() - t_all}
 

@@ -24,14 +24,16 @@ both operands explicitly (torch's own rules would let a dimensioned
 float32 operand win over a 0-dim float64 one; the reference does not).
 
 Keyed builders are finalized by sort + segmented reduction over runs of
-equal keys in a fixed order, so float dictmerger sums are bitwise
-identical from run to run on the card.
-
-Groupbuilders, ``grouplookup`` and the m:n join probe wait for the join
-slice (ROADMAP A, queue item 1) and raise ``NotImplementedError``.
+equal keys in a fixed order, so float dictmerger sums — and float
+vecmerger sums — are bitwise identical from run to run on the card.
+Groupbuilders finalize CSR-style (values sorted by key + offsets), and
+``grouplookup`` lowers only as the iteration source of the m:n join
+probe (:func:`match_group_probe`): a binary-search membership pass and a
+two-phase expansion (match counts -> exclusive scan -> repeat/gather).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,7 +43,7 @@ from .. import ir
 from .. import wtypes as wt
 from ..cudf import has_cudf, lookup_cudf_torch
 from ..errors import ResourceError, WeldError
-from .values import WDict, WVec
+from .values import WDict, WGroup, WVec
 
 
 class WeldCompileError(WeldError):
@@ -51,10 +53,6 @@ class WeldCompileError(WeldError):
 
 #: memory_limit breaches are typed ResourceError (the reference's alias).
 WeldMemoryError = ResourceError
-
-_JOIN_SLICE = ("groupbuilder results, grouplookup and the m:n join probe "
-               "wait for the join slice of the port (ROADMAP A, queue item 1)")
-
 
 class _NeedsVmap(Exception):
     """Raised when a loop body needs its element as a vector."""
@@ -206,6 +204,11 @@ class _VecMergerAcc(_Acc):
         self.base = base
 
     def finalize(self):
+        """base merged with every contribution.  A float ``+`` sorts the
+        contributions by index and sums each run in row order before it
+        adds the base (torch's scatter-add uses float atomics on the card,
+        which are not bitwise repeatable); integer ``+`` and ``*``,
+        ``min``, ``max`` are exact in any order and scatter directly."""
         out = self.base.data
         k = out.shape[0]
         ident = _identity_value(self.bt.elem, self.bt.op, self.device)
@@ -222,6 +225,9 @@ class _VecMergerAcc(_Acc):
             if mask is not None:
                 keep = keep & mask
             idx = torch.where(idx < 0, idx + k, idx)
+            if self.bt.op == "+" and out.is_floating_point():
+                out = out + _sorted_scatter_sum(idx, v.to(out.dtype), keep, k)
+                continue
             idx = torch.where(keep, idx, torch.zeros_like(idx))
             v = _where(keep, v, ident).to(out.dtype)
             if self.bt.op == "+":
@@ -233,6 +239,12 @@ class _VecMergerAcc(_Acc):
 
 
 class _DictMergerAcc(_Acc):
+    def __init__(self, bt, capacity: int, device):
+        super().__init__(bt, device)
+        self.capacity = int(capacity)
+
+
+class _GroupAcc(_Acc):
     def __init__(self, bt, capacity: int, device):
         super().__init__(bt, device)
         self.capacity = int(capacity)
@@ -266,9 +278,20 @@ def _segment_reduce_sorted(col: torch.Tensor, seg: torch.Tensor, nseg: int,
     return out.scatter_reduce(0, seg, col, reduce=red, include_self=True)
 
 
-def _finalize_keyed(acc: _DictMergerAcc) -> WDict:
-    """Finalize a dictmerger: sort by packed key + segment-reduce the
-    runs of equal keys (the atomic-free 'global builder' strategy)."""
+def _sorted_scatter_sum(idx: torch.Tensor, v: torch.Tensor,
+                        keep: torch.Tensor, k: int) -> torch.Tensor:
+    """(k,) sums of ``v`` over equal ``idx`` in [0, k), rows where
+    ``keep`` only; each run of one index sums in row order."""
+    seg = torch.where(keep, idx, torch.full_like(idx, k))
+    order = torch.argsort(seg, stable=True)
+    return _segment_reduce_sorted(v[order], seg[order], k + 1, "+")[:k]
+
+
+def _finalize_keyed(acc, is_group: bool = False):
+    """Finalize a dictmerger or groupbuilder: sort by packed key, then
+    segment-reduce the runs of equal keys (dicts) or keep the values
+    sorted by key with CSR offsets (groups) — the atomic-free 'global
+    builder' strategy."""
     parts_k, parts_v, parts_m = [], [], []
     for kind, value, mask in acc.contribs:
         k, v = value
@@ -315,6 +338,13 @@ def _finalize_keyed(acc: _DictMergerAcc) -> WDict:
     # rows past the capacity (overflow) fold into the parked slot, which
     # keeps `seg` nondecreasing for the ordered segmented reduction
     seg = torch.clamp(seg, max=cap)
+    if is_group:
+        # values stay sorted by key (build-row order within a key);
+        # offsets from the rows per segment
+        sizes = torch.bincount(seg, minlength=cap + 1)[:cap]
+        offsets = torch.cat([torch.zeros((1,), dtype=sizes.dtype,
+                                         device=dev), torch.cumsum(sizes, 0)])
+        return WGroup(out_keys, sv, offsets, count)
     out_vals = _tree_map(
         lambda col: _segment_reduce_sorted(col, seg, cap + 1,
                                            acc.bt.op)[:cap], sv)
@@ -467,6 +497,226 @@ def _dict_find(d: WDict, key):
     pos = torch.clamp(torch.searchsorted(table, q), 0, cap - 1)
     found = (table[pos] == q) & (pos < valid_n)
     return pos, found, scalar
+
+
+def _group_find(g: WGroup, key):
+    """Locate batched probe keys in a groupbuilder result's sorted key
+    columns (the :func:`_dict_find` search: parked slots neutralized, a
+    poisoned group matches nothing).  Returns ``(pos, found, sizes)`` —
+    clipped slot positions, a hit mask, and the per-query group size
+    (0 on a miss)."""
+    pos, found, _ = _dict_find(g, key)
+    offs = torch.as_tensor(g.offsets, device=pos.device).to(torch.int64)
+    if offs.shape[0] < 2:  # statically empty build side
+        return pos, found, torch.zeros_like(pos)
+    sizes = torch.where(found, (offs[1:] - offs[:-1])[pos],
+                        torch.zeros_like(pos))
+    return pos, found, sizes
+
+
+def expand_rows(cnt: torch.Tensor, out_cap: int):
+    """Two-phase variable-length expansion: per-row repeat counts ->
+    ``(rows, ordinals, total)``.  ``rows[j]`` is the source row of output
+    slot ``j`` (exclusive-scan offsets + binary search), ``ordinals[j]``
+    its position within that row's run; ``total`` is the dynamic output
+    length (a device tensor) materialized into the static ``out_cap``
+    buffer."""
+    n = cnt.shape[0]
+    dev = cnt.device
+    cnt = cnt.to(torch.int64)
+    total = cnt.sum() if n else torch.zeros((), dtype=torch.int64, device=dev)
+    if out_cap == 0 or n == 0:
+        z = torch.zeros((out_cap,), dtype=torch.int64, device=dev)
+        return z, z, total
+    ends = torch.cumsum(cnt, 0)
+    starts = ends - cnt
+    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    rows = torch.clamp(torch.searchsorted(ends, j, right=True), 0, n - 1)
+    ordinals = j - starts[rows]
+    return rows, ordinals, total
+
+
+def group_expand(g: WGroup, pos, found, sizes, mask, how: str,
+                 out_cap: int, col_specs):
+    """Materialize an m:n probe's expanded output columns: match counts
+    -> exclusive scan -> repeat/gather, all columns sharing ONE
+    expansion index.  ``col_specs`` entries are ``("expr", col)`` (a
+    whole probe-side column, repeated per match) or ``("gather", data,
+    fill)`` (a build-side column gathered through the group's stored
+    row payload; ``fill`` selects left-join miss rows).  Poison
+    (negative group count, or a dynamic total exceeding the static
+    capacity) propagates as a negative output count."""
+    n = pos.shape[0]
+    dev = found.device
+    sizes = sizes.to(torch.int64)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    if how == "inner":
+        cnt = torch.where(found & mask, sizes, zero)
+    elif how == "left":  # misses emit ONE fill row each
+        cnt = torch.where(mask, torch.where(found, sizes, zero + 1), zero)
+    else:
+        raise WeldCompileError(f"group expansion how={how!r}")
+    rows, ordinals, total = expand_rows(cnt, out_cap)
+    total = torch.where(total > out_cap, -total - 1, total)
+    total = torch.where(
+        torch.as_tensor(g.count, device=dev).to(torch.int64) < 0,
+        zero - 1, total)
+    vals = g.values
+    if isinstance(vals, tuple):
+        raise WeldCompileError("group expansion needs a scalar payload")
+    nv = vals.shape[0]
+    offs = torch.as_tensor(g.offsets, device=dev).to(torch.int64)
+    if n == 0 or out_cap == 0:
+        frow = torch.zeros((out_cap,), dtype=torch.bool, device=dev)
+        payload = torch.zeros((out_cap,), dtype=torch.int64, device=dev)
+    else:
+        frow = found[rows]
+        grp = torch.clamp(pos[rows].to(torch.int64), 0, offs.shape[0] - 2)
+        if nv == 0:
+            payload = torch.zeros((out_cap,), dtype=torch.int64, device=dev)
+        else:
+            bpos = torch.clamp(offs[grp] + ordinals, 0, nv - 1)
+            payload = vals[bpos].to(torch.int64)
+    outs = []
+    for spec in col_specs:
+        if spec[0] == "expr":
+            col = spec[1]
+            out = col[rows] if (n and out_cap) else torch.zeros(
+                (out_cap,), dtype=col.dtype, device=dev)
+        else:
+            rv, fill = spec[1], spec[2]
+            if rv.shape[0] == 0 or out_cap == 0:
+                out = torch.zeros((out_cap,), dtype=rv.dtype, device=dev)
+                if fill is not None:
+                    out = torch.full((out_cap,), fill, dtype=rv.dtype,
+                                     device=dev)
+            else:
+                out = rv[torch.clamp(payload, 0, rv.shape[0] - 1)]
+            if how == "left" and out_cap:
+                out = torch.where(frow, out, torch.tensor(
+                    fill, dtype=rv.dtype, device=dev))
+        outs.append(out)
+    return tuple(WVec(o, count=total) for o in outs)
+
+
+@dataclass
+class GroupProbeShape:
+    """Destructured m:n probe loop (see :func:`match_group_probe`)."""
+
+    d: "ir.Ident"                 # the groupbuilder dict
+    key_parts: list               # per-probe-row key column exprs
+    pred: Optional["ir.Expr"]     # optional elementwise row predicate
+    how: str                      # "inner" | "left"
+    cols: list                    # ("expr", e) | ("gather", rcol Ident)
+    fills: list                   # per-column left-miss Literal (or None)
+    builders: list                # the output NewBuilder(VecBuilder)s
+
+
+def match_group_probe(loop: ir.For) -> Optional[GroupProbeShape]:
+    """Structurally match weldrel's m:n join probe loop — the canonical
+    variable-length-expansion form shared by the generic lowering and
+    the kernel planner's ``group_probe`` route:
+
+        for(V.., {vecbuilder..}, (b,i,x) =>
+            [if(pred,]
+              [if(keyexists(d, k),]                        # left only
+                for(grouplookup(d, k), b, (b2,i2,r) =>
+                    {merge(b2.$k, f(x) | lookup(RCOL, r))..})
+              [, {merge(b.$k, f(x) | fill)..})]            # left misses
+            [, b)])
+
+    Returns ``None`` when the loop is anything else (the generic
+    accumulator lowering then applies)."""
+    nb = loop.builder
+    if not (isinstance(nb, ir.MakeStruct) and nb.items and all(
+            isinstance(p, ir.NewBuilder) and isinstance(p.ty, wt.VecBuilder)
+            and isinstance(p.ty.elem, wt.Scalar) for p in nb.items)):
+        return None
+    if len(loop.func.params) != 3:
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    pred: Optional[ir.Expr] = None
+    if (isinstance(body, ir.If) and isinstance(body.on_false, ir.Ident)
+            and body.on_false.name == b.name):
+        pred, body = body.cond, body.on_true
+    how, miss, ke = "inner", None, None
+    if isinstance(body, ir.If) and isinstance(body.cond, ir.KeyExists):
+        how, ke, miss, body = "left", body.cond, body.on_false, body.on_true
+    if not (isinstance(body, ir.For) and len(body.iters) == 1
+            and body.iters[0].is_plain
+            and isinstance(body.iters[0].data, ir.GroupLookup)):
+        return None
+    gl = body.iters[0].data
+    d = gl.expr
+    if not (isinstance(d, ir.Ident) and isinstance(d.ty, wt.DictType)
+            and isinstance(d.ty.val, wt.Vec)):
+        return None
+    if how == "left" and not (
+            isinstance(ke.expr, ir.Ident) and ke.expr.name == d.name
+            and ir.canon_key(ke.key) == ir.canon_key(gl.key)):
+        return None
+    if not (isinstance(body.builder, ir.Ident)
+            and body.builder.name == b.name):
+        return None
+    if len(body.func.params) != 3:
+        return None
+    bi, ii, ri = body.func.params
+    ibody = body.func.body
+    if not (isinstance(ibody, ir.MakeStruct)
+            and len(ibody.items) == len(nb.items)):
+        return None
+
+    def merge_into(item: ir.Expr, k: int, bname: str) -> Optional[ir.Expr]:
+        if (isinstance(item, ir.Merge)
+                and isinstance(item.builder, ir.GetField)
+                and item.builder.index == k
+                and isinstance(item.builder.expr, ir.Ident)
+                and item.builder.expr.name == bname):
+            return item.value
+        return None
+
+    cols: list = []
+    fills: list = []
+    for k, item in enumerate(ibody.items):
+        v = merge_into(item, k, bi.name)
+        if v is None:
+            return None
+        if (isinstance(v, ir.Lookup) and v.default is None
+                and isinstance(v.expr, ir.Ident)
+                and isinstance(v.expr.ty, wt.Vec)
+                and isinstance(v.index, ir.Ident)
+                and v.index.name == ri.name):
+            cols.append(("gather", v.expr))
+        else:
+            if set(ir.free_vars(v)) & {ri.name, ii.name, bi.name, d.name}:
+                return None
+            cols.append(("expr", v))
+        fills.append(None)
+    if how == "left":
+        if not (isinstance(miss, ir.MakeStruct)
+                and len(miss.items) == len(nb.items)):
+            return None
+        for k, item in enumerate(miss.items):
+            mv = merge_into(item, k, b.name)
+            if mv is None:
+                return None
+            kind, payload = cols[k]
+            if kind == "gather":
+                if not isinstance(mv, ir.Literal):
+                    return None
+                fills[k] = mv
+            elif ir.canon_key(mv) != ir.canon_key(payload):
+                return None  # probe columns must fill with themselves
+    key = gl.key
+    key_parts = (
+        list(key.items) if isinstance(key, ir.MakeStruct) else [key]
+    )
+    for e2 in key_parts + ([pred] if pred is not None else []):
+        if d.name in ir.free_vars(e2):
+            return None
+    return GroupProbeShape(d=d, key_parts=key_parts, pred=pred, how=how,
+                           cols=cols, fills=fills, builders=list(nb.items))
 
 
 def _gather_clamped(data, idx):
@@ -717,14 +967,20 @@ class Emitter:
     def _ev_KeyExists(self, x: ir.KeyExists, env, ctx):
         d = self.ev(x.expr, env, ctx)
         k = self.ev(x.key, env, ctx)
-        if not isinstance(d, WDict):
-            raise NotImplementedError(_JOIN_SLICE)
         self._note_taint(d)
+        if isinstance(d, WGroup):
+            pos, found, _ = _group_find(d, k)
+            return found
         pos, found, scalar = _dict_find(d, k)
         return found[0] if scalar else found
 
     def _ev_GroupLookup(self, x: ir.GroupLookup, env, ctx):
-        raise NotImplementedError(_JOIN_SLICE)
+        raise WeldCompileError(
+            "grouplookup has data-dependent length and lowers only as "
+            "the iteration source of an m:n probe loop (the shape "
+            "match_group_probe recognizes); restructure the program "
+            "around that canonical expansion form"
+        )
 
     def _ev_CUDF(self, x: ir.CUDF, env, ctx):
         if ctx is not None and any(
@@ -806,15 +1062,14 @@ class Emitter:
         if isinstance(bt, wt.VecMerger):
             base = self.ev(x.arg, env, ctx)
             return _VecMergerAcc(bt, base, self.device)
-        if isinstance(bt, wt.DictMerger):
+        if isinstance(bt, (wt.DictMerger, wt.GroupBuilder)):
             cap = 1024
             if x.arg is not None:
                 c = _static_eval(x.arg, self.input_shapes)
                 if c is not None:
                     cap = c
-            return _DictMergerAcc(bt, cap, self.device)
-        if isinstance(bt, wt.GroupBuilder):
-            raise NotImplementedError(_JOIN_SLICE)
+            cls = _DictMergerAcc if isinstance(bt, wt.DictMerger) else _GroupAcc
+            return cls(bt, cap, self.device)
         raise WeldCompileError(f"cannot build {bt}")
 
     def _ev_Merge(self, x: ir.Merge, env, ctx):
@@ -832,16 +1087,90 @@ class Emitter:
         return acc
 
     def _ev_Result(self, x: ir.Result, env, ctx):
+        if ctx is None and isinstance(x.builder, ir.For):
+            shape = match_group_probe(x.builder)
+            if shape is not None:
+                return self._lower_group_probe(x.builder, shape, env)
         acc = self.ev(x.builder, env, ctx)
         if isinstance(acc, tuple):
             return tuple(self._finalize(a) for a in acc)
         return self._finalize(acc)
 
+    def _lower_group_probe(self, loop: ir.For, shape: GroupProbeShape, env):
+        """Generic (kernel-free) lowering of the m:n join probe: one
+        binary-search membership pass over the group's sorted keys, then
+        the shared two-phase expansion (match counts -> exclusive scan ->
+        repeat/gather) with every output column riding one expansion
+        index.  Output length is data-dependent; the static buffer
+        capacity comes from the vecbuilders' size hints."""
+        g = self.ev(shape.d, env, None)
+        if not isinstance(g, WGroup):
+            raise WeldCompileError("group probe expects a groupbuilder dict")
+        seqs = [self.ev(it, env, None) for it in loop.iters]
+        n = min(s.capacity() for s in seqs)
+        mask = None
+        for s in seqs:
+            if not s.is_dense:
+                m = torch.arange(n, device=self.device) < s.count
+                mask = m if mask is None else mask & m
+        b_p, i_p, x_p = loop.func.params
+        env2 = dict(env)
+        env2[i_p.name] = torch.arange(n, dtype=torch.int64, device=self.device)
+        env2[x_p.name] = (
+            _first_n(seqs[0].data, n) if len(seqs) == 1
+            else tuple(_first_n(s.data, n) for s in seqs)
+        )
+
+        def col(v):
+            return v if v.ndim >= 1 and v.shape[0] == n \
+                else torch.broadcast_to(v, (n,) + tuple(v.shape))
+
+        key_cols = [col(self.ev(kp, env2, None)) for kp in shape.key_parts]
+        key = tuple(key_cols) if len(key_cols) > 1 else key_cols[0]
+        pos, found, sizes = _group_find(g, key)
+        pm = mask
+        if shape.pred is not None:
+            pv = col(self.ev(shape.pred, env2, None)).to(torch.bool)
+            pm = pv if pm is None else pm & pv
+        if pm is None:
+            pm = torch.ones((n,), dtype=torch.bool, device=self.device)
+        hint = shape.builders[0].size_hint
+        out_cap = (
+            _static_eval(hint, self.input_shapes)
+            if hint is not None else None
+        )
+        if out_cap is None:
+            raise WeldCompileError(
+                "m:n group probe needs a static output capacity "
+                "(vecbuilder size hint)"
+            )
+        self._charge(sum(int(out_cap) * np.dtype(p.ty.elem.np_dtype).itemsize
+                         for p in shape.builders),
+                     " (incl. m:n join expansion)")
+        col_specs = []
+        for (kind, payload), fill in zip(shape.cols, shape.fills):
+            if kind == "expr":
+                col_specs.append(("expr", col(self.ev(payload, env2, None))))
+            else:
+                rv = self.ev(payload, env, None)
+                if not isinstance(rv, WVec) or not rv.is_dense:
+                    raise WeldCompileError(
+                        "group probe gathers need dense build columns"
+                    )
+                col_specs.append(
+                    ("gather", rv.data,
+                     None if fill is None else fill.value)
+                )
+        return group_expand(g, pos, found, sizes, pm, shape.how,
+                            int(out_cap), col_specs)
+
     def _finalize(self, acc):
         if isinstance(acc, (_MergerAcc, _VecBuilderAcc, _VecMergerAcc)):
             return acc.finalize()
         if isinstance(acc, _DictMergerAcc):
-            return _finalize_keyed(acc)
+            return _finalize_keyed(acc, is_group=False)
+        if isinstance(acc, _GroupAcc):
+            return _finalize_keyed(acc, is_group=True)
         raise WeldCompileError("result of non-builder")
 
     # -- loops ----------------------------------------------------------------
@@ -1111,6 +1440,10 @@ def _apply_taint(v, bad):
     if isinstance(v, WDict):
         c = torch.as_tensor(v.count, device=bad.device).to(torch.int64)
         return WDict(v.keys, v.vals, torch.where(bad, -c.abs() - 1, c))
+    if isinstance(v, WGroup):
+        c = torch.as_tensor(v.count, device=bad.device).to(torch.int64)
+        return WGroup(v.keys, v.values, v.offsets,
+                      torch.where(bad, -c.abs() - 1, c))
     if isinstance(v, tuple):
         return tuple(_apply_taint(x, bad) for x in v)
     return v

@@ -2,10 +2,9 @@
 
 The same layout as the JAX package's values: a variable-length result
 is a static-capacity buffer plus a dynamic count, and a dictionary is
-(sorted keys, vals, count) column tensors.  A negative count is the
-poison convention: decode raises :class:`CapacityError`.
-
-``WGroup`` (groupbuilder results) waits for the join slice.
+(sorted keys, vals, count) column tensors, and a groupbuilder result is
+CSR (sorted keys, values sorted by key, offsets, count).  A negative
+count is the poison convention: decode raises :class:`CapacityError`.
 """
 from __future__ import annotations
 
@@ -45,16 +44,17 @@ class WVec:
         return self.capacity() if self.count is None else self.count
 
     def to_numpy(self):
-        """Host-side decode: slice off padding."""
-        if self.count is not None and int(self.count) < 0:
+        """Host-side decode: slice off padding (on the device, so only
+        the valid rows cross to the host)."""
+        n = None if self.count is None else int(self.count)
+        if n is not None and n < 0:
             raise CapacityError(
                 "kernelized producer flagged this vector as poisoned; "
                 "rerun with kernelize=False or raise the builder capacity"
             )
 
         def cut(a):
-            a = _host(a)
-            return a if self.count is None else a[: int(self.count)]
+            return _host(a if n is None else a[:n])
 
         if isinstance(self.data, tuple):
             return tuple(cut(a) for a in self.data)
@@ -92,9 +92,43 @@ class WDict:
         return out
 
 
+@dataclass
+class WGroup:
+    """groupbuilder result: dict[K, vec[V]] as sorted values + offsets."""
+
+    keys: object          # (cap,) or tuple of (cap,)
+    values: object        # (n,) sorted by key; or tuple
+    offsets: object       # (cap+1,) group boundaries
+    count: object         # number of distinct keys
+
+    def to_numpy(self) -> dict:
+        n = int(self.count)
+        if n < 0:
+            raise CapacityError(
+                "kernelized group build observed more distinct keys than "
+                "the builder capacity; rerun with kernelize=False or "
+                "raise the builder capacity"
+            )
+        offs = _host(self.offsets)
+        kcols = [_host(a) for a in
+                 (self.keys if isinstance(self.keys, tuple) else (self.keys,))]
+        vcols = [_host(a) for a in (self.values if isinstance(
+            self.values, tuple) else (self.values,))]
+        out = {}
+        for i in range(n):
+            k = tuple(c[i].item() for c in kcols)
+            vs = [c[offs[i]: offs[i + 1]] for c in vcols]
+            v = vs[0] if len(vs) == 1 else list(zip(*[x.tolist() for x in vs]))
+            # values within a group keep build-row order (stable sort)
+            out[k[0] if len(k) == 1 else k] = (
+                v.tolist() if hasattr(v, "tolist") else v
+            )
+        return out
+
+
 def from_numpy(value, device=None):
     """Turn a backend value whose leaves are numpy arrays — the JAX
-    package's ``WVec``/``WDict`` after a host transfer, or tuples of
+    package's ``WVec``/``WDict``/``WGroup`` after a host transfer, or tuples of
     them — into this package's values on ``device`` (default: the
     port's default device).  Counts, negative poison included, carry
     over unchanged."""
@@ -112,9 +146,8 @@ def from_numpy(value, device=None):
         return None if c is None else leaf(np.asarray(c, np.int64))
 
     if hasattr(value, "offsets"):
-        raise NotImplementedError(
-            "groupbuilder values (WGroup) wait for the join slice "
-            "(ROADMAP A, queue item 1)")
+        return WGroup(leaf(value.keys), leaf(value.values),
+                      leaf(value.offsets), count(value.count))
     if hasattr(value, "keys") and hasattr(value, "vals"):
         return WDict(leaf(value.keys), leaf(value.vals), count(value.count))
     if hasattr(value, "data") and hasattr(value, "count"):

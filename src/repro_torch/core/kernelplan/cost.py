@@ -12,8 +12,10 @@ on the reference's own ablation; they stay as they are until they are
 measured on the card.  The formulas still price the TPU kernels'
 shapes (block padding, one-hot matmul FLOPs for the segment routes), so
 an "auto" decision here is the reference's decision under H100 rates,
-not a measured one.  The ledger calibration, the autotuner and the
-other kernels' hooks wait for their slices.
+not a measured one.  The join probes are the exception: their kernels
+search where the TPU's compared a one-hot tile, and are priced as
+searches.  The ledger calibration, the autotuner and the other kernels'
+hooks wait for their slices.
 
 ``estimate(spec, meta)`` returns a :class:`CostEstimate`; ``meta`` is
 the planner-collected static description of the match.  Unknown sizes
@@ -55,6 +57,16 @@ SCATTER_PENALTY = 4.0
 #: roughly key+val+packed rows per comparison level; this scales the
 #: n*log2(n) byte volume.
 SORT_BYTES_PER_ROW = 24.0
+
+#: the segment kernels' accumulator bound (segment_reduce MAX_K): keyed
+#: accumulation beyond it serves the plain scatter instead.
+SEGMENT_TILE_K = 4096
+
+#: a vectorized binary search (the generic dict-probe lowering) issues
+#: log2(K) dependent random loads per row; each achieves this many
+#: streaming-pass equivalents (gentler than full scatter: the upper tree
+#: levels stay cache resident).
+BSEARCH_PENALTY = 2.0
 
 
 @dataclass(frozen=True)
@@ -170,6 +182,114 @@ def cost_dict_group(meta: dict) -> CostEstimate:
     j_bytes = n * SORT_BYTES_PER_ROW * max(log2(max(n, 2)), 1.0)
     jnp_s = _roofline_s(j_bytes, n, e)
     return _decide(kernel_s, jnp_s, f"n={n} K={k} pad={np_ - n}")
+
+
+def cost_hash_build(meta: dict) -> CostEstimate:
+    """Open-addressing dict build (hash-to-slot + segment accumulation +
+    compaction) vs. the generic sort-based dictmerger lowering.  The
+    insert is random-access bound; the sort pays n*log2(n) passes — the
+    kernel wins once n clears the launch overheads."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    e = meta.get("elem_bytes", 8)
+    nv = max(meta.get("n_vals", 1), 1)
+    nk = max(meta.get("n_keys", 1), 1)
+    block = meta.get("block", 256)
+    np_ = _pad(n, block)
+    # slot probes (key + slot traffic, random access) + table init/sort
+    # + per-column staged values through the segment kernels;
+    # multi-column keys stream one extra staged i64 column each beyond
+    # the packed stream already charged
+    k_bytes = (np_ * (8 + 4) * SCATTER_PENALTY + 4 * k * 8 + n * nv * e
+               + n * (nk - 1) * 8)
+    if k <= SEGMENT_TILE_K:
+        k_flops = 2.0 * np_ * k * nv  # the reference's one-hot pricing
+    else:
+        k_flops = float(n)  # kops serves the plain scatter instead
+        k_bytes += n * nv * e * SCATTER_PENALTY
+    kernel_s = _roofline_s(k_bytes, k_flops, e) + 2 * LAUNCH_OVERHEAD_S
+    j_bytes = n * SORT_BYTES_PER_ROW * max(log2(max(n, 2)), 1.0)
+    jnp_s = _roofline_s(j_bytes, n, e)
+    return _decide(kernel_s, jnp_s,
+                   f"n={n} K={k} keys={nk} vals={nv} pad={np_ - n}")
+
+
+def _search_loads(k: int) -> int:
+    """Dependent loads of one binary search over k sorted keys."""
+    return max(int(ceil(log2(max(k, 2)))), 1)
+
+
+def cost_hash_probe(meta: dict) -> CostEstimate:
+    """Binary-search membership kernel vs. the generic vectorized binary
+    search.  The TPU kernel compared each query against the whole key
+    tile (n*K compares); the port's kernel searches instead: ceil(log2
+    K) dependent loads per query, served from L2 (the table is at most
+    512 KiB), charged here as 8 B each, ONCE for every output column of
+    a fused probe.  The generic lowering pays the same search in
+    separate passes (the BSEARCH_PENALTY) plus the staged table."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    cols = max(meta.get("cols", 1), 1)
+    e = meta.get("elem_bytes", 8)
+    lgk = _search_loads(k)
+    # one search per query + per-column gather/compaction traffic
+    k_bytes = n * (8 + 4 + 1 + cols * e) + k * 8 + n * 8 * lgk
+    kernel_s = _roofline_s(k_bytes, n * lgk, e) + LAUNCH_OVERHEAD_S
+    j_bytes = n * 8 * lgk * BSEARCH_PENALTY + n * cols * e
+    jnp_s = _roofline_s(j_bytes, n * lgk, e)
+    return _decide(kernel_s, jnp_s, f"n={n} K={k} cols={cols}")
+
+
+def cost_group_build(meta: dict) -> CostEstimate:
+    """CSR group build (hash-to-slot + slot histogram + payload
+    ordering sort) vs. the generic sort-based groupbuilder finalize.
+    Both routes order the payload rows; the kernel replaces the full
+    keyed sort + segment machinery with the hash/histogram atomics
+    (random access) and a narrower ordering sort."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    e = meta.get("elem_bytes", 8)
+    nk = max(meta.get("n_keys", 1), 1)
+    block = meta.get("block", 256)
+    np_ = _pad(n, block)
+    lgn = max(log2(max(n, 2)), 1.0)
+    # slot probes + histogram atomics + the CSR payload ordering sort +
+    # table/offsets traffic; extra staged key columns beyond the packed
+    # stream cost one i64 pass each
+    k_bytes = (np_ * (8 + 4) * SCATTER_PENALTY + n * 4 * SCATTER_PENALTY
+               + n * 8 * lgn + 4 * k * 8 + n * (nk - 1) * 8 + n * e)
+    kernel_s = _roofline_s(k_bytes, float(n), e) + 2 * LAUNCH_OVERHEAD_S
+    j_bytes = n * SORT_BYTES_PER_ROW * lgn
+    jnp_s = _roofline_s(j_bytes, n, e)
+    return _decide(kernel_s, jnp_s, f"n={n} K={k} keys={nk}")
+
+
+def cost_group_probe(meta: dict) -> CostEstimate:
+    """m:n fan-out probe: the fused binary-search membership +
+    match-count kernel (priced as :func:`cost_hash_probe`'s search, plus
+    the 4 B size per query) vs. the generic vectorized binary search.
+    BOTH routes then pay the shared two-phase expansion (exclusive scan
+    + repeat/gather into the static expansion buffer), priced by the
+    expansion factor ``out``/``n`` the planner lifts off the vecbuilder
+    size hints."""
+    n, k = meta.get("n"), meta.get("k")
+    if not n or not k:
+        return REJECT_UNKNOWN
+    out = meta.get("out") or n
+    cols = max(meta.get("cols", 1), 1)
+    e = meta.get("elem_bytes", 8)
+    lgk = _search_loads(k)
+    # scan + out-row binary search + per-column repeated/gathered output
+    expand_bytes = n * 8.0 + out * (8 + cols * e)
+    k_bytes = n * (8 + 4 + 1 + 4) + k * 8 + n * 8 * lgk + expand_bytes
+    kernel_s = _roofline_s(k_bytes, n * lgk, e) + LAUNCH_OVERHEAD_S
+    j_bytes = n * 8 * lgk * BSEARCH_PENALTY + expand_bytes
+    jnp_s = _roofline_s(j_bytes, n * lgk, e)
+    return _decide(kernel_s, jnp_s,
+                   f"n={n} K={k} cols={cols} out={out}")
 
 
 def estimate(spec, meta: dict) -> CostEstimate:

@@ -10,16 +10,22 @@ pattern-matches the fused loop shapes the optimizer produces —
   (PageRank's edge scan)                                → segment_sum
 * ``result(for([K,V], dictmerger[+](cap), merge(b,{k,v})))``
   with dense int keys                                   → segment_sum
+  and with sparse or struct keys (and every probed dict) → hash_to_slot
+* ``result(for(V.., {vecbuilder..}, if(cond, {merge(b.$k, ..)..}, b)))``
+  probing a let-bound dict (weldrel's horizontally fused join
+  probe: inner/left/anti, scalar or struct keys)        → dict_probe
+* a probed ``groupbuilder`` (the m:n join build side)   → group_build
+  and its ``grouplookup`` expansion loop                → group_probe
 
 — and replaces each matched subtree with an ``ir.KernelCall`` node
 carrying the iter sources as args and the per-element bodies as staged
 lambdas.  Everything unmatched lowers exactly as before; a program with
 no matches is returned unchanged.
 
-This is the copy of the JAX package's planner for the routes this slice
-ports.  The hash-join, group, matmul and map-chain matchers, the
-quarantine check, the weldbound midpoint pricing and the verifier
-checkpoint wait for their slices; capacities resolve through the
+This is the copy of the JAX package's planner for the routes the port
+has.  The matmul and map-chain matchers, the quarantine check, the
+weldbound midpoint pricing and the verifier checkpoint wait for their
+slices; capacities (symbolic ones included) resolve through the
 emitter's static evaluator.
 
 Soundness rules (checked per match, conservative):
@@ -48,6 +54,7 @@ import numpy as np
 from .. import ir
 from .. import wtypes as wt
 from ..backend.torchgen import _static_eval
+from ..backend.torchgen import match_group_probe as _group_probe_shape
 from . import cost as _cost
 from . import registry as reg
 
@@ -65,12 +72,18 @@ def _is_ident(e: ir.Expr, name: str) -> bool:
     return isinstance(e, ir.Ident) and e.name == name
 
 
+#: kernels whose vector result is padded (count-carrying), NOT dense.
+_PADDED_RESULT_KERNELS = frozenset({"hash_probe", "group_probe"})
+
+
 def _dense_expr(e: ir.Expr, dense: Shapes) -> bool:
     if isinstance(e, ir.Ident):
         return e.name in dense
     if isinstance(e, ir.KernelCall):
-        return isinstance(e.ret_ty, wt.Vec)
+        return (isinstance(e.ret_ty, wt.Vec)
+                and e.kernel not in _PADDED_RESULT_KERNELS)
     return False
+
 
 def _iter_ok(it: ir.Iter, dense: Shapes) -> bool:
     return it.is_plain and _dense_expr(it.data, dense)
@@ -330,6 +343,471 @@ def _match_dict_group(loop: ir.For, dense: Shapes) -> Optional[ir.KernelCall]:
     )
 
 
+def _match_hash_build(loop: ir.For, dense: Shapes) -> Optional[ir.KernelCall]:
+    """Dictmerger build via the open-addressing hash route: int keys of
+    ANY value (no dense [0, capacity) requirement) — scalar OR a struct
+    of int columns (multi-column join keys, packed 32 bits per column
+    into the shared 64-bit key space) — with scalar or struct-of-scalars
+    values.  Matched for probed dicts (hash-join build side) and as the
+    fallback when the dense segment route declines."""
+    spec = reg.available("dict_hash_build")
+    if spec is None:
+        return None
+    nb = loop.builder
+    if not (
+        isinstance(nb, ir.NewBuilder)
+        and isinstance(nb.ty, wt.DictMerger)
+        and nb.ty.op == "+"
+    ):
+        return None
+    kt, vt = nb.ty.key, nb.ty.val
+    key_tys = kt.fields if isinstance(kt, wt.Struct) else (kt,)
+    if not all(isinstance(t, wt.Scalar) and t.is_int for t in key_tys):
+        return None
+    val_tys = vt.fields if isinstance(vt, wt.Struct) else (vt,)
+    if not all(_scalar_kind_ok(t, spec) for t in val_tys):
+        return None
+    cap = _static_cap(nb.arg, dense)
+    if cap is None:
+        return None  # capacity must be statically resolvable
+    if spec.max_segments is not None and cap > spec.max_segments:
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    cond: Optional[ir.Expr] = None
+    if (
+        isinstance(body, ir.If)
+        and isinstance(body.on_true, ir.Merge)
+        and _is_ident(body.on_false, b.name)
+    ):
+        cond, body = body.cond, body.on_true
+    if not (isinstance(body, ir.Merge) and _is_ident(body.builder, b.name)):
+        return None
+    key_e, val_e = _destructure_pair(body.value)
+    if isinstance(kt, wt.Struct):
+        if not (isinstance(key_e, ir.MakeStruct)
+                and len(key_e.items) == len(key_tys)):
+            return None
+        key_exprs = list(key_e.items)
+    else:
+        key_exprs = [key_e]
+    struct_val = isinstance(vt, wt.Struct)
+    if struct_val:
+        if not (isinstance(val_e, ir.MakeStruct)
+                and len(val_e.items) == len(val_tys)):
+            return None
+        val_exprs = list(val_e.items)
+    else:
+        val_exprs = [val_e]
+    per_elem = {i.name, x.name}
+    for e2 in key_exprs + val_exprs:
+        if not _elementwise_ok(e2, {b.name}, per_elem):
+            return None
+    if cond is not None and not _elementwise_ok(cond, {b.name}, per_elem):
+        return None
+    fns = [ir.Lambda((i, x), k) for k in key_exprs]
+    fns += [ir.Lambda((i, x), v) for v in val_exprs]
+    if cond is not None:
+        fns.append(ir.Lambda((i, x), cond))
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=tuple(it.data for it in loop.iters),
+        ret_ty=wt.DictType(kt, vt),
+        params=(("capacity", cap), ("n_keys", len(key_exprs)),
+                ("key_nps", tuple(
+                    str(t.np_dtype.__name__) for t in key_tys)),
+                ("n_vals", len(val_exprs)), ("struct_val", struct_val),
+                ("has_pred", cond is not None)),
+        fns=tuple(fns),
+    )
+
+
+def _split_probe_cond(cond: ir.Expr, dname_ok) -> Optional[Tuple[
+        ir.KeyExists, Optional[ir.Expr], bool]]:
+    """Split a probe loop's condition into (KeyExists(dict, k), pred?,
+    negated).  Accepts `keyexists(d, k)`, its negation (anti joins), or
+    a single `&&` with the (possibly negated) keyexists on either side
+    (the shapes weldrel's filtered joins emit)."""
+
+    def as_ke(e: ir.Expr):
+        if isinstance(e, ir.KeyExists) and dname_ok(e.expr):
+            return e, False
+        if (isinstance(e, ir.UnaryOp) and e.op == "not"
+                and isinstance(e.expr, ir.KeyExists)
+                and dname_ok(e.expr.expr)):
+            return e.expr, True
+        return None
+
+    hit = as_ke(cond)
+    if hit is not None:
+        return hit[0], None, hit[1]
+    if isinstance(cond, ir.BinOp) and cond.op == "&&":
+        for side, pred in ((cond.left, cond.right),
+                           (cond.right, cond.left)):
+            hit = as_ke(side)
+            if hit is not None:
+                return hit[0], pred, hit[1]
+    return None
+
+
+def _match_hash_probe(loop: ir.For, dense: Shapes) -> Optional[ir.KernelCall]:
+    """Gather-style dict probe: filter rows to key matches and emit
+    either a looked-up value (right/build column) or an elementwise
+    expression over the probe row (left column).
+
+        result(for(V.., vecbuilder,
+                   (b,i,x) => if([p &&] keyexists(d, k),
+                              merge(b, lookup(d,k)[.j] | f(x)), b)))
+
+    The dict is a let-bound value (kernelized or generic — both arrive
+    as a WDict at execution time)."""
+    spec = reg.available("hash_probe")
+    if spec is None:
+        return None
+    nb = loop.builder
+    if not (
+        isinstance(nb, ir.NewBuilder)
+        and isinstance(nb.ty, wt.VecBuilder)
+        and _scalar_kind_ok(nb.ty.elem, spec)
+    ):
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    if not (
+        isinstance(body, ir.If)
+        and isinstance(body.on_true, ir.Merge)
+        and _is_ident(body.on_true.builder, b.name)
+        and _is_ident(body.on_false, b.name)
+    ):
+        return None
+
+    def dname_ok(e: ir.Expr) -> bool:
+        return isinstance(e, ir.Ident) and isinstance(e.ty, wt.DictType)
+
+    split = _split_probe_cond(body.cond, dname_ok)
+    if split is None:
+        return None
+    ke, pred, negated = split
+    if negated:
+        return None  # anti probes arrive in the fused struct form only
+    d_id = ke.expr
+    key_e = ke.key
+    kt = d_id.ty.key
+    if not (isinstance(kt, wt.Scalar) and kt.is_int):
+        return None
+    per_elem = {i.name, x.name}
+    banned = {b.name, d_id.name}
+    if not _elementwise_ok(key_e, banned, per_elem):
+        return None
+    if pred is not None and not _elementwise_ok(pred, banned, per_elem):
+        return None
+
+    val = body.on_true.value
+    field = -1
+    gather = False
+    if isinstance(val, ir.GetField) and isinstance(val.expr, ir.Lookup):
+        lk, field = val.expr, val.index
+        gather = True
+    elif isinstance(val, ir.Lookup):
+        lk = val
+        gather = True
+    if gather:
+        if not (_is_ident(lk.expr, d_id.name)
+                and ir.canon_key(lk.index) == ir.canon_key(key_e)):
+            return None
+        fns = [ir.Lambda((i, x), key_e)]
+    else:
+        if not _elementwise_ok(val, banned, per_elem):
+            return None
+        fns = [ir.Lambda((i, x), key_e), ir.Lambda((i, x), val)]
+    if pred is not None:
+        fns.append(ir.Lambda((i, x), pred))
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=(d_id,) + tuple(it.data for it in loop.iters),
+        ret_ty=wt.Vec(nb.ty.elem),
+        params=(("gather", gather), ("field", field),
+                ("has_pred", pred is not None)),
+        fns=tuple(fns),
+    )
+
+
+def _match_hash_probe_fused(loop: ir.For,
+                            dense: Shapes) -> Optional[ir.KernelCall]:
+    """Horizontally fused join probe: ONE loop merging every output
+    column into a struct of vecbuilders (the form weldrel's join emits),
+    so an N-column join takes ONE ``hash_probe`` launch instead of N.
+
+        result(for(V.., {vecbuilder..},
+               (b,i,x) => if(cond, {merge(b.$k, v_k)..}, b)))
+
+    ``cond``/values encode the join flavor:
+
+    * inner — cond carries ``keyexists(d, k)``; right columns gather
+      ``lookup(d, k)[.j]``;
+    * left  — no keyexists in cond (an optional elementwise predicate
+      only); right columns gather ``lookup(d, k, fill)[.j]`` — the
+      single-probe miss form;
+    * anti  — cond carries ``not(keyexists(d, k))``; left columns only.
+
+    Keys may be scalar ints or a struct of int columns (packed in the
+    adapter exactly like the dict build side)."""
+    spec = reg.available("hash_probe")
+    if spec is None:
+        return None
+    nb = loop.builder
+    if not (isinstance(nb, ir.MakeStruct) and nb.items and all(
+            isinstance(p, ir.NewBuilder) and isinstance(p.ty, wt.VecBuilder)
+            and _scalar_kind_ok(p.ty.elem, spec) for p in nb.items)):
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    cond: Optional[ir.Expr] = None
+    if isinstance(body, ir.If):
+        if not _is_ident(body.on_false, b.name):
+            return None
+        cond, body = body.cond, body.on_true
+    if not (isinstance(body, ir.MakeStruct)
+            and len(body.items) == len(nb.items)):
+        return None
+    vals: List[ir.Expr] = []
+    for k, item in enumerate(body.items):
+        if not (
+            isinstance(item, ir.Merge)
+            and isinstance(item.builder, ir.GetField)
+            and item.builder.index == k
+            and _is_ident(item.builder.expr, b.name)
+        ):
+            return None
+        vals.append(item.value)
+
+    def dname_ok(e: ir.Expr) -> bool:
+        return isinstance(e, ir.Ident) and isinstance(e.ty, wt.DictType)
+
+    d_id: Optional[ir.Ident] = None
+    key_e: Optional[ir.Expr] = None
+    pred: Optional[ir.Expr] = None
+    if cond is not None:
+        split = _split_probe_cond(cond, dname_ok)
+        if split is not None:
+            ke, pred, negated = split
+            d_id, key_e = ke.expr, ke.key
+            how = "anti" if negated else "inner"
+        else:
+            pred, how = cond, "left"
+    else:
+        how = "left"
+
+    # classify output columns; left joins discover the dict/key from the
+    # gathers (their condition carries no keyexists)
+    cols: List[Tuple[str, int]] = []
+    fills: List[object] = []
+    exprs: List[ir.Expr] = []
+    for v in vals:
+        lk, fld = v, -1
+        if isinstance(lk, ir.GetField) and isinstance(lk.expr, ir.Lookup):
+            lk, fld = lk.expr, lk.index
+        if isinstance(lk, ir.Lookup) and dname_ok(lk.expr):
+            if how == "anti":
+                return None  # anti joins carry no build-side columns
+            if d_id is None:
+                d_id, key_e = lk.expr, lk.index
+            if not (_is_ident(lk.expr, d_id.name)
+                    and ir.canon_key(lk.index) == ir.canon_key(key_e)):
+                return None  # every gather must share ONE dict + key
+            if how == "left":
+                dflt = lk.default
+                if dflt is None:
+                    return None
+                f = dflt.items[fld] if isinstance(dflt, ir.MakeStruct) \
+                    else dflt
+                if not isinstance(f, ir.Literal):
+                    return None
+                fills.append(f.value)
+            else:
+                if lk.default is not None:
+                    return None
+                fills.append(None)
+            cols.append(("gather", fld))
+        else:
+            cols.append(("expr", len(exprs)))
+            exprs.append(v)
+            fills.append(None)
+    if d_id is None:
+        return None  # no dict anywhere: a plain filter, not a probe
+    kt = d_id.ty.key
+    if isinstance(kt, wt.Struct):
+        if not all(isinstance(f, wt.Scalar) and f.is_int
+                   for f in kt.fields):
+            return None
+        if not (isinstance(key_e, ir.MakeStruct)
+                and len(key_e.items) == len(kt.fields)):
+            return None
+        key_parts = list(key_e.items)
+    elif isinstance(kt, wt.Scalar) and kt.is_int:
+        key_parts = [key_e]
+    else:
+        return None
+    per_elem = {i.name, x.name}
+    banned = {b.name, d_id.name}
+    for e2 in key_parts + exprs:
+        if not _elementwise_ok(e2, banned, per_elem):
+            return None
+    if pred is not None and not _elementwise_ok(pred, banned, per_elem):
+        return None
+    fns = [ir.Lambda((i, x), p) for p in key_parts]
+    fns += [ir.Lambda((i, x), v) for v in exprs]
+    if pred is not None:
+        fns.append(ir.Lambda((i, x), pred))
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=(d_id,) + tuple(it.data for it in loop.iters),
+        ret_ty=wt.Struct(tuple(wt.Vec(p.ty.elem) for p in nb.items)),
+        params=(("how", how), ("n_keys", len(key_parts)),
+                ("cols", tuple(cols)), ("fills", tuple(fills)),
+                ("has_pred", pred is not None)),
+        fns=tuple(fns),
+    )
+
+
+def _match_group_build(loop: ir.For, dense: Shapes) -> Optional[ir.KernelCall]:
+    """Groupbuilder build (key -> growing vector of row payloads) via the
+    hash route: hash-to-slot + CSR slot-histogram compaction — the m:n
+    hash-join build side.  Keys are scalar ints or a struct of int
+    columns (packed like the dictmerger hash build); the payload is one
+    scalar (the join stores the build-row index)."""
+    spec = reg.available("group_build")
+    if spec is None:
+        return None
+    nb = loop.builder
+    if not (
+        isinstance(nb, ir.NewBuilder)
+        and isinstance(nb.ty, wt.GroupBuilder)
+    ):
+        return None
+    kt, vt = nb.ty.key, nb.ty.val
+    key_tys = kt.fields if isinstance(kt, wt.Struct) else (kt,)
+    if not all(isinstance(t, wt.Scalar) and t.is_int for t in key_tys):
+        return None
+    if not _scalar_kind_ok(vt, spec):
+        return None
+    cap = _static_cap(nb.arg, dense)
+    if cap is None:
+        return None  # capacity must be statically resolvable
+    if spec.max_segments is not None and cap > spec.max_segments:
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    cond: Optional[ir.Expr] = None
+    if (
+        isinstance(body, ir.If)
+        and isinstance(body.on_true, ir.Merge)
+        and _is_ident(body.on_false, b.name)
+    ):
+        cond, body = body.cond, body.on_true
+    if not (isinstance(body, ir.Merge) and _is_ident(body.builder, b.name)):
+        return None
+    key_e, val_e = _destructure_pair(body.value)
+    if isinstance(kt, wt.Struct):
+        if not (isinstance(key_e, ir.MakeStruct)
+                and len(key_e.items) == len(key_tys)):
+            return None
+        key_exprs = list(key_e.items)
+    else:
+        key_exprs = [key_e]
+    per_elem = {i.name, x.name}
+    for e2 in key_exprs + [val_e]:
+        if not _elementwise_ok(e2, {b.name}, per_elem):
+            return None
+    if cond is not None and not _elementwise_ok(cond, {b.name}, per_elem):
+        return None
+    fns = [ir.Lambda((i, x), k) for k in key_exprs]
+    fns.append(ir.Lambda((i, x), val_e))
+    if cond is not None:
+        fns.append(ir.Lambda((i, x), cond))
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=tuple(it.data for it in loop.iters),
+        ret_ty=wt.DictType(kt, wt.Vec(vt)),
+        params=(("capacity", cap), ("n_keys", len(key_exprs)),
+                ("key_nps", tuple(
+                    str(t.np_dtype.__name__) for t in key_tys)),
+                ("has_pred", cond is not None)),
+        fns=tuple(fns),
+    )
+
+
+def _match_group_probe(loop: ir.For,
+                       dense: Shapes) -> Optional[ir.KernelCall]:
+    """The m:n join fan-out probe: the canonical variable-length
+    expansion loop (see torchgen ``match_group_probe`` for the exact
+    shape) routed as ONE ``group_probe`` launch — membership and the
+    per-row match-count pass fused into a single search kernel, with
+    every output column sharing the expansion index the adapter builds
+    from it.  The static output capacity comes from the vecbuilders'
+    size hints (weldrel stamps the exact unfiltered expansion size)."""
+    spec = reg.available("group_probe")
+    if spec is None:
+        return None
+    shape = _group_probe_shape(loop)
+    if shape is None:
+        return None
+    if not all(p.ty.elem.kind in spec.elem_kinds for p in shape.builders):
+        return None
+    out_cap = _static_cap(shape.builders[0].size_hint, dense)
+    if out_cap is None:
+        return None  # output capacity must be static to size the buffers
+    kt = shape.d.ty.key
+    key_tys = kt.fields if isinstance(kt, wt.Struct) else (kt,)
+    if not all(isinstance(t, wt.Scalar) and t.is_int for t in key_tys):
+        return None
+    if len(shape.key_parts) != len(key_tys):
+        return None
+    b, i, x = loop.func.params
+    per_elem = {i.name, x.name}
+    banned = {b.name, shape.d.name}
+    for e2 in shape.key_parts:
+        if not _elementwise_ok(e2, banned, per_elem):
+            return None
+    if shape.pred is not None and not _elementwise_ok(
+            shape.pred, banned, per_elem):
+        return None
+    args: List[ir.Expr] = [shape.d] + [it.data for it in loop.iters]
+    cols: List[Tuple[str, int]] = []
+    exprs: List[ir.Expr] = []
+    fills: List[object] = []
+    for (kind, payload), fl in zip(shape.cols, shape.fills):
+        if kind == "gather":
+            # build columns are gathered outside the kernel: they must
+            # be dense program inputs the adapter can index directly
+            if not (isinstance(payload, ir.Ident)
+                    and payload.name in dense):
+                return None
+            cols.append(("gather", len(args)))
+            args.append(payload)
+            fills.append(None if fl is None else fl.value)
+        else:
+            if not _elementwise_ok(payload, banned, per_elem):
+                return None
+            cols.append(("expr", len(exprs)))
+            exprs.append(payload)
+            fills.append(None)
+    fns = [ir.Lambda((i, x), p) for p in shape.key_parts]
+    fns += [ir.Lambda((i, x), v) for v in exprs]
+    if shape.pred is not None:
+        fns.append(ir.Lambda((i, x), shape.pred))
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=tuple(args),
+        ret_ty=wt.Struct(tuple(wt.Vec(p.ty.elem) for p in shape.builders)),
+        params=(("how", shape.how), ("n_keys", len(shape.key_parts)),
+                ("n_iters", len(loop.iters)), ("cols", tuple(cols)),
+                ("fills", tuple(fills)), ("out_cap", out_cap),
+                ("has_pred", shape.pred is not None)),
+        fns=tuple(fns),
+    )
+
+
 def _match_loop(e: ir.Result, dense: Shapes,
                 probed: bool = False) -> Optional[ir.KernelCall]:
     loop = e.builder
@@ -345,12 +823,25 @@ def _match_loop(e: ir.Result, dense: Shapes,
             return _match_filter_reduce(loop, dense)
         if isinstance(nb.ty, wt.VecMerger):
             return _match_vecmerger(loop, dense)
-        if isinstance(nb.ty, wt.DictMerger) and not probed:
-            # a probed dict (join build side) must preserve exact keys:
-            # only the hash route — not ported yet — is sound there
-            return _match_dict_group(loop, dense)
+        if isinstance(nb.ty, wt.DictMerger):
+            if probed:
+                # a probed dict (join build side) must preserve exact
+                # keys: only the hash route is sound, never the dense
+                # [0, capacity) segment route
+                return _match_hash_build(loop, dense)
+            return (_match_dict_group(loop, dense)
+                    or _match_hash_build(loop, dense))
+        if isinstance(nb.ty, wt.GroupBuilder):
+            # group builds are only routed when probed (the m:n join
+            # build side); a standalone groupbuilder result decodes on
+            # the host and keeps the generic keyed finalize
+            return _match_group_build(loop, dense) if probed else None
+        if isinstance(nb.ty, wt.VecBuilder):
+            return _match_hash_probe(loop, dense)
     if isinstance(nb, ir.MakeStruct):
-        return _match_filter_reduce(loop, dense)
+        return (_match_filter_reduce(loop, dense)
+                or _match_hash_probe_fused(loop, dense)
+                or _match_group_probe(loop, dense))
     return None
 
 
@@ -400,7 +891,8 @@ def _np_dtype_of(ty: wt.WeldType):
     return np.float64
 
 
-def _call_meta(kc: ir.KernelCall, dense: Shapes) -> dict:
+def _call_meta(kc: ir.KernelCall, dense: Shapes,
+               dict_caps: Optional[Dict[str, int]] = None) -> dict:
     """Static description of a matched call for cost.py."""
     spec = reg.available(kc.kernel)
     params = dict(kc.params)
@@ -425,6 +917,46 @@ def _call_meta(kc: ir.KernelCall, dense: Shapes) -> dict:
             (v for v in (_len_of(a, dense) for a in kc.args) if v), None
         )
         meta["k"] = params.get("capacity")
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel == "dict_hash_build":
+        meta["n"] = next(
+            (v for v in (_len_of(a, dense) for a in kc.args) if v), None
+        )
+        meta["k"] = params.get("capacity")
+        meta["n_vals"] = params.get("n_vals", 1)
+        meta["n_keys"] = params.get("n_keys", 1)
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel == "hash_probe":
+        meta["n"] = next(
+            (v for v in (_len_of(a, dense) for a in kc.args[1:]) if v), None
+        )
+        d = kc.args[0]
+        meta["k"] = (dict_caps or {}).get(
+            d.name if isinstance(d, ir.Ident) else "")
+        # fused probes carry every output column through ONE launch; the
+        # cost model prices the shared membership tile against them all
+        meta["cols"] = max(len(params.get("cols", ())), 1)
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel == "group_build":
+        meta["n"] = next(
+            (v for v in (_len_of(a, dense) for a in kc.args) if v), None
+        )
+        meta["k"] = params.get("capacity")
+        meta["n_keys"] = params.get("n_keys", 1)
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel == "group_probe":
+        n_iters = params.get("n_iters", 1)
+        meta["n"] = next(
+            (v for v in (_len_of(a, dense)
+                         for a in kc.args[1:1 + n_iters]) if v), None
+        )
+        d = kc.args[0]
+        meta["k"] = (dict_caps or {}).get(
+            d.name if isinstance(d, ir.Ident) else "")
+        meta["cols"] = max(len(params.get("cols", ())), 1)
+        # the expansion factor: both routes pay the repeated/gathered
+        # output traffic, priced off the static expansion capacity
+        meta["out"] = params.get("out_cap")
         meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
     meta["dtype"] = str(np.dtype(_np_dtype_of(kc.ret_ty)))
     return meta
@@ -461,9 +993,22 @@ def plan_kernels(
         k: tuple(v) if v is not None else None
         for k, v in (input_shapes or {}).items()
     }
+    #: let-bound dict values (kernelized or generic) -> static capacity,
+    #: which prices the probe side of a hash join.
+    dict_caps: Dict[str, int] = {}
 
     def consider(kc: ir.KernelCall, orig: ir.Expr) -> ir.Expr:
-        meta = _call_meta(kc, dense)
+        meta = _call_meta(kc, dense, dict_caps)
+        if kc.kernel in ("hash_probe", "group_probe"):
+            # the reference's rule (its one-hot tile is block x
+            # capacity): an unknown or oversized dict keeps the generic
+            # probe even under "always"
+            spec = reg.available(kc.kernel)
+            k = meta.get("k")
+            if k is None or (spec is not None
+                             and spec.max_segments is not None
+                             and k > spec.max_segments):
+                return orig
         if mode == "auto":
             est = _cost.estimate(reg.get(kc.kernel), meta)
             kplan["costs"].append({"kernel": kc.kernel, **est.as_stats()})
@@ -498,16 +1043,19 @@ def plan_kernels(
 
     def rec_let_value(v: ir.Expr, probed: bool) -> ir.Expr:
         """Plan a let-bound value.  A dict build whose result is probed
-        downstream (Lookup/KeyExists — the hash-join build side) may ONLY
-        take the hash route, which waits for the join slice: the dense
-        segment route would poison sparse keys the generic lowering
-        handles fine."""
+        downstream (Lookup/KeyExists — the hash-join build side) may
+        ONLY take the hash route: the dense segment route would poison
+        sparse keys the generic lowering handles fine."""
         if probed and isinstance(v, ir.Result) \
                 and isinstance(v.builder, ir.For) \
                 and isinstance(v.builder.builder, ir.NewBuilder) \
                 and isinstance(v.builder.builder.ty,
                                (wt.DictMerger, wt.GroupBuilder)):
-            return v.map_children(rec)  # plan nested subtrees only
+            v2 = v.map_children(rec)  # plan nested subtrees only
+            kc = _match_loop(v2, dense, probed=True)
+            if kc is not None:
+                return consider(kc, v2)
+            return v2
         return rec(v)
 
     def rec(x: ir.Expr) -> ir.Expr:
@@ -517,6 +1065,9 @@ def plan_kernels(
             v = rec_let_value(x.value, _probed_as_dict(x.name, x.body))
             if _value_dense(v, dense):
                 dense[x.name] = _shape_of(v, dense)
+            cap = _dict_cap_of(v, dense)
+            if cap is not None:
+                dict_caps[x.name] = cap
             return ir.Let(x.name, v, rec(x.body))
         x = x.map_children(rec)
         if isinstance(x, ir.Result):
@@ -536,3 +1087,19 @@ def _probed_as_dict(name: str, body: ir.Expr) -> bool:
         and _is_ident(n.expr, name)
         for n in ir.walk(body)
     )
+
+
+def _dict_cap_of(v: ir.Expr, dense: Shapes) -> Optional[int]:
+    """Static capacity of a let-bound dict value, kernelized or not.
+    Symbolic capacities (the host-count-free join path) resolve against
+    the bound input shapes like any other static size."""
+    if isinstance(v, ir.KernelCall) and v.kernel in (
+            "dict_group_sum", "dict_hash_build", "group_build"):
+        cap = dict(v.params).get("capacity")
+        return int(cap) if cap is not None else None
+    if isinstance(v, ir.Result) and isinstance(v.builder, ir.For):
+        nb = v.builder.builder
+        if isinstance(nb, ir.NewBuilder) \
+                and isinstance(nb.ty, (wt.DictMerger, wt.GroupBuilder)):
+            return _static_cap(nb.arg, dense)
+    return None

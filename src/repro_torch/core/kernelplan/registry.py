@@ -14,9 +14,11 @@ entries.  Each spec also carries its roofline ``cost`` hook (drives
 ``mode="auto"``) and its ``footprint`` (staged columns + scratch bytes
 of one call, charged against ``memory_limit`` by the emitter).
 
-This slice registers the three routes of the main path:
-``filter_reduce_sum``, ``vecmerger_segment_sum`` and ``dict_group_sum``.
-The join, matmul and map-chain routes wait for their slices.
+The port registers the routes of the ported slices: the aggregate and
+group-by routes ``filter_reduce_sum``, ``vecmerger_segment_sum`` and
+``dict_group_sum``, and the hash-join routes ``dict_hash_build`` +
+``hash_probe`` (m:1) and ``group_build`` + ``group_probe`` (m:n).  The
+matmul and map-chain routes wait for their slices.
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ import torch
 
 from ...kernels import ops as kops
 from ...kernels import filter_reduce as _fr
+from ...kernels import hash_table as _ht
 from ...kernels import segment_reduce as _sr
-from ..backend.torchgen import TORCH_OF_NP
-from ..backend.values import WDict, WVec
+from ..backend.torchgen import TORCH_OF_NP, _pack_keys, group_expand
+from ..backend.values import WDict, WGroup, WVec
 from . import cost as _cost
 
 
@@ -234,6 +237,276 @@ def _exec_dict_group_sum(args, params, fns, impl):
     return WDict(keys_out, vals_out, count)
 
 
+def _exec_dict_hash_build(args, params, fns, impl):
+    """Dictmerger build with arbitrary (sparse) int keys: open-addressing
+    hash-to-slot kernel, then per-column segment accumulation over the
+    ascending-key compact slot ids, which is the backend's
+    sorted-front-packed WDict layout.
+
+    Key space is the same packed-int64 space the generic lowering
+    compares in (torchgen ``_pack_keys``), so probing a hash-built dict
+    and a generic dict is indistinguishable.  Overflow (more distinct
+    keys than the builder capacity, or a key colliding with the reserved
+    EMPTY sentinel) poisons the result with the same negative-count
+    convention as the dense group-by route."""
+    arrays = [_dense_data(a, "hash build") for a in args]
+    n, idx, elem = _staging(arrays)
+    cap = int(params["capacity"])
+    nk = int(params.get("n_keys", 1))
+    nv = int(params.get("n_vals", 1))
+    key_cols = [_as_col(fns[j](idx, elem), n).to(torch.int64)
+                for j in range(nk)]
+    vals = [_as_col(fns[nk + j](idx, elem), n) for j in range(nv)]
+    if params.get("has_pred"):
+        mask = _as_col(fns[nk + nv](idx, elem), n).to(torch.bool)
+    else:
+        mask = torch.ones((n,), dtype=torch.bool, device=idx.device)
+    packed = _pack_keys(tuple(key_cols) if nk > 1 else key_cols[0])
+    sentinel_clash = torch.any(mask & (packed == _ht.EMPTY))
+    pk = torch.where(mask, packed, torch.full_like(packed, _ht.EMPTY))
+    slots, table, used = kops.hash_to_slot(pk, _ht.table_size(cap),
+                                           impl=impl)
+    overflow = (used > cap) | sentinel_clash
+    # table slot -> compact position in ascending packed order (matches
+    # the generic keyed finalize, so lookups/decodes are layout-identical)
+    cslots = _ht.compact_slots(slots, table, cap)
+    key_nps = params.get("key_nps") or (params.get("key_np", "int64"),)
+    keys_fin = _recover_key_cols(key_cols, mask, cslots, cap, key_nps,
+                                 overflow)
+    outs = []
+    for v in vals:
+        vm = torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                              device=v.device))
+        out = kops.segment_sum(cslots, vm, num_segments=cap, impl=impl)
+        if out.is_floating_point():  # overflow: NaN, never a wrong sum
+            out = torch.where(overflow, torch.full_like(out, float("nan")),
+                              out)
+        outs.append(out)
+    count = torch.clamp(used.to(torch.int64), max=cap)
+    count = torch.where(overflow, -count - 1, count)
+    keys_out = tuple(keys_fin) if nk > 1 else keys_fin[0]
+    vals_out = tuple(outs) if params.get("struct_val") else outs[0]
+    return WDict(keys_out, vals_out, count)
+
+
+def _recover_key_cols(key_cols, mask, slots, cap, key_nps, overflow):
+    """Per-slot raw key recovery shared by the keyed build adapters:
+    every row in a slot holds one key, so a masked max per field
+    (``scatter_reduce("amax")`` from an INT64_MIN fill, exact for
+    integers) reads it back (packing may have dropped high bits); parked
+    rows carry slot ``cap`` and fall off the ``[:cap]`` slice, and
+    overflow poisons the columns to -1."""
+    outs = []
+    lo = torch.iinfo(torch.int64).min
+    for kc, knp in zip(key_cols, key_nps):
+        src = torch.where(mask, kc, torch.full_like(kc, lo))
+        ko = torch.full((cap + 1,), lo, dtype=torch.int64, device=kc.device)
+        ko = ko.scatter_reduce(0, slots.to(torch.int64), src, reduce="amax",
+                               include_self=True)[:cap]
+        ko = ko.to(TORCH_OF_NP[knp])
+        outs.append(torch.where(overflow, torch.full_like(ko, -1), ko))
+    return outs
+
+
+def _probe_membership(args, params, fns, impl, nk, n_iters=None):
+    """Shared prologue of the probe adapters: stage the probe-side
+    columns, pack the (possibly multi-column) query keys into the int64
+    key space, neutralize the table's parked slots, and run ONE
+    membership kernel — ``dict_probe`` for dict tables, the fused
+    membership + match-count ``group_probe`` for group (m:n) tables.
+    Returns ``(n, idx, elem, pos, found, sizes, cap)`` with ``sizes``
+    None for dicts."""
+    d = args[0]
+    if not isinstance(d, (WDict, WGroup)):
+        raise KernelPlanError("probe: expected a dict/group value")
+    is_group = isinstance(d, WGroup)
+    tail = args[1:] if n_iters is None else args[1:1 + n_iters]
+    arrays = [_dense_data(a, "hash probe") for a in tail]
+    n, idx, elem = _staging(arrays)
+    dev = idx.device
+    key_cols = [_as_col(fns[j](idx, elem), n).to(torch.int64)
+                for j in range(nk)]
+    keys_q = _pack_keys(tuple(key_cols) if nk > 1 else key_cols[0])
+    packed_t = _pack_keys(d.keys)
+    cap = packed_t.shape[0]
+    cnt = torch.clamp(torch.as_tensor(d.count, device=dev).to(torch.int64),
+                      min=0)
+    sizes = torch.zeros((n,), dtype=torch.int64, device=dev) \
+        if is_group else None
+    if cap == 0:
+        pos = torch.zeros((n,), dtype=torch.int32, device=dev)
+        found = torch.zeros((n,), dtype=torch.bool, device=dev)
+    else:
+        big = torch.iinfo(torch.int64).max
+        neut = torch.where(torch.arange(cap, device=dev) < cnt, packed_t,
+                           torch.full_like(packed_t, big))
+        if is_group:
+            pos, found, sizes = kops.group_probe(neut, d.offsets, cnt, keys_q,
+                                                 impl=impl)
+            sizes = sizes.to(torch.int64)
+        else:
+            pos, found = kops.dict_probe(neut, cnt, keys_q, impl=impl)
+    return n, idx, elem, pos, found, sizes, cap
+
+
+def _front_pack(keep: torch.Tensor) -> torch.Tensor:
+    """Stable order that moves the kept rows to the front (sorts a uint8
+    key: the card does not sort bool tensors)."""
+    return torch.argsort((~keep).to(torch.uint8), stable=True)
+
+
+def _probe_count(d, kept: torch.Tensor) -> torch.Tensor:
+    """Kept-row count, or -1 when the probed build was poisoned."""
+    poisoned = torch.as_tensor(d.count, device=kept.device).to(torch.int64) < 0
+    return torch.where(poisoned, torch.full_like(kept, -1), kept)
+
+
+def _gather_col(vcol: torch.Tensor, pos: torch.Tensor, n: int, cap: int):
+    if cap == 0 or vcol.shape[0] == 0:
+        return torch.zeros((n,), dtype=vcol.dtype, device=pos.device)
+    return vcol[torch.clamp(pos.to(torch.int64), 0, vcol.shape[0] - 1)]
+
+
+def _exec_hash_probe(args, params, fns, impl):
+    """Probe a dict with per-row keys; keep matching rows (front-packed)
+    and emit either the looked-up value column (``gather``) or a staged
+    elementwise expression over the probe row.  The positional probe
+    kernel serves every value dtype — the gather itself is plain
+    indexing outside the kernel.
+
+    Fused calls (``cols`` in params — weldrel's horizontally fused join
+    probe) dispatch to :func:`_exec_hash_probe_fused`: ONE membership
+    kernel launch shared by every output column."""
+    if "cols" in params:
+        return _exec_hash_probe_fused(args, params, fns, impl)
+    d = args[0]
+    n, idx, elem, pos, found, _, cap = _probe_membership(
+        args, params, fns, impl, nk=1)
+    gather = bool(params.get("gather"))
+    if params.get("has_pred"):
+        mask = _as_col(fns[1 if gather else 2](idx, elem), n).to(torch.bool)
+        found = found & mask
+    if gather:
+        field = int(params.get("field", -1))
+        vcol = d.vals[field] if isinstance(d.vals, tuple) else d.vals
+        out = _gather_col(vcol, pos, n, cap)
+    else:
+        out = _as_col(fns[1](idx, elem), n)
+    order = _front_pack(found)
+    return WVec(out[order], count=_probe_count(d, found.sum()))
+
+
+def _exec_hash_probe_fused(args, params, fns, impl):
+    """Horizontally fused join probe: ONE ``dict_probe`` launch computes
+    the found-mask/positions for the (possibly multi-column, packed)
+    keys, then EVERY output column reuses them — build-side columns as
+    plain gathers, probe-side columns as staged expressions, and all
+    columns sharing a single front-pack sort.
+
+    ``how`` selects the row semantics: ``inner`` keeps found rows,
+    ``anti`` keeps misses (left columns only), and ``left`` keeps every
+    row — misses in gathered columns fill from the per-column ``fills``
+    (the planner lifts them off the ``lookup(d, k, fill)`` defaults)
+    instead of front-packing, so no second probe pass exists anywhere."""
+    d = args[0]
+    how = params["how"]
+    nk = int(params.get("n_keys", 1))
+    n, idx, elem, pos, found, _, cap = _probe_membership(
+        args, params, fns, impl, nk=nk)
+    mask = None
+    if params.get("has_pred"):
+        mask = _as_col(fns[-1](idx, elem), n).to(torch.bool)
+    outs = []
+    for (kind, j), fill in zip(params["cols"], params["fills"]):
+        if kind == "expr":
+            col = _as_col(fns[nk + j](idx, elem), n)
+        else:
+            vcol = d.vals[j] if isinstance(d.vals, tuple) else d.vals
+            col = _gather_col(vcol, pos, n, cap)
+            if how == "left":
+                col = torch.where(found, col, torch.tensor(
+                    fill, dtype=vcol.dtype, device=col.device))
+        outs.append(col)
+    keep = {"inner": found, "anti": ~found, "left": None}[how]
+    if mask is not None:
+        keep = mask if keep is None else keep & mask
+    if keep is None:  # left join, no predicate: every row survives
+        count = _probe_count(d, torch.tensor(n, device=idx.device))
+        return tuple(WVec(c, count=count) for c in outs)
+    order = _front_pack(keep)  # ONE shared front-pack
+    count = _probe_count(d, keep.sum())
+    return tuple(WVec(c[order], count=count) for c in outs)
+
+
+def _exec_group_build(args, params, fns, impl):
+    """Groupbuilder build (the m:n join build side): hash-to-slot over
+    the packed keys, slot-histogram compaction into CSR offsets, and the
+    payload column sorted by (ascending key, build-row order) — the
+    layout the generic keyed finalize produces, so the probe side is
+    indistinguishable.  Overflow (more distinct keys than the builder
+    capacity, or a key hitting the reserved EMPTY sentinel) poisons via
+    the shared negative-count convention."""
+    arrays = [_dense_data(a, "group build") for a in args]
+    n, idx, elem = _staging(arrays)
+    cap = int(params["capacity"])
+    nk = int(params.get("n_keys", 1))
+    key_cols = [_as_col(fns[j](idx, elem), n).to(torch.int64)
+                for j in range(nk)]
+    val = _as_col(fns[nk](idx, elem), n)
+    if params.get("has_pred"):
+        mask = _as_col(fns[nk + 1](idx, elem), n).to(torch.bool)
+    else:
+        mask = torch.ones((n,), dtype=torch.bool, device=idx.device)
+    packed = _pack_keys(tuple(key_cols) if nk > 1 else key_cols[0])
+    sentinel_clash = torch.any(mask & (packed == _ht.EMPTY))
+    pk = torch.where(mask, packed, torch.full_like(packed, _ht.EMPTY))
+    cslots, offsets, used = kops.group_build(pk, cap, impl=impl)
+    overflow = (used > cap) | sentinel_clash
+    # CSR payload ordering: ascending compact slot, stable — within a
+    # group, build-row order (identical to the generic keyed finalize)
+    values = val[torch.argsort(cslots, stable=True)]
+    key_nps = params.get("key_nps") or ("int64",)
+    keys_fin = _recover_key_cols(key_cols, mask, cslots, cap, key_nps,
+                                 overflow)
+    keys_out = tuple(keys_fin) if nk > 1 else keys_fin[0]
+    count = torch.clamp(used.to(torch.int64), max=cap)
+    count = torch.where(overflow, -count - 1, count)
+    return WGroup(keys_out, values, offsets, count)
+
+
+def _exec_group_probe(args, params, fns, impl):
+    """The m:n join fan-out probe: ONE fused membership + match-count
+    launch (``kops.group_probe``) for the packed keys, then the shared
+    two-phase expansion (exclusive scan over the per-row counts, binary
+    search back to source rows, repeat/gather) materializes EVERY output
+    column through one expansion index — probe columns repeat, build
+    columns gather through the group's stored row ids, left-join misses
+    emit one fill row.  Poison propagates as a negative output count."""
+    d = args[0]
+    if not isinstance(d, WGroup):
+        raise KernelPlanError("group_probe: expected a groupbuilder value")
+    if isinstance(d.values, tuple):
+        raise KernelPlanError("group_probe: scalar payloads only")
+    how = params["how"]
+    nk = int(params.get("n_keys", 1))
+    n_iters = int(params.get("n_iters", 1))
+    n, idx, elem, pos, found, sizes, cap = _probe_membership(
+        args, params, fns, impl, nk=nk, n_iters=n_iters)
+    if params.get("has_pred"):
+        mask = _as_col(fns[-1](idx, elem), n).to(torch.bool)
+    else:
+        mask = torch.ones((n,), dtype=torch.bool, device=idx.device)
+    col_specs = []
+    for (kind, j), fill in zip(params["cols"], params["fills"]):
+        if kind == "expr":
+            col_specs.append(("expr", _as_col(fns[nk + j](idx, elem), n)))
+        else:
+            rv = _dense_data(args[j], "group probe gather")
+            col_specs.append(("gather", rv, fill))
+    return group_expand(d, pos, found, sizes, mask, how,
+                        int(params["out_cap"]), col_specs)
+
+
 # ---------------------------------------------------------------------------
 # Footprints: staged columns + scratch bytes one call adds to the budget.
 # (arg_shapes are the dense arg shapes; itemsize is the result element
@@ -262,6 +535,51 @@ def _fp_dict_group(arg_shapes, itemsize, params):
     # partials + K-compaction
     return (n * (8 + 4 + 2 * itemsize + 1)
             + _sr.MAX_BLOCKS * cap * 2 * itemsize + cap * (3 * itemsize + 8))
+
+
+def _fp_hash_build(arg_shapes, itemsize, params):
+    n = arg_shapes[0][0] if arg_shapes and arg_shapes[0] else 0
+    cap = int(params.get("capacity", 0))
+    ctab = _ht.table_size(cap) if cap else 16
+    nv = int(params.get("n_vals", 1))
+    # staged packed keys + table slots + compact slots + per-column
+    # staged values, the table + its sort + rank permutation, and the
+    # compacted key/value columns with their segment partials
+    return (n * (8 + 4 + 4 + nv * itemsize) + ctab * (8 + 8 + 4)
+            + cap * (nv * itemsize + 8) + _sr.MAX_BLOCKS * cap * itemsize)
+
+
+def _fp_hash_probe(arg_shapes, itemsize, params):
+    n = arg_shapes[1][0] if len(arg_shapes) > 1 and arg_shapes[1] else 0
+    cap = int(params.get("k", 0))
+    cols = max(len(params.get("cols", ())), 1)
+    # staged packed queries + pos/found columns + the (per output
+    # column) gathered and front-packed outputs, plus the neutralized
+    # key table — shared across columns (no one-hot tile: the kernel
+    # searches)
+    return n * (8 + 4 + 1 + 8 + 2 * cols * itemsize) + cap * 8
+
+
+def _fp_group_build(arg_shapes, itemsize, params):
+    n = arg_shapes[0][0] if arg_shapes and arg_shapes[0] else 0
+    cap = int(params.get("capacity", 0))
+    ctab = _ht.table_size(cap) if cap else 16
+    # staged packed keys + table/compact slots + payload column + the
+    # ordering sort, the table + rank, and the CSR offsets/key columns
+    return (n * (8 + 4 + 4 + itemsize + 8) + ctab * (8 + 8 + 4)
+            + (cap + 1) * 4 + cap * 8)
+
+
+def _fp_group_probe(arg_shapes, itemsize, params):
+    n = arg_shapes[1][0] if len(arg_shapes) > 1 and arg_shapes[1] else 0
+    cap = int(params.get("k", 0))
+    out = int(params.get("out_cap", 0))
+    cols = max(len(params.get("cols", ())), 1)
+    # staged packed queries + pos/found/size columns + the scan, and the
+    # expanded output buffers every column shares (the expansion-factor
+    # term of the memory budget)
+    return n * (8 + 4 + 1 + 4 + 8) + out * (cols * itemsize + 8 + 8) \
+        + cap * (8 + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -309,4 +627,66 @@ register(KernelSpec(
     execute=_exec_dict_group_sum,
     cost=_cost.cost_dict_group,
     footprint=_fp_dict_group,
+))
+
+register(KernelSpec(
+    name="dict_hash_build",
+    entry="repro_torch.kernels.ops:hash_to_slot",
+    pattern="dict_hash_build",
+    builder="dictmerger[+]",
+    elem_kinds=("f32", "f64", "i32", "i64"),
+    description="open-addressing hash build for sparse/non-dense int "
+                "keys, scalar or multi-column struct (hash-join build "
+                "side; also the group-by fallback beyond the dense "
+                "segment route's capacity)",
+    max_segments=_ht.MAX_CAP,
+    execute=_exec_dict_hash_build,
+    cost=_cost.cost_hash_build,
+    footprint=_fp_hash_build,
+))
+
+register(KernelSpec(
+    name="hash_probe",
+    entry="repro_torch.kernels.ops:dict_probe",
+    pattern="hash_probe",
+    builder="vecbuilder",
+    elem_kinds=("f32", "f64", "i32", "i64"),
+    description="binary-search dict probe: one membership launch shared "
+                "by every join output column (inner filter / left "
+                "fill-on-miss / anti), gathers outside the kernel",
+    max_segments=_ht.MAX_CAP,
+    execute=_exec_hash_probe,
+    cost=_cost.cost_hash_probe,
+    footprint=_fp_hash_probe,
+))
+
+register(KernelSpec(
+    name="group_build",
+    entry="repro_torch.kernels.ops:group_build",
+    pattern="group_build",
+    builder="groupbuilder",
+    elem_kinds=("i32", "i64"),
+    description="CSR group build (key -> growing vector of build-row "
+                "payloads) via hash-to-slot + slot-histogram compaction "
+                "— the m:n hash-join build side",
+    max_segments=_ht.MAX_CAP,
+    execute=_exec_group_build,
+    cost=_cost.cost_group_build,
+    footprint=_fp_group_build,
+))
+
+register(KernelSpec(
+    name="group_probe",
+    entry="repro_torch.kernels.ops:group_probe",
+    pattern="group_probe",
+    builder="vecbuilder",
+    elem_kinds=("bool", "i8", "i32", "i64", "f32", "f64"),
+    description="m:n join fan-out probe: ONE fused membership + "
+                "match-count launch shared by every output column, "
+                "then the two-phase expansion (scan + repeat/gather) "
+                "outside the kernel",
+    max_segments=_ht.MAX_CAP,
+    execute=_exec_group_probe,
+    cost=_cost.cost_group_probe,
+    footprint=_fp_group_probe,
 ))

@@ -33,7 +33,7 @@ from . import ir
 from . import wtypes as wt
 from ..device import default_device
 from .backend.torchgen import emit_program
-from .backend.values import WDict, WVec
+from .backend.values import WDict, WGroup, WVec
 from .lazy import Program
 from .passes import loop_count, optimize as run_passes
 
@@ -293,8 +293,8 @@ def compile_and_run(
 
 def decode_value(v, ty: wt.WeldType):
     """Backend value -> natural host value (numpy arrays / dicts / tuples);
-    a poisoned vector or dict raises ``CapacityError``."""
-    if isinstance(v, (WVec, WDict)):
+    a poisoned vector, dict or group raises ``CapacityError``."""
+    if isinstance(v, (WVec, WDict, WGroup)):
         return v.to_numpy()
     if isinstance(v, tuple):
         if isinstance(ty, wt.Struct):

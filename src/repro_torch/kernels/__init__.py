@@ -7,4 +7,7 @@ calls.
 
   * filter_reduce   — predicated single-pass merger (Listing 10 / TPC-H Q6)
   * segment_reduce  — vecmerger / dictmerger keyed sums, atomic-free
+  * hash_table      — open-addressing hash-to-slot (hash-join builds)
+  * hash_probe      — dict / group probes by binary search (join probes)
+  * group_build     — slot histogram of the CSR group build (m:n joins)
 """

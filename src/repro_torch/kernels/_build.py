@@ -43,6 +43,17 @@ _C_SIGNATURES = {
     "weld_segment_sum": (
         ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P),
+    # (keys, n, cap_table, slots, table, used, stream)
+    "weld_hash_to_slot": (
+        _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P),
+    # (table, cap, count, queries, n, pos, found, stream)
+    "weld_dict_probe": (
+        _P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, _P),
+    # (table, cap, count, queries, n, offsets, pos, found, sizes, stream)
+    "weld_group_probe": (
+        _P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P),
+    # (slots, n, num_slots, out, stream)
+    "weld_slot_hist": (_P, ctypes.c_longlong, ctypes.c_int, _P, _P),
 }
 
 

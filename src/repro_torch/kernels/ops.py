@@ -1,5 +1,5 @@
 """Public entries of the port's kernel library (the counterparts of the
-JAX package's ``kernels/ops.py`` for this slice).
+JAX package's ``kernels/ops.py`` for the ported kernels).
 
 ``impl`` is ``"cuda"`` (the hand-written kernel), ``"ref"`` (the plain
 PyTorch version) or ``None``.  The tensors' device decides: a CUDA
@@ -14,6 +14,9 @@ from typing import Optional
 import torch
 
 from . import filter_reduce as _fr
+from . import group_build as _gb
+from . import hash_probe as _hp
+from . import hash_table as _ht
 from . import segment_reduce as _sr
 
 IMPLS = ("cuda", "ref")
@@ -24,6 +27,10 @@ WRAPPERS = {
     "filter_reduce_sum_multi": _fr.filter_reduce_sum_multi,
     "segment_sum": _sr.segment_sum,
     "segment_sum_vectors": _sr.segment_sum_vectors,
+    "hash_to_slot": _ht.hash_to_slot,
+    "dict_probe": _hp.dict_probe,
+    "group_probe": _hp.group_probe,
+    "slot_hist": _gb.slot_hist,
 }
 
 
@@ -70,3 +77,41 @@ def segment_sum_vectors(seg_ids, vals, num_segments: int,
                         impl: Optional[str] = None):
     _check_impl(impl, vals)
     return _sr.segment_sum_vectors(seg_ids, vals, num_segments)
+
+
+# -- dict build / probe (hash-join route) --------------------------------------
+
+
+def hash_to_slot(keys, cap_table: int, impl: Optional[str] = None):
+    """Open-addressing slot assignment for int64 (packed) keys; rows equal
+    to ``hash_table.EMPTY`` park at slot ``cap_table``.  Returns
+    ``(slots, table_keys, used)`` — see kernels/hash_table.py."""
+    _check_impl(impl, keys)
+    return _ht.hash_to_slot(keys, cap_table)
+
+
+def dict_probe(table_keys, count, queries, impl: Optional[str] = None):
+    """(pos, found) per query against a sorted-front-packed dict key
+    column; ``pos`` is zeroed where not found."""
+    _check_impl(impl, queries)
+    return _hp.dict_probe(table_keys, count, queries)
+
+
+# -- group build / probe (m:n hash-join route) ---------------------------------
+
+
+def group_build(keys, capacity: int, impl: Optional[str] = None):
+    """CSR group build over int64 (packed) keys: rows with equal keys share
+    an ascending-key compact slot.  Returns ``(cslots, offsets, used)`` —
+    see kernels/group_build.py for the contract."""
+    _check_impl(impl, keys)
+    return _gb.group_build(keys, capacity)
+
+
+def group_probe(table_keys, offsets, count, queries,
+                impl: Optional[str] = None):
+    """(pos, found, sizes) per query against a groupbuilder's sorted key
+    column + CSR offsets — membership and the m:n expansion's
+    match-count pass in one launch; ``sizes`` is 0 where not found."""
+    _check_impl(impl, queries)
+    return _hp.group_probe(table_keys, offsets, count, queries)

@@ -2,9 +2,14 @@
 package's Pallas kernel (interpret mode) and its jnp oracle, on the same
 numpy inputs — ragged n, n = 0, every dtype the planner's spec takes,
 K up to MAX_K.  Tolerances: integers exact; f64 rtol 1e-12 and f32
-rtol 1e-5, since the summation order differs.  The CUDA kernels
+rtol 1e-5, since the summation order differs.  The join's kernels move
+and count keys and sum nothing, so their plain versions must equal the
+reference's jnp oracles exactly; ``hash_to_slot`` and ``group_build``
+are held against ``impl="ref"`` only, since the reference's interpret
+paths of those two do not run on the installed jax.  The CUDA kernels
 themselves run only on the card (``chip_smoke.py``); here the wrappers'
-CPU dispatch, counters, impl checks and launch shapes are held."""
+CPU dispatch, counters, impl checks and launch shapes are held, and so
+is the ``hash_to_slot`` contract checker the card's run relies on."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,10 +23,12 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import filter_reduce as j_fr  # noqa: E402
+from repro.kernels import hash_probe as j_hp  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import segment_reduce as j_sr  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import filter_reduce as t_fr  # noqa: E402
+from repro_torch.kernels import hash_table as t_ht  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
 from repro_torch.kernels import segment_reduce as t_sr  # noqa: E402
 
@@ -122,6 +129,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     ops.filter_reduce_sum_multi(torch.stack([x, x]), p)
     ops.segment_sum(torch.zeros(10, dtype=torch.int32), x, 3)
     ops.segment_sum_vectors(torch.zeros(10, dtype=torch.int32), x[:, None], 3)
+    keys = torch.tensor([4, 1, 4], dtype=torch.int64)
+    ops.hash_to_slot(keys, 16)
+    ops.dict_probe(torch.tensor([1, 4]), 2, keys)
+    ops.group_probe(torch.tensor([1, 4]), torch.tensor([0, 1, 3]), 2, keys)
+    from repro_torch.kernels import group_build as t_gb
+
+    t_gb.slot_hist(torch.tensor([0, 2, 2], dtype=torch.int32), 3)
     assert ops.counts() == {name: (0, 1) for name in ops.WRAPPERS}
     ops.reset_counts()
     assert ops.counts() == {name: (0, 0) for name in ops.WRAPPERS}
@@ -175,3 +189,191 @@ def test_kernel_library_is_not_built_on_import():
     assert _build._lib is None
     assert _build.CSRC.joinpath("filter_reduce.cu").exists()
     assert _build.CSRC.joinpath("segment_reduce.cu").exists()
+    for src in ("hash_table.cu", "hash_probe.cu", "group_build.cu"):
+        assert _build.CSRC.joinpath(src).exists()
+    for fn in ("weld_hash_to_slot", "weld_dict_probe", "weld_group_probe",
+               "weld_slot_hist"):
+        assert fn in _build._C_SIGNATURES
+        assert f'"C" int {fn}(' in "".join(
+            p.read_text() for p in _build.CSRC.glob("*.cu"))
+
+
+# ---------------------------------------------------------------------------
+# the join's kernels: hash_to_slot, dict_probe, group_probe, slot_hist
+# ---------------------------------------------------------------------------
+
+EMPTY = t_ht.EMPTY
+
+
+def _join_keys(rng, n, distinct, empty_share=0.0, spread=10**12):
+    """n int64 keys drawn from `distinct` sparse values (negative ones
+    included); a share of rows set to EMPTY."""
+    pool = rng.randint(-spread, spread, distinct).astype(np.int64)
+    keys = pool[rng.randint(0, distinct, n)] if n else pool[:0]
+    keys[rng.rand(n) < empty_share] = EMPTY
+    return keys
+
+
+def _eq(got, want):
+    got = [np.asarray(g) for g in got]
+    want = [np.asarray(w) for w in want]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+HTS_CASES = [(0, 1, 16), (1, 1, 16), (500, 37, 128), (3001, 1500, 4096),
+             (2000, 300, 256)]
+
+
+@pytest.mark.parametrize("n,distinct,cap_table", HTS_CASES + [(900, 40, 16)])
+def test_hash_to_slot_plain_matches_reference_ref(n, distinct, cap_table):
+    """Plain version == the reference's oracle, EMPTY rows and a table
+    smaller than the key set (parked rows) included."""
+    rng = np.random.RandomState(n + distinct)
+    keys = _join_keys(rng, n, distinct, empty_share=0.1)
+    got = t_ref.hash_to_slot(torch.from_numpy(keys), cap_table)
+    _eq(got, j_ref.hash_to_slot(jnp.asarray(keys), cap_table))
+    t_ht.check_contract(torch.from_numpy(keys), cap_table, *got)
+
+
+def _simulate_linear_probing(keys, cap_table):
+    """Sequential linear probing from the Fibonacci hash, in row order —
+    what the TPU kernel computes: slots are hash positions."""
+    lg = cap_table.bit_length() - 1
+    table = np.full(cap_table, EMPTY, np.int64)
+    slots = np.full(keys.shape[0], cap_table, np.int32)
+    used = 0
+    for i, k in enumerate(keys.tolist()):
+        if k == EMPTY:
+            continue
+        h = ((k % 2**64) * t_ht.GOLD % 2**64) >> (64 - lg)
+        for _ in range(cap_table):
+            if table[h] == EMPTY:
+                table[h] = k
+                used += 1
+            if table[h] == k:
+                slots[i] = h
+                break
+            h = (h + 1) & (cap_table - 1)
+    return slots, table, np.asarray(used, np.int32)
+
+
+@pytest.mark.parametrize("n,distinct,cap_table", HTS_CASES)
+def test_contract_checker_accepts_hash_positions(n, distinct, cap_table):
+    """The checker takes hash-position numbering (a numpy simulation of
+    the kernel's linear probing), and compacting those slots gives the
+    plain version's ascending-key ids bitwise — unless the table
+    overflows (the last case), when which keys fit is the table's."""
+    rng = np.random.RandomState(7 * n + distinct)
+    keys = _join_keys(rng, n, distinct, empty_share=0.05)
+    sim = [torch.from_numpy(a) for a in
+           _simulate_linear_probing(keys, cap_table)]
+    tk = torch.from_numpy(keys)
+    t_ht.check_contract(tk, cap_table, *sim)
+    plain_slots = t_ref.hash_to_slot(tk, cap_table)[0]
+    if np.unique(keys[keys != EMPTY]).size <= cap_table:
+        _eq([t_ht.compact_slots(sim[0], sim[1], cap_table)], [plain_slots])
+    else:
+        assert int(sim[2]) == cap_table
+
+
+def _broken(kind):
+    keys = torch.tensor([5, 9, 5, 12, EMPTY], dtype=torch.int64)
+    slots, table, used = (torch.from_numpy(a) for a in
+                          _simulate_linear_probing(keys.numpy(), 16))
+    if kind == "shared slot":      # two distinct keys in one slot
+        slots[1] = slots[0]
+    elif kind == "wrong used":
+        used = used + 1
+    elif kind == "two slots":      # one key owns a second slot
+        free = int(torch.nonzero(table == EMPTY)[0])
+        table[free] = 5
+        slots[2] = free
+    elif kind == "stray key":      # a slot holds a key no row has
+        table[int(torch.nonzero(table == EMPTY)[0])] = 77
+    elif kind == "parked with room":
+        slots[3] = 16
+    elif kind == "empty placed":
+        slots[4] = slots[0]
+    return keys, slots, table, used
+
+
+@pytest.mark.parametrize("kind", ["shared slot", "wrong used", "two slots",
+                                  "stray key", "parked with room",
+                                  "empty placed"])
+def test_contract_checker_rejects_a_broken_table(kind):
+    keys, slots, table, used = _broken(kind)
+    with pytest.raises(AssertionError):
+        t_ht.check_contract(keys, 16, slots, table, used)
+
+
+def _probe_case(rng, cap, count, n):
+    keys = np.sort(rng.choice(np.arange(-5000, 5000) * 7, cap,
+                              replace=False)).astype(np.int64)
+    queries = np.concatenate([keys[rng.randint(0, cap, n // 2)],
+                              rng.randint(-40000, 40000, n - n // 2)])
+    return keys, np.int64(count), queries.astype(np.int64)
+
+
+PROBE_CASES = [(64, 64, 700), (365, 300, 3001), (1000, 0, 200),
+               (50, -51, 300), (8, 8, 0)]
+
+
+@pytest.mark.parametrize("cap,count,n", PROBE_CASES)
+def test_dict_probe_plain(cap, count, n):
+    """Equal to the reference's oracle and its Pallas kernel (interpret),
+    a poisoned (negative) count and a stale tail past `count` included."""
+    keys, cnt, q = _probe_case(np.random.RandomState(cap + n), cap, count, n)
+    got = t_ref.dict_probe(torch.from_numpy(keys), torch.tensor(cnt),
+                           torch.from_numpy(q))
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    args = (jnp.asarray(keys), cnt, jnp.asarray(q))
+    _eq(got, j_ref.dict_probe(*args))
+    _eq(got, j_hp.dict_probe(*args, interpret=True))
+
+
+@pytest.mark.parametrize("cap,count,n", PROBE_CASES)
+def test_group_probe_plain(cap, count, n):
+    rng = np.random.RandomState(cap * 3 + n)
+    keys, cnt, q = _probe_case(rng, cap, count, n)
+    offsets = np.concatenate([[0], np.cumsum(rng.randint(1, 6, cap))]
+                             ).astype(np.int32)
+    got = t_ref.group_probe(torch.from_numpy(keys), torch.from_numpy(offsets),
+                            torch.tensor(cnt), torch.from_numpy(q))
+    args = (jnp.asarray(keys), jnp.asarray(offsets), cnt, jnp.asarray(q))
+    _eq(got, j_ref.group_probe(*args))
+    _eq(got, j_hp.group_probe(*args, interpret=True))
+
+
+@pytest.mark.parametrize("n,num_slots", [(0, 5), (1, 1), (5000, 4097),
+                                         (3001, 65537)])
+def test_slot_hist_plain(n, num_slots):
+    """Counts per slot; ids outside [0, num_slots) are not counted."""
+    rng = np.random.RandomState(n)
+    slots = rng.randint(-2, num_slots + 2, n).astype(np.int32)
+    got = t_ref.slot_hist(torch.from_numpy(slots), num_slots)
+    keep = (slots >= 0) & (slots < num_slots)
+    want = np.bincount(slots[keep], minlength=num_slots).astype(np.int32)
+    _eq([got], [want])
+
+
+@pytest.mark.parametrize("n,distinct,cap", [(0, 1, 8), (700, 50, 50),
+                                            (3001, 800, 1000),
+                                            (600, 90, 40)])
+def test_group_build_plain_and_composite(n, distinct, cap):
+    """The plain group build and the composite the wrappers run
+    (hash_to_slot -> compaction -> slot_hist -> offsets) both equal the
+    reference's oracle; the last case overflows (used > capacity)."""
+    rng = np.random.RandomState(n + cap)
+    keys = _join_keys(rng, n, distinct, empty_share=0.1)
+    want = j_ref.group_build(jnp.asarray(keys), cap)
+    _eq(t_ref.group_build(torch.from_numpy(keys), cap), want)
+    got = ops.group_build(torch.from_numpy(keys), cap)
+    if n and distinct > cap:
+        # overflow: both report it; which keys fit is the hash table's
+        _eq(got[2:], want[2:])
+        assert int(got[2]) > cap
+    else:
+        _eq(got, want)

@@ -256,3 +256,16 @@ def test_decode_parity_through_from_numpy():
         poisoned.to_numpy()
     with pytest.raises(TCapacityError):
         t_runtime.decode_value(t_values.from_numpy(poisoned), None)
+    # groupbuilder results: CSR values + offsets, scalar and struct keys
+    offsets = np.array([0, 2, 3, 6, 6], dtype=np.int32)
+    payload = np.array([4, 1, 7, 0, 2, 5], dtype=np.int64)
+    for gkeys in (keys, (keys, keys * 10)):
+        ref_group = r_values.WGroup(gkeys, payload, offsets, np.int64(3))
+        got = t_runtime.decode_value(t_values.from_numpy(ref_group), None)
+        assert got == ref_group.to_numpy()
+        assert isinstance(t_values.from_numpy(ref_group), t_values.WGroup)
+    bad_group = r_values.WGroup(keys, payload, offsets, np.int64(-4))
+    with pytest.raises(RCapacityError):
+        bad_group.to_numpy()
+    with pytest.raises(TCapacityError):
+        t_runtime.decode_value(t_values.from_numpy(bad_group), None)
