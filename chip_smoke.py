@@ -7,20 +7,26 @@ Run from the root of a checkout on a machine with a CUDA card (and
 ``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
 kernels/csrc`` and then
 
-1. runs seven phases through the frames a user calls — TPC-H Q6 and a
-   Q1-style four-aggregate query on an SF10-sized lineitem (59,986,052
-   rows), a 4096-key group-by over the same row count, PageRank
-   iterations (4,096 vertices x 16,777,216 edges under
-   ``kernelize="always"``, 1,000,000 x 10,000,000 under ``"auto"``, run
-   twice), the quickstart workflow (2,000,000 rows), the Star Schema
-   Benchmark's Q1.1 join (the SF10 lineitem as lineorder, 59,986,052
-   rows, against the 365 date rows of 1993: inner with a filter, left,
-   anti) and an m:n join on TPC-H partsupp's fan-out (16,777,216 probe
-   rows against 50,000 parts x 4 suppliers: inner, left) — each checked
-   against numpy computed here, with every kernel launch counter zeroed
-   just before a phase and read just after;
-2. holds each kernel against its plain PyTorch version on the card at the
-   phases' shapes, for every dtype its planner spec takes, runs it twice
+1. runs ten phases through the frames a user calls — TPC-H Q6 (Weld's
+   and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
+   four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
+   4096-key group-by over the same row count, PageRank iterations (4,096
+   vertices x 16,777,216 edges under ``kernelize="always"``, 1,000,000 x
+   10,000,000 under ``"auto"``, run twice), the quickstart workflow
+   (2,000,000 rows), the Star Schema Benchmark's Q1.1 join (the SF10
+   lineitem as lineorder, 59,986,052 rows, against the 365 date rows of
+   1993: inner with a filter, left, anti), an m:n join on TPC-H
+   partsupp's fan-out (16,777,216 probe rows against 50,000 parts x 4
+   suppliers: inner, left), Black-Scholes over 33,554,432 options as a
+   price vector and as a sum, logistic-regression scoring through
+   ``weldflow`` (4,194,304 x 64, sessions native, xla and weld) and a
+   ``weldnp`` 4096 x 4096 matmul — each checked against numpy computed
+   here, with every kernel launch counter zeroed just before a phase and
+   read just after;
+2. holds each of the eleven kernels against its plain PyTorch version
+   on the card at the phases' shapes, for every dtype its planner spec
+   takes (the map chain on the Black-Scholes and logreg bodies the
+   phases routed and on an f32 body), runs it twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
    compacted slots to the plain version's) and times kernel, plain
@@ -67,6 +73,11 @@ class Sizes:
     join_mn_parts: int = 50_000
     join_mn_fanout: int = 4
     join_mn_rows: int = 16_777_216
+    #: Black-Scholes options (Fig. 5a), logistic regression rows x
+    #: features (Fig. 5d), and the square matmul's side
+    bs_options: int = 33_554_432
+    logreg: tuple = (4_194_304, 64)
+    matmul: int = 4096
     timing_reps: int = 10
 
 
@@ -101,6 +112,8 @@ class MainPath:
         self.seed = seed
         self.launches = {name: 0 for name in ops.WRAPPERS}
         self.phase_ms = {}
+        #: map-chain bodies (IR lambdas) the phases routed, by phase
+        self.bodies = {}
 
     def run(self, phase: str, mode: str, fn, expect=()):
         """Zero the counters, drive ``fn(mode, stats)`` and read them.
@@ -115,6 +128,7 @@ class MainPath:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         counts = self.ops.counts()
+        self.last_counts = counts
         for name, (launches, _) in counts.items():
             self.launches[name] += launches
         routed = {k[len("kernelize."):]: v for k, v in stats.items()
@@ -122,14 +136,25 @@ class MainPath:
         key = f"{phase}[{mode}]"
         while key in self.phase_ms:
             key += "'"
-        self.phase_ms[key] = {"wall_ms": wall, "encode_ms": stats["encode_ms"],
-                              "run_ms": stats["run_ms"]}
-        compile_ms = 0.0 if stats.get("cache.hit") else stats["compile_ms"]
+        entry = {"wall_ms": wall}
+        parts = []
+        if "encode_ms" in stats:  # an Evaluate ran (not a bare session)
+            entry.update(encode_ms=stats["encode_ms"], run_ms=stats["run_ms"])
+            compile_ms = 0.0 if stats.get("cache.hit") else stats["compile_ms"]
+            entry["compile_ms"] = compile_ms
+            parts = [f"encode_ms={stats['encode_ms']:.3f}",
+                     f"compile_ms={compile_ms:.3f}",
+                     f"run_ms={stats['run_ms']:.3f}"]
+            if stats.get("kernels.prepare_ms") and not stats.get("cache.hit"):
+                parts.append(f"prepare_ms={stats['kernels.prepare_ms']:.3f}")
+        self.phase_ms[key] = entry
         log(f"phase {phase} kernelize={mode}: wall_ms={wall:.3f} "
-            f"(encode_ms={stats['encode_ms']:.3f} compile_ms={compile_ms:.3f} "
-            f"run_ms={stats['run_ms']:.3f}) routed={routed} launches="
+            f"({' '.join(parts)}) routed={routed} launches="
             f"{ {k: v[0] for k, v in counts.items() if v[0]} } "
             f"plain_calls={ {k: v[1] for k, v in counts.items() if v[1]} }")
+        refused = stats.get("kernelplan", {}).get("refused")
+        if refused:
+            log(f"  refused routes: {refused}")
         if mode == "auto":
             plan = stats.get("kernelplan", {})
             for c in plan.get("costs", []):
@@ -182,10 +207,38 @@ def phase_tpch(mp: MainPath, cols: dict) -> None:
          & (cols["disc"] >= 0.05) & (cols["disc"] <= 0.07)
          & (cols["qty"] < 24.0))
     want = float((cols["price"][m] * cols["disc"][m]).sum())
+    weld_q6 = None
     for mode in ("always", "auto"):
         got, _ = mp.run("q6", mode, q6,
                         expect=[("filter_reduce_sum", "filter_reduce_sum")])
         close(got, want, 1e-9, f"q6[{mode}]")
+        weld_q6 = got
+
+    # the hand-fused Q6 the JAX package's bench_tpch sets beside Weld's:
+    # one range test per column, lo <= c < hi (disc <= 0.07 as the next
+    # double above 0.07), the revenue column as the value
+    import torch
+    from repro_torch import default_device
+    from repro_torch.kernels import ops
+
+    def q6_hand(mode, stats):
+        dev = default_device()
+        c = torch.stack([torch.from_numpy(cols["ship"]).to(dev).double(),
+                         torch.from_numpy(cols["disc"]).to(dev),
+                         torch.from_numpy(cols["qty"]).to(dev)])
+        lo = torch.tensor([365.0, 0.05, -np.inf], dtype=torch.float64,
+                          device=dev)
+        hi = torch.tensor([730.0, np.nextafter(0.07, np.inf), 24.0],
+                          dtype=torch.float64, device=dev)
+        val = (torch.from_numpy(cols["price"]).to(dev)
+               * torch.from_numpy(cols["disc"]).to(dev))
+        return float(ops.filter_reduce_q6(c, lo, hi, val))
+
+    got, _ = mp.run("q6_hand", "kernel", q6_hand)
+    check(mp.last_counts["filter_reduce_q6"] == (1, 0),
+          "q6_hand: filter_reduce_q6 did not launch its kernel once")
+    close(got, weld_q6, 1e-12, "q6_hand vs Weld's Q6")
+    close(got, want, 1e-9, "q6_hand")
 
     def q1(mode, stats):
         t = weldrel.Table(cols)
@@ -483,6 +536,181 @@ def phase_join_mn(mp: MainPath) -> None:
 
         _join_runs(mp, "join_mn", how, join, want, expect)
         del want
+
+
+def _routed_body(stats: dict):
+    """The IR lambda of the (one) map chain a planned program routed."""
+    from repro_torch.core import ir
+
+    calls = [n for n in ir.walk(stats["plan.ir"])
+             if isinstance(n, ir.KernelCall) and n.kernel == "map_elementwise"]
+    check(len(calls) == 1, f"expected one routed map chain, got {len(calls)}")
+    return calls[0].fns[0]
+
+
+RISKFREE, VOL = 0.02, 0.30
+
+
+def bs_data(n: int, seed: int) -> dict:
+    """Options drawn as the JAX package's benchmarks/workloads.py
+    (make_bs_data) draws them."""
+    rng = np.random.RandomState(seed)
+    return {"price": rng.uniform(10, 200, n),
+            "strike": rng.uniform(10, 200, n),
+            "t": rng.uniform(0.1, 2.0, n)}
+
+
+def bs_numpy(d: dict) -> np.ndarray:
+    from scipy.special import erf
+
+    s, k, t = d["price"], d["strike"], d["t"]
+    sig_t = VOL * np.sqrt(t)
+    d1 = (np.log(s / k) + (RISKFREE + 0.5 * VOL * VOL) * t) / sig_t
+    d2 = d1 - sig_t
+
+    def cnd(x):
+        return 0.5 * (1.0 + erf(x / np.sqrt(2.0)))
+
+    return s * cnd(d1) - k * np.exp(-RISKFREE * t) * cnd(d2)
+
+
+def bs_weld(d: dict):
+    """The Black-Scholes call price as benchmarks/workloads.py writes it
+    in weldnp (black_scholes_weld_expr, without the final sum)."""
+    from repro_torch.frames import weldnp
+
+    s, k, t = (weldnp.array(d[c]) for c in ("price", "strike", "t"))
+
+    def cnd(x):
+        return (weldnp.erf(x * (1.0 / np.sqrt(2.0))) + 1.0) * 0.5
+
+    sig_t = weldnp.sqrt(t) * VOL
+    d1 = (weldnp.log(s / k) + t * (RISKFREE + 0.5 * VOL * VOL)) / sig_t
+    d2 = d1 - sig_t
+    return s * cnd(d1) - k * weldnp.exp(t * (-RISKFREE)) * cnd(d2)
+
+
+def close_vec(got, want, rtol: float, what: str) -> None:
+    got = np.asarray(got)
+    check(got.shape == want.shape, f"{what}: shape {got.shape} vs "
+                                   f"{want.shape}")
+    check(bool(np.isfinite(got).all()), f"{what}: non-finite values")
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    check(float(err.max()) <= rtol, f"{what}: max relative error "
+                                    f"{float(err.max())} > {rtol}")
+
+
+def phase_blackscholes(mp: MainPath) -> None:
+    """Fig. 5a: the price vector under every mode (a map chain) and its
+    sum under "always" (the filter-reduce route)."""
+    from repro_torch.core.lazy import Evaluate
+
+    t0 = time.perf_counter()
+    d = bs_data(mp.sizes.bs_options, mp.seed + 1)
+    want = bs_numpy(d)
+    log(f"blackscholes: {mp.sizes.bs_options} options and the numpy prices "
+        f"in {time.perf_counter() - t0:.3f} s")
+
+    def vector(mode, stats):
+        return Evaluate(bs_weld(d).obj, kernelize=mode,
+                        collect_stats=stats).value
+
+    for mode in ("always", "always", "auto", "off"):
+        got, stats = mp.run("blackscholes", mode, vector, expect=[
+            ("map_elementwise", "map_elementwise")])
+        close_vec(got, want, 1e-9, f"blackscholes[{mode}]")
+        if mode == "always":
+            mp.bodies["blackscholes"] = _routed_body(stats)
+
+    def total(mode, stats):
+        return Evaluate(bs_weld(d).sum().obj, kernelize=mode,
+                        collect_stats=stats).value
+
+    got, _ = mp.run("blackscholes.sum", "always", total,
+                    expect=[("filter_reduce_sum", "filter_reduce_sum")])
+    close(got, float(want.sum()), 1e-9, "blackscholes.sum[always]")
+
+
+def logreg_data(n: int, d: int, seed: int):
+    """Features centred on 0 and normal weights, so that the scores span
+    both classes (with all-positive features and weights every sigmoid
+    rounds to 1 and the loss carries few significant digits)."""
+    rng = np.random.RandomState(seed)
+    return rng.rand(n, d) - 0.5, rng.randn(d)
+
+
+def phase_logreg(mp: MainPath) -> None:
+    """Fig. 5d: logistic-regression scoring through weldflow, in the
+    paper's three sessions: native (one eager op per node), xla (the whole
+    graph through one torch.compile, a baseline) and weld (the graph
+    transformer, the optimizer and the kernels)."""
+    from repro_torch.core import kernelplan
+    from repro_torch.frames import weldflow
+
+    n, dim = mp.sizes.logreg
+    t0 = time.perf_counter()
+    m, w = logreg_data(n, dim, mp.seed + 9)
+    z = m @ w + 0.25
+    want = float(np.mean(np.log(1.0 / (1.0 + np.exp(-z)))))
+    log(f"logreg: {n} x {dim} rows generated in "
+        f"{time.perf_counter() - t0:.3f} s")
+    x = weldflow.placeholder()
+    logits = weldflow.matvec(x, weldflow.constant(w)) + 0.25
+    loss = weldflow.reduce_mean(weldflow.log(weldflow.sigmoid(logits)))
+    feed = {x: m}
+    results = {}
+    for session, mode in (("native", "native"), ("native", "native"),
+                          ("xla", "xla"), ("xla", "xla"),
+                          ("weld", "always"), ("weld", "always"),
+                          ("weld", "auto")):
+        def run(mode, stats, session=session):
+            # the weld session plans under the process default mode
+            was = kernelplan.DEFAULT_KERNELIZE
+            if session == "weld":
+                kernelplan.set_default_kernelize(mode)
+            try:
+                return weldflow.Session(session).run(
+                    loss, feed, collect_stats=stats)
+            finally:
+                kernelplan.set_default_kernelize(was)
+
+        got, stats = mp.run(f"logreg.{session}", mode, run, expect=[
+            ("matvec", "tiled_matmul"),
+            ("map_elementwise", "map_elementwise"),
+            ("filter_reduce_sum", "filter_reduce_sum")])
+        close(got, want, 1e-9, f"logreg.{session}[{mode}]")
+        if session != "weld":
+            check(all(v == (0, 0) for v in mp.last_counts.values()),
+                  f"logreg.{session}: a port kernel ran in a baseline session")
+        if mode == "always":
+            mp.bodies["logreg"] = _routed_body(stats)
+        results.setdefault(session, []).append(float(got))
+    log(f"  logreg values: { {k: v[0] for k, v in results.items()} } "
+        f"numpy {want!r}")
+
+
+def phase_matmul(mp: MainPath) -> None:
+    """A weldnp dot of two square f64 matrices: the tiled kernel under
+    "always", torch.matmul under "off"."""
+    from repro_torch.core.lazy import Evaluate
+    from repro_torch.frames import weldnp
+
+    side = mp.sizes.matmul
+    rng = np.random.RandomState(mp.seed + 10)
+    a, b = rng.rand(side, side), rng.rand(side, side)
+    want = a @ b
+
+    def product(mode, stats):
+        return Evaluate(weldnp.array(a).dot(weldnp.array(b)).obj,
+                        kernelize=mode, collect_stats=stats).value
+
+    for mode in ("always", "always", "off"):
+        got, _ = mp.run("matmul", mode, product,
+                        expect=[("matmul", "tiled_matmul")])
+        got = np.asarray(got)
+        check(got.shape == want.shape, f"matmul[{mode}]: shape {got.shape}")
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(err <= 1e-10, f"matmul[{mode}]: relative error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -783,6 +1011,273 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     return rows
 
 
+#: FP64 tensor-core (DMMA) and FP32 peaks of the H100 SXM data sheet: the
+#: least time the card could take for a product's 2mnk operations at full
+#: precision (TF32 would be faster but is not the same function)
+MATMUL_PEAK = {"float64": 67e12, "float32": 67e12}
+
+
+def f32_body():
+    """sqrt(a*a + b*b) / (1 + a*a) over two f32 columns: only + - * / and
+    sqrt, so the kernel (-fmad=false) must equal the plain version
+    bitwise."""
+    from repro_torch.core import ir, wtypes as wt
+
+    i = ir.Ident("i%hold", wt.I64)
+    x = ir.Ident("x%hold", wt.Struct((wt.F32, wt.F32)))
+    a, b = ir.GetField(x, 0), ir.GetField(x, 1)
+
+    def sq(e):
+        return ir.BinOp("*", e, e)
+
+    body = ir.BinOp("/", ir.UnaryOp("sqrt", ir.BinOp("+", sq(a), sq(b))),
+                    ir.BinOp("+", ir.Literal(1.0, wt.F32), sq(a)))
+    return ir.Lambda((i, x), body)
+
+
+def _timed_row(torch, kern, plain, library, reps, nbytes, ops, peak,
+               **extra) -> dict:
+    t_kernel = time_ms(torch, kern, reps)
+    t_plain = time_ms(torch, plain, reps)
+    t_lib = time_ms(torch, library, reps) if library is not None else None
+    t_kernel2 = time_ms(torch, kern, reps)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return dict(extra, ms=min(t_kernel, t_kernel2),
+                ms_runs=[t_kernel, t_kernel2], plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
+                       bodies: dict, dev="cuda") -> list:
+    """The array path's three kernels at the phases' shapes:
+    map_elementwise on the Black-Scholes body (33,554,432 options), the
+    logreg body (4,194,304 logits) and an f32 body; tiled_matmul at 4096^3
+    in f64 and f32 and at the logreg matvec (4,194,304 x 64); and
+    filter_reduce_q6 in f64 at SF10.  Each runs twice (bitwise equal) and
+    is held against its plain version: bitwise where the arithmetic is
+    IEEE-exact on both sides, else to the stated tolerance."""
+    from repro_torch.core import ir
+    from repro_torch.kernels import filter_reduce as fr
+    from repro_torch.kernels import map_chain as mc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tiled_matmul as tm
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    reps = sizes.timing_reps
+
+    def uni(shape, lo, hi, dt=torch.float64):
+        return torch.rand(shape, generator=gen, device=dev, dtype=dt) \
+            * (hi - lo) + lo
+
+    def name_of(dt):
+        return str(dt).split(".")[-1]
+
+    rows = []
+    # -- B3: map_elementwise ------------------------------------------------
+    n_bs = sizes.bs_options
+    n_lr, d_lr = sizes.logreg
+    lr_src = mc.source_for(bodies["logreg"])
+    lr_env = {name: torch.tensor(0.25, dtype=torch.float64, device=dev)
+              for name, _ in lr_src.scalars}
+    cases = [
+        ("blackscholes", bodies["blackscholes"],
+         lambda: [uni(n_bs, 10, 200), uni(n_bs, 10, 200),
+                  uni(n_bs, 0.1, 2.0)], {}, "libm"),
+        ("logreg", bodies["logreg"], lambda: [uni(n_lr, -16, 16)], lr_env,
+         "libm"),
+        ("f32_norm", f32_body(),
+         lambda: [uni(n_bs, -4, 4, torch.float32),
+                  uni(n_bs, -4, 4, torch.float32)], {}, "bitwise"),
+    ]
+    per = []
+    for label, lam, make, env, kind in cases:
+        cols = make()
+        plain_fn = mc.stage_plain(lam, env, dev)
+
+        def kern(lam=lam, cols=cols, env=env, plain_fn=plain_fn):
+            return mc.map_elementwise(plain_fn, cols, lam=lam, env=env)
+
+        def plain(cols=cols, plain_fn=plain_fn):
+            return ref.map_elementwise(plain_fn, cols)
+
+        first, second, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(first, second),
+              f"map_elementwise[{label}]: two runs differ bitwise")
+        check(first.dtype == want.dtype and first.shape == want.shape,
+              f"map_elementwise[{label}]: {first.dtype}{tuple(first.shape)} "
+              f"vs plain {want.dtype}{tuple(want.shape)}")
+        err = float((first.double() - want.double()).abs().max())
+        if kind == "bitwise":
+            tol = 0.0
+            check(torch.equal(first, want),
+                  f"map_elementwise[{label}]: differs from the plain version "
+                  f"(max |diff| {err}); + - * / sqrt must be bitwise")
+        else:
+            rel = float(((first.double() - want.double()).abs()
+                         / want.double().abs().clamp_min(1.0)).max())
+            tol = 1e-5 if want.dtype == torch.float32 else 1e-12
+            check(rel <= tol, f"map_elementwise[{label}]: max relative "
+                              f"error {rel} > {tol}")
+        n = cols[0].shape[0]
+        nbytes = n * (sum(c.element_size() for c in cols)
+                      + first.element_size())
+        # the operations the fused function needs: each distinct
+        # subtree once (the generic closure repeats the inlined ones)
+        ops = n * mc.source_for(lam).ops
+        row = _timed_row(torch, kern, plain, None, reps, nbytes, ops,
+                         PEAK_OPS[name_of(want.dtype)], case=label,
+                         dtype=name_of(want.dtype), max_abs_err=err,
+                         tolerance=tol, n=n)
+        per.append(row)
+        log(f"kernel map_elementwise[{label}] n={n} dtype={row['dtype']} "
+            f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
+            f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"max_abs_err={err:.3e} ({kind}) bitwise_repeat=ok")
+        del cols, first, second, want
+        torch.cuda.empty_cache()
+    for tag, info in mc.build_info().items():
+        log(f"  generated map chain {tag}: "
+            f"{'nvcc' if info['built'] else 'cached'} {info['seconds']:.3f} s")
+    # the host time a launch spends finding its body's kernel: by the
+    # lambda's identity, as map_elementwise does, against the structural
+    # key that lookup avoids
+    bs_lam = bodies["blackscholes"]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mc.source_for(bs_lam)
+    lookup_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    ir.canon_key(bs_lam)
+    canon_ms = (time.perf_counter() - t0) * 1e3
+    n_nodes = sum(1 for _ in ir.walk(bs_lam.body))
+    log(f"  source lookup of the Black-Scholes body ({n_nodes} IR nodes), "
+        f"host: by identity {lookup_ms:.4f} ms, ir.canon_key "
+        f"{canon_ms:.3f} ms")
+    main = per[0]
+    rows.append({
+        "name": "map_elementwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/map_chain.py",
+        "replaces": "src/repro/kernels/map_chain.py:33",
+        "launches": launches["map_elementwise"],
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None, "library": None,
+        "dtype": main["dtype"], "per_dtype": per,
+        "generated_builds": mc.build_info(),
+        "host_lookup_ms": lookup_ms, "host_canon_key_ms": canon_ms,
+    })
+
+    # -- B10: tiled_matmul --------------------------------------------------
+    side = sizes.matmul
+    cases = [("square", torch.float64, (side, side), (side, side)),
+             ("square", torch.float32, (side, side), (side, side)),
+             ("matvec", torch.float64, (n_lr, d_lr), (d_lr, 1))]
+    per = []
+    for label, dt, ashape, bshape in cases:
+        a, b = uni(ashape, 0, 1, dt), uni(bshape, 0, 1, dt)
+
+        def kern(a=a, b=b):
+            return tm.tiled_matmul(a, b)
+
+        def plain(a=a, b=b):
+            return ref.tiled_matmul(a, b)
+
+        def library(a=a, b=b):
+            return torch.matmul(a, b)
+
+        first, second, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(first, second),
+              f"tiled_matmul[{label},{dt}]: two runs differ bitwise")
+        err = float((first.double() - want.double()).abs().max())
+        tol = _tolerance(torch, want, dt)
+        check(err <= tol, f"tiled_matmul[{label},{dt}]: max |kernel - plain| "
+                          f"{err} exceeds {tol}")
+        (m, k), n = ashape, bshape[1]
+        e = a.element_size()
+        row = _timed_row(torch, kern, plain, library, reps,
+                         (m * k + k * n + m * n) * e, 2 * m * n * k,
+                         MATMUL_PEAK[name_of(dt)], case=label,
+                         dtype=name_of(dt), shape=[m, k, n],
+                         max_abs_err=err, tolerance=tol)
+        per.append(row)
+        log(f"kernel tiled_matmul[{label},{row['dtype']}] m,k,n={m},{k},{n} "
+            f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
+            f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} (torch.matmul) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
+        del a, b, first, second, want
+        torch.cuda.empty_cache()
+    main = per[0]
+    rows.append({
+        "name": "tiled_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
+        "replaces": "src/repro/kernels/tiled_matmul.py:43",
+        "launches": launches["tiled_matmul"],
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "torch.matmul", "dtype": main["dtype"], "per_dtype": per,
+    })
+
+    # -- B11: filter_reduce_q6 ----------------------------------------------
+    n = sizes.lineitem
+    cols = torch.stack([
+        torch.randint(0, 2557, (n,), generator=gen, device=dev).double(),
+        uni(n, 0.0, 0.1), uni(n, 1.0, 50.0)])
+    lo = torch.tensor([365.0, 0.05, -np.inf], dtype=torch.float64,
+                      device=dev)
+    hi = torch.tensor([730.0, np.nextafter(0.07, np.inf), 24.0],
+                      dtype=torch.float64, device=dev)
+    val = uni(n, 0.0, 1000.0)
+
+    def kern():
+        return fr.filter_reduce_q6(cols, lo, hi, val)
+
+    def plain():
+        return ref.filter_reduce_q6(cols, lo, hi, val)
+
+    first, second, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(first, second),
+          "filter_reduce_q6: two runs differ bitwise")
+    err = float((first - want).abs())
+    tol = _tolerance(torch, want, torch.float64)
+    check(err <= tol, f"filter_reduce_q6: |kernel - plain| {err} > {tol}")
+    kept = int(torch.all((cols >= lo[:, None]) & (cols < hi[:, None]),
+                         dim=0).sum())
+    row = _timed_row(torch, kern, plain, None, reps, n * (3 * 8 + 8) + 56,
+                     n * 3 * 2 + kept, PEAK_OPS["float64"], case="sf10",
+                     dtype="float64", n=n, kept=kept, max_abs_err=err,
+                     tolerance=tol)
+    log(f"kernel filter_reduce_q6[float64] n={n} kept={kept} "
+        f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
+        f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
+    rows.append({
+        "name": "filter_reduce_q6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/filter_reduce.cu",
+        "replaces": "src/repro/kernels/filter_reduce.py:132",
+        "launches": launches["filter_reduce_q6"], "max_abs_err": err,
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "library": None, "dtype": "float64",
+        "per_dtype": [row],
+    })
+    del cols, val
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -814,6 +1309,9 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     import repro_torch
 
     repro_torch.set_default_device("cuda")
+    # full-precision products on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     build_kernels()
     mp = MainPath(torch, sizes, seed)
@@ -828,10 +1326,14 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     phase_pagerank(mp)
     phase_quickstart(mp)
     phase_join_mn(mp)
+    phase_blackscholes(mp)
+    phase_logreg(mp)
+    phase_matmul(mp)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
+    kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies)
     return {"kernels": kernels, "phase_ms": mp.phase_ms,
             "total_s": time.perf_counter() - t_all}
 
@@ -857,7 +1359,9 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(result, card=card),
                                              indent=1))
-    summary = [{k: v for k, v in row.items() if k != "per_dtype"}
+    summary = [{k: v for k, v in row.items()
+                if k not in ("per_dtype", "generated_builds",
+                             "host_lookup_ms", "host_canon_key_ms")}
                for row in result["kernels"]]
     print(json.dumps({"kernels": summary}))
     print(card)

@@ -1035,7 +1035,10 @@ class Emitter:
 
     def _stage_elem_fn(self, lam: ir.Lambda, env):
         """Per-element IR lambda -> whole-column callable (evaluation via
-        this emitter, closing over the current env)."""
+        this emitter, closing over the current env).  The callable also
+        carries the lambda (``.lam``) and that env (``.env``): a kernel
+        that generates its code from the IR body (the map chain) reads
+        them."""
         base_env = dict(env)
 
         def fn(*vals):
@@ -1044,6 +1047,8 @@ class Emitter:
                 env2[p.name] = v
             return self.ev(lam.body, env2, None)
 
+        fn.lam = lam
+        fn.env = base_env
         return fn
 
     # -- builders -------------------------------------------------------------

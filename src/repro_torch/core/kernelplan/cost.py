@@ -14,8 +14,11 @@ shapes (block padding, one-hot matmul FLOPs for the segment routes), so
 an "auto" decision here is the reference's decision under H100 rates,
 not a measured one.  The join probes are the exception: their kernels
 search where the TPU's compared a one-hot tile, and are priced as
-searches.  The ledger calibration, the autotuner and the other kernels'
-hooks wait for their slices.
+searches.  So are the array routes: ``matmul``/``matvec`` against one
+``torch.matmul`` (cuBLAS, which may use the FP64 tensor cores the port's
+kernel does not), and the map chain against one eager PyTorch operator
+per IR node, each intermediate materialized.  The ledger calibration
+and the autotuner wait for their slices.
 
 ``estimate(spec, meta)`` returns a :class:`CostEstimate`; ``meta`` is
 the planner-collected static description of the match.  Unknown sizes
@@ -35,6 +38,8 @@ HW_H100 = {
     "hbm_bw": 3.35e12,          # B/s
     "peak_flops_f32": 67e12,    # FLOP/s
     "peak_flops_f64": 34e12,    # FLOP/s
+    # the FP64 tensor cores (DMMA), which a library matmul may use
+    "peak_flops_f64_tc": 67e12,  # FLOP/s
 }
 
 #: route when kernel_s <= jnp_s * (1 + ROUTE_MARGIN): prefer the kernel
@@ -290,6 +295,46 @@ def cost_group_probe(meta: dict) -> CostEstimate:
     jnp_s = _roofline_s(j_bytes, n * lgk, e)
     return _decide(kernel_s, jnp_s,
                    f"n={n} K={k} cols={cols} out={out}")
+
+
+def cost_matmul(meta: dict) -> CostEstimate:
+    """Tiled matmul kernel (CUDA cores, operand-dtype accumulation, no
+    padding) vs. one ``torch.matmul``: the same bytes, but the library
+    may run f64 on the FP64 tensor cores at twice the CUDA-core rate, so
+    a large f64 product prices the generic route ahead; a matvec is
+    bound by bytes on both routes and the kernel pays its launch."""
+    dims = meta.get("dims")
+    if not dims or any(d is None for d in dims):
+        return REJECT_UNKNOWN
+    m, k, n = dims
+    e = meta.get("elem_bytes", 8)
+    nbytes = (m * k + k * n + m * n) * e
+    flops = 2.0 * m * k * n
+    kernel_s = _roofline_s(nbytes, flops, e) + LAUNCH_OVERHEAD_S
+    lib_peak = HW_H100["peak_flops_f64_tc" if e >= 8 else "peak_flops_f32"]
+    jnp_s = max(nbytes / HW_H100["hbm_bw"], flops / lib_peak)
+    return _decide(kernel_s, jnp_s, f"dims={m}x{k}x{n}")
+
+
+def cost_map_chain(meta: dict) -> CostEstimate:
+    """Fused elementwise chain: the generated kernel reads each column
+    once, writes the result once and computes each shared subtree once
+    (``kernel_ops``); the generic emitter runs one eager operator per IR
+    node of the inlined tree (``ops``), each reading its (up to two)
+    operands and writing a materialized intermediate, and pays a launch
+    per node."""
+    n = meta.get("n")
+    if not n:
+        return REJECT_UNKNOWN
+    cols = max(meta.get("cols", 1), 1)
+    ops = max(meta.get("ops", 2), 1)
+    k_ops = max(meta.get("kernel_ops", ops), 1)
+    e = meta.get("elem_bytes", 8)
+    kernel_s = (_roofline_s(n * (cols + 1) * e, n * k_ops, e)
+                + LAUNCH_OVERHEAD_S)
+    j_bytes = n * (cols + 1) * e + ops * 3 * n * e
+    jnp_s = _roofline_s(j_bytes, n * ops, e) + ops * LAUNCH_OVERHEAD_S
+    return _decide(kernel_s, jnp_s, f"n={n} cols={cols} ops={ops}")
 
 
 def estimate(spec, meta: dict) -> CostEstimate:

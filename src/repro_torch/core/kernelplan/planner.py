@@ -16,6 +16,10 @@ pattern-matches the fused loop shapes the optimizer produces —
   probe: inner/left/anti, scalar or struct keys)        → dict_probe
 * a probed ``groupbuilder`` (the m:n join build side)   → group_build
   and its ``grouplookup`` expansion loop                → group_probe
+* ``cudf[linalg.matmul] / cudf[linalg.matvec]``
+  (the tiling pass raises dot loops to these)           → tiled_matmul
+* ``result(for(V.., vecbuilder, merge(b, f(x))))`` with a nontrivial
+  elementwise body the map-chain generator can emit     → map_elementwise
 
 — and replaces each matched subtree with an ``ir.KernelCall`` node
 carrying the iter sources as args and the per-element bodies as staged
@@ -23,10 +27,12 @@ lambdas.  Everything unmatched lowers exactly as before; a program with
 no matches is returned unchanged.
 
 This is the copy of the JAX package's planner for the routes the port
-has.  The matmul and map-chain matchers, the quarantine check, the
-weldbound midpoint pricing and the verifier checkpoint wait for their
-slices; capacities (symbolic ones included) resolve through the
-emitter's static evaluator.
+has.  The quarantine check, the weldbound midpoint pricing and the
+verifier checkpoint wait for their slices; capacities (symbolic ones
+included) resolve through the emitter's static evaluator.  A map chain
+whose body the CUDA generator cannot emit is refused at match time (the
+spec's ``refuse`` hook): the loop stays on the generic emitter and the
+reason is recorded under ``stats["kernelplan"]["refused"]``.
 
 Soundness rules (checked per match, conservative):
 
@@ -57,6 +63,9 @@ from ..backend.torchgen import _static_eval
 from ..backend.torchgen import match_group_probe as _group_probe_shape
 from . import cost as _cost
 from . import registry as reg
+
+#: minimum compute-node count for a map chain to be worth a kernel launch.
+MIN_MAP_OPS = 2
 
 #: shape map: dense name -> statically known shape tuple (or None when
 #: the name is provably dense but its length is not statically known).
@@ -808,8 +817,51 @@ def _match_group_probe(loop: ir.For,
     )
 
 
+def _match_map_chain(loop: ir.For, dense: Shapes,
+                     refusals: Optional[List[Tuple[str, str]]] = None
+                     ) -> Optional[ir.KernelCall]:
+    spec = reg.available("map_elementwise")
+    if spec is None:
+        return None
+    nb = loop.builder
+    if not (
+        isinstance(nb, ir.NewBuilder)
+        and isinstance(nb.ty, wt.VecBuilder)
+        and _scalar_kind_ok(nb.ty.elem, spec)
+    ):
+        return None
+    b, i, x = loop.func.params
+    body = loop.func.body
+    if not (isinstance(body, ir.Merge) and _is_ident(body.builder, b.name)):
+        return None
+    val = body.value
+    per_elem = {i.name, x.name}
+    # the staged body runs INSIDE the kernel: gathers into whole arrays
+    # (Lookup) and the loop index are unavailable there.
+    if not _elementwise_ok(val, {b.name}, per_elem, allow_lookup=False):
+        return None
+    if i.name in ir.free_vars(val):
+        return None
+    if _compute_ops(val) < MIN_MAP_OPS:
+        return None  # trivial map: the generic emitter handles it
+    lam = ir.Lambda((i, x), val)
+    why = spec.refuse(lam) if spec.refuse is not None else None
+    if why is not None:
+        if refusals is not None:
+            refusals.append((spec.name, why))
+        return None
+    return ir.KernelCall(
+        kernel=spec.name,
+        args=tuple(it.data for it in loop.iters),
+        ret_ty=wt.Vec(nb.ty.elem),
+        fns=(lam,),
+    )
+
+
 def _match_loop(e: ir.Result, dense: Shapes,
-                probed: bool = False) -> Optional[ir.KernelCall]:
+                probed: bool = False,
+                refusals: Optional[List[Tuple[str, str]]] = None
+                ) -> Optional[ir.KernelCall]:
     loop = e.builder
     if not isinstance(loop, ir.For) or not loop.iters:
         return None
@@ -837,12 +889,33 @@ def _match_loop(e: ir.Result, dense: Shapes,
             # the host and keeps the generic keyed finalize
             return _match_group_build(loop, dense) if probed else None
         if isinstance(nb.ty, wt.VecBuilder):
-            return _match_hash_probe(loop, dense)
+            return (_match_map_chain(loop, dense, refusals)
+                    or _match_hash_probe(loop, dense))
     if isinstance(nb, ir.MakeStruct):
         return (_match_filter_reduce(loop, dense)
                 or _match_hash_probe_fused(loop, dense)
                 or _match_group_probe(loop, dense))
     return None
+
+
+def _match_cudf(e: ir.CUDF) -> Optional[ir.KernelCall]:
+    name = {"linalg.matmul": "matmul", "linalg.matvec": "matvec"}.get(e.name)
+    if name is None:
+        return None
+    spec = reg.available(name)
+    if spec is None:
+        return None
+    for a in e.args:
+        try:
+            ty = ir.typeof(a)
+        except Exception:
+            return None
+        base = ty
+        while isinstance(base, wt.Vec):
+            base = base.elem
+        if not _scalar_kind_ok(base, spec):
+            return None
+    return ir.KernelCall(kernel=name, args=e.args, ret_ty=e.ret_ty)
 
 
 # ---------------------------------------------------------------------------
@@ -859,6 +932,17 @@ def _shape_of(e: ir.Expr, dense: Shapes) -> Optional[tuple]:
     if isinstance(e, ir.KernelCall):
         if e.kernel == "vecmerger_segment_sum":
             return _shape_of(e.args[0], dense)
+        if e.kernel == "map_elementwise":
+            return _shape_of(e.args[0], dense)
+        if e.kernel == "matmul":
+            a = _shape_of(e.args[0], dense)
+            b = _shape_of(e.args[1], dense)
+            if a and b and len(a) == 2 and len(b) == 2:
+                return (a[0], b[1])
+            return None
+        if e.kernel == "matvec":
+            a = _shape_of(e.args[0], dense)
+            return (a[0],) if a else None
         return None
     if isinstance(e, ir.Result) and isinstance(e.builder, ir.For):
         loop = e.builder
@@ -958,6 +1042,29 @@ def _call_meta(kc: ir.KernelCall, dense: Shapes,
         # output traffic, priced off the static expansion capacity
         meta["out"] = params.get("out_cap")
         meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel in ("matmul", "matvec"):
+        a = _shape_of(kc.args[0], dense)
+        b = _shape_of(kc.args[1], dense)
+        if a and len(a) == 2:
+            if kc.kernel == "matvec":
+                # rhs is a vector: the output column count is 1 by shape
+                meta["dims"] = (a[0], a[1], 1)
+                meta["n"] = a[0]
+            elif b and len(b) == 2:
+                meta["dims"] = (a[0], a[1], b[1])
+                meta["n"] = a[0]
+            # else: rhs shape unknown — leave dims unset so the cost
+            # model rejects conservatively instead of pricing a guess
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    elif kc.kernel == "map_elementwise":
+        meta["n"] = next(
+            (v for v in (_len_of(a, dense) for a in kc.args) if v), None
+        )
+        meta["cols"] = len(kc.args)
+        meta["ops"] = sum(_compute_ops(f.body) for f in kc.fns) or 1
+        meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
+    if spec is not None and spec.cost_meta is not None:
+        meta.update(spec.cost_meta(kc))
     meta["dtype"] = str(np.dtype(_np_dtype_of(kc.ret_ty)))
     return meta
 
@@ -1031,6 +1138,8 @@ def plan_kernels(
         )
         if est.kernel_s and est.kernel_s != float("inf"):
             extra += (("predicted_ns", int(est.kernel_s * 1e9)),)
+        if meta.get("dims"):
+            extra += (("dims", tuple(int(d) for d in meta["dims"])),)
         if meta.get("k") and "capacity" not in dict(kc.params):
             extra += (("k", int(meta["k"])),)
         return ir.KernelCall(
@@ -1071,7 +1180,17 @@ def plan_kernels(
             return ir.Let(x.name, v, rec(x.body))
         x = x.map_children(rec)
         if isinstance(x, ir.Result):
-            kc = _match_loop(x, dense)
+            refusals: List[Tuple[str, str]] = []
+            kc = _match_loop(x, dense, refusals=refusals)
+            for name, why in refusals:
+                # a sound match whose body the kernel cannot take: the
+                # loop stays generic, and the plan says why
+                kplan.setdefault("refused", {}).setdefault(
+                    name, []).append(why)
+            if kc is not None:
+                return consider(kc, x)
+        if isinstance(x, ir.CUDF):
+            kc = _match_cudf(x)
             if kc is not None:
                 return consider(kc, x)
         return x

@@ -16,9 +16,16 @@ of one call, charged against ``memory_limit`` by the emitter).
 
 The port registers the routes of the ported slices: the aggregate and
 group-by routes ``filter_reduce_sum``, ``vecmerger_segment_sum`` and
-``dict_group_sum``, and the hash-join routes ``dict_hash_build`` +
-``hash_probe`` (m:1) and ``group_build`` + ``group_probe`` (m:n).  The
-matmul and map-chain routes wait for their slices.
+``dict_group_sum``, the hash-join routes ``dict_hash_build`` +
+``hash_probe`` (m:1) and ``group_build`` + ``group_probe`` (m:n), and
+the array routes ``matmul`` / ``matvec`` (the tiling pass's linalg ops,
+on ``tiled_matmul``) and ``map_elementwise`` (a fused elementwise chain,
+on a kernel generated from its IR body).  A spec may carry a ``prepare``
+hook, which the runtime calls for each of its calls when a program is
+compiled for the card: the map chain builds its generated kernel there,
+not at the first row.  Its ``refuse`` hook tells the planner at match
+time which bodies the generator cannot emit, and its ``cost_meta`` hook
+adds the generated kernel's own operation count to the cost meta.
 """
 from __future__ import annotations
 
@@ -30,8 +37,10 @@ import torch
 from ...kernels import ops as kops
 from ...kernels import filter_reduce as _fr
 from ...kernels import hash_table as _ht
+from ...kernels import map_chain as _mc
 from ...kernels import segment_reduce as _sr
 from ..backend.torchgen import TORCH_OF_NP, _pack_keys, group_expand
+from .. import ir
 from ..backend.values import WDict, WGroup, WVec
 from . import cost as _cost
 
@@ -68,6 +77,14 @@ class KernelSpec:
     #: (arg_shapes, itemsize, params) -> bytes of staged columns +
     #: scratch this call adds beyond its natural inputs/outputs.
     footprint: Optional[Callable] = None
+    #: (KernelCall) -> None, run when a program routing the call is
+    #: compiled for the card (builds what the first launch needs).
+    prepare: Optional[Callable] = None
+    #: (ir.Lambda) -> None, or the reason the kernel cannot take this
+    #: body; asked at match time (a refused loop stays generic).
+    refuse: Optional[Callable] = None
+    #: (KernelCall) -> dict of cost meta only the kernel knows.
+    cost_meta: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}
@@ -101,6 +118,15 @@ def fingerprint() -> str:
     key, so register/unregister forces a recompile rather than serving a
     stale plan."""
     return ",".join(sorted(f"{s.name}:{s.entry}" for s in _REGISTRY.values()))
+
+
+def prepare_kernels(expr: ir.Expr) -> None:
+    """Run the ``prepare`` hook of every kernel call in a planned program."""
+    for node in ir.walk(expr):
+        if isinstance(node, ir.KernelCall):
+            spec = _REGISTRY.get(node.kernel)
+            if spec is not None and spec.prepare is not None:
+                spec.prepare(node)
 
 
 def describe() -> str:
@@ -507,6 +533,45 @@ def _exec_group_probe(args, params, fns, impl):
                         int(params["out_cap"]), col_specs)
 
 
+def _exec_matmul(args, params, fns, impl):
+    """linalg.matmul: C = A @ B in the operands' common dtype."""
+    a = _dense_data(args[0], "matmul lhs")
+    b = _dense_data(args[1], "matmul rhs")
+    ct = torch.promote_types(a.dtype, b.dtype)
+    return WVec(kops.matmul(a.to(ct).contiguous(), b.to(ct).contiguous(),
+                            impl=impl))
+
+
+def _exec_matvec(args, params, fns, impl):
+    """linalg.matvec: the matmul kernel with a (k, 1) right-hand side,
+    which takes its warp-per-row launch shape."""
+    a = _dense_data(args[0], "matvec lhs")
+    b = _dense_data(args[1], "matvec rhs")
+    ct = torch.promote_types(a.dtype, b.dtype)
+    out = kops.matmul(a.to(ct).contiguous(), b.to(ct).reshape(-1, 1)
+                      .contiguous(), impl=impl)
+    return WVec(out[:, 0])
+
+
+def _exec_map_elementwise(args, params, fns, impl):
+    """One fused pass of the staged body over the loop's columns: the
+    torch closure is the plain version, the IR body (``fns[0].lam``) the
+    source of the CUDA kernel."""
+    arrays = [_dense_data(a, "map chain") for a in args]
+    n = min(a.shape[0] for a in arrays)
+    arrays = [a[:n].contiguous() for a in arrays]
+    staged = fns[0]
+    # the staged lambda is (i, x); map-chain matching guarantees the
+    # index is unused, so bind a dummy scalar
+    dummy = torch.zeros((), dtype=torch.int64, device=arrays[0].device)
+
+    def body(*cols):
+        return staged(dummy, _elem_of(list(cols)))
+
+    return WVec(kops.map_elementwise(body, arrays, impl=impl,
+                                     lam=staged.lam, env=staged.env))
+
+
 # ---------------------------------------------------------------------------
 # Footprints: staged columns + scratch bytes one call adds to the budget.
 # (arg_shapes are the dense arg shapes; itemsize is the result element
@@ -580,6 +645,16 @@ def _fp_group_probe(arg_shapes, itemsize, params):
     # term of the memory budget)
     return n * (8 + 4 + 1 + 4 + 8) + out * (cols * itemsize + 8 + 8) \
         + cap * (8 + 4)
+
+
+def _fp_matmul(arg_shapes, itemsize, params):
+    # the kernel masks its edges: no padded copies, no scratch
+    return 0
+
+
+def _fp_map_chain(arg_shapes, itemsize, params):
+    # the body runs in registers: no padding, no intermediates
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -689,4 +764,47 @@ register(KernelSpec(
     execute=_exec_group_probe,
     cost=_cost.cost_group_probe,
     footprint=_fp_group_probe,
+))
+
+register(KernelSpec(
+    name="matmul",
+    entry="repro_torch.kernels.ops:matmul",
+    pattern="linalg.matmul",
+    builder="-",
+    elem_kinds=("f32", "f64"),
+    description="tiled matmul (shared-memory k tiles, register "
+                "micro-tiles) for raised 2-D dot loops",
+    execute=_exec_matmul,
+    cost=_cost.cost_matmul,
+    footprint=_fp_matmul,
+))
+
+register(KernelSpec(
+    name="matvec",
+    entry="repro_torch.kernels.ops:matmul",
+    pattern="linalg.matvec",
+    builder="-",
+    elem_kinds=("f32", "f64"),
+    description="matrix-vector product through the tiled matmul kernel "
+                "(its warp-per-row launch shape)",
+    execute=_exec_matvec,
+    cost=_cost.cost_matmul,
+    footprint=_fp_matmul,
+))
+
+register(KernelSpec(
+    name="map_elementwise",
+    entry="repro_torch.kernels.ops:map_elementwise",
+    pattern="map_chain",
+    builder="vecbuilder",
+    elem_kinds=("f32", "f64", "i32", "i64"),
+    description="fused elementwise map chain as one generated CUDA kernel "
+                "(Black-Scholes-style operator chains)",
+    execute=_exec_map_elementwise,
+    cost=_cost.cost_map_chain,
+    footprint=_fp_map_chain,
+    prepare=lambda kc: _mc.prepare(kc.fns[0]),
+    refuse=_mc.check_emittable,
+    # the generated kernel emits each shared subtree once
+    cost_meta=lambda kc: {"kernel_ops": _mc.source_for(kc.fns[0]).ops or 1},
 ))

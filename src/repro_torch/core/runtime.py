@@ -213,6 +213,14 @@ def _compile(prog: Program, names, shapes, types, opt: bool, memory_limit,
 
         expr = plan_kernels(expr, input_shapes=shapes, stats=stats,
                             mode=mode)
+        if torch.device(device).type == "cuda":
+            # build what the routed calls need before the first row (the
+            # generated map-chain kernels); counted in compile_ms
+            from .kernelplan.registry import prepare_kernels
+
+            t1 = time.perf_counter()
+            prepare_kernels(expr)
+            stats["kernels.prepare_ms"] = (time.perf_counter() - t1) * 1e3
     stats["plan.ir"] = expr
     fn = emit_program(expr, names, types, shapes, device, memory_limit,
                       kernel_impl=kernel_impl)

@@ -7,6 +7,12 @@ The build happens at first use, into ``build/kernels/`` at the root of
 the checkout, under a name that carries the hash of the sources and the
 flags: a changed source builds anew, an unchanged one loads what is
 there.  Nothing here runs when the module is imported.
+
+A second path, :func:`build_generated`, builds a source the port
+generates at run time (a map chain's kernel, ``map_chain.py``) into a
+shared library of its own under the same directory, keyed by the hash of
+its text and flags, with ``-fmad=false`` so that its arithmetic rounds
+as the generic emitter's separate PyTorch operators do.
 """
 from __future__ import annotations
 
@@ -18,13 +24,20 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: flags of a generated source: no fused multiply-add contraction and no
+#: fast math, so +, -, *, / and sqrt round as PyTorch's operators do
+GEN_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-shared",
 )
 
 _lock = threading.Lock()
@@ -43,6 +56,14 @@ _C_SIGNATURES = {
     "weld_segment_sum": (
         ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P),
+    # (dtype, cols, k, lo, hi, val, n, partials, nblocks, out, stream)
+    "weld_filter_reduce_q6": (
+        ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P,
+        ctypes.c_int, _P, _P),
+    # (dtype, a, b, c, m, n, k, stream)
+    "weld_tiled_matmul": (
+        ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, _P),
     # (keys, n, cap_table, slots, table, used, stream)
     "weld_hash_to_slot": (
         _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P),
@@ -145,3 +166,32 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().weld_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def build_generated(text: str, name: str) -> Tuple[ctypes.CDLL, dict]:
+    """Build (once per checkout) and load one generated CUDA source.
+    Returns the library and what its load did: {"built": bool,
+    "seconds": float (nvcc included when built), "path": str}."""
+    h = hashlib.sha256(" ".join(GEN_NVCC_FLAGS).encode())
+    h.update(text.encode())
+    tag = h.hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{tag}.so"
+    t0 = time.perf_counter()
+    built = not out.exists()
+    if built:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        stem = f"{name}-{tag}.{os.getpid()}.{threading.get_ident()}"
+        src = BUILD_DIR / f"{stem}.cu"
+        tmp = BUILD_DIR / f"{stem}.so"
+        src.write_text(text)
+        proc = subprocess.run(
+            [nvcc_path(), *GEN_NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the generated source "
+                               f"{src}:\n{proc.stdout}")
+        os.replace(tmp, out)
+        os.replace(src, BUILD_DIR / f"{name}-{tag}.cu")
+    lib = ctypes.CDLL(str(out))
+    return lib, {"built": built, "path": str(out),
+                 "seconds": time.perf_counter() - t0}

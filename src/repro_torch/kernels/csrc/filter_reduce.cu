@@ -3,6 +3,10 @@
 // Replaces the TPU kernels of repro/kernels/filter_reduce.py:
 //   filter_reduce_sum        (_kernel :31, pallas_call :56)  -> A = 1
 //   filter_reduce_sum_multi  (_kernel_multi :70, pallas_call :102)
+//   filter_reduce_q6         (_kernel_fused_pred :116, pallas_call :143)
+//     -> weld_filter_reduce_q6 below: the predicate is K range tests
+//        lo_k <= cols[k][i] < hi_k computed in the same pass, so it never
+//        exists as a column (K * sizeof(T) + sizeof(T) bytes a row).
 //
 // Bound on the H100: bytes.  One pass reads n * (A * sizeof(T) + 1)
 // bytes (the value rows plus a 1-byte predicate) and does at most A
@@ -152,6 +156,80 @@ extern "C" int weld_filter_reduce_sum(int dtype, const void* vals,
     case 1: return dispatch<double>(a, vals, pred, n, partials, nblocks, out, s);
     case 2: return dispatch<int>(a, vals, pred, n, partials, nblocks, out, s);
     case 3: return dispatch<long long>(a, vals, pred, n, partials, nblocks, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+constexpr int kMaxQ6 = 8;
+
+// One pass of the hand-fused Q6: every thread tests all K ranges of its
+// rows with the column loads and the value load issued unconditionally
+// (bitwise AND of the tests, a select for the value), keeps one running
+// sum, and the block writes its fixed-tree sum to partials[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+q6_partial(const T* __restrict__ cols, int k, const T* __restrict__ lo,
+           const T* __restrict__ hi, const T* __restrict__ val, int64_t n,
+           T* __restrict__ partials) {
+  T lo_r[kMaxQ6], hi_r[kMaxQ6];
+#pragma unroll
+  for (int c = 0; c < kMaxQ6; ++c) {
+    lo_r[c] = c < k ? lo[c] : T(0);
+    hi_r[c] = c < k ? hi[c] : T(0);
+  }
+  T acc[1] = {T(0)};
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < n; i += stride) {
+    bool keep = true;
+#pragma unroll
+    for (int c = 0; c < kMaxQ6; ++c) {
+      if (c < k) {
+        const T x = cols[c * n + i];
+        keep = keep & (x >= lo_r[c]) & (x < hi_r[c]);
+      }
+    }
+    const T v = val[i];
+    acc[0] += keep ? v : T(0);
+  }
+  block_sum<T, 1>(acc, partials + blockIdx.x);
+}
+
+template <typename T>
+cudaError_t launch_q6(const void* cols, int k, const void* lo, const void* hi,
+                      const void* val, int64_t n, void* partials, int nblocks,
+                      void* out, cudaStream_t s) {
+  q6_partial<T><<<nblocks, kThreads, 0, s>>>(
+      static_cast<const T*>(cols), k, static_cast<const T*>(lo),
+      static_cast<const T*>(hi), static_cast<const T*>(val), n,
+      static_cast<T*>(partials));
+  fr_combine<T, 1><<<1, kThreads, 0, s>>>(
+      static_cast<const T*>(partials), nblocks, static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = f32, 1 = f64.  cols is (k, n) row-major, lo/hi (k,) on the
+// device, val (n,), partials (nblocks,), out a scalar; k <= kMaxQ6.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// the CUDA error of the launches (0 = success).
+extern "C" int weld_filter_reduce_q6(int dtype, const void* cols, int k,
+                                     const void* lo, const void* hi,
+                                     const void* val, long long n,
+                                     void* partials, int nblocks, void* out,
+                                     void* stream) {
+  if (n <= 0 || nblocks <= 0 || k < 1 || k > kMaxQ6) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_q6<float>(cols, k, lo, hi, val, n, partials,
+                                    nblocks, out, s);
+    case 1: return launch_q6<double>(cols, k, lo, hi, val, n, partials,
+                                     nblocks, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,7 +3,8 @@
     result(for(v, merger[+,0], (b,i,x) => if(p(x)) merge(b,x) else b))
 
 Wrappers over the CUDA kernel in ``csrc/filter_reduce.cu`` (the port of
-the TPU kernels ``filter_reduce_sum`` and ``filter_reduce_sum_multi``).
+the TPU kernels ``filter_reduce_sum``, ``filter_reduce_sum_multi`` and
+the hand-fused Q6 ``filter_reduce_q6``).
 A CUDA tensor launches the kernel — or raises; a CPU tensor takes the
 plain version in ``ref``.  Each wrapper counts its kernel launches in
 ``.launches`` and its plain-version calls in ``.plain_calls``.
@@ -19,6 +20,7 @@ import torch
 
 from . import _build
 from .ref import filter_reduce_sum as filter_reduce_sum_plain
+from .ref import filter_reduce_q6 as filter_reduce_q6_plain
 from .ref import filter_reduce_sum_multi as filter_reduce_sum_multi_plain
 
 #: threads per block and the grid cap of the partial-sum launch (the
@@ -27,6 +29,8 @@ THREADS = 256
 MAX_BLOCKS = 1024
 #: aggregates per launch (csrc kMaxA); wider calls take several launches
 MAX_A = 4
+#: range columns of one Q6 launch (csrc kMaxQ6)
+MAX_Q6_COLS = 8
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                torch.int64: 3}
@@ -113,3 +117,51 @@ def filter_reduce_sum_multi(vals: torch.Tensor,
 
 filter_reduce_sum_multi.launches = 0
 filter_reduce_sum_multi.plain_calls = 0
+
+
+def filter_reduce_q6(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     val: torch.Tensor) -> torch.Tensor:
+    """sum(val where all(lo[k] <= cols[k] < hi[k])) in one pass: cols
+    (K, n), lo/hi (K,), val (n,), all of one float dtype -> 0-dim."""
+    if val.device.type == "cpu":
+        filter_reduce_q6.plain_calls += 1
+        return filter_reduce_q6_plain(cols, lo, hi, val)
+    tensors = (cols, lo, hi, val)
+    if any(t.device != val.device for t in tensors) \
+            or val.device.type != "cuda":
+        raise ValueError("filter_reduce_q6 kernel takes CUDA tensors on one "
+                         "device")
+    if val.dtype not in (torch.float32, torch.float64) \
+            or any(t.dtype != val.dtype for t in tensors):
+        raise TypeError(f"filter_reduce_q6 kernel takes f32 or f64 tensors of "
+                        f"one dtype, got {[t.dtype for t in tensors]}")
+    if cols.ndim != 2 or val.ndim != 1 or cols.shape[1] != val.shape[0] \
+            or lo.shape != (cols.shape[0],) or hi.shape != (cols.shape[0],):
+        raise ValueError(f"filter_reduce_q6 kernel needs cols (K, n), lo/hi "
+                         f"(K,), val (n,); got {cols.shape}, {lo.shape}, "
+                         f"{hi.shape}, {val.shape}")
+    if not 1 <= cols.shape[0] <= MAX_Q6_COLS:
+        raise ValueError(f"filter_reduce_q6 kernel takes 1..{MAX_Q6_COLS} "
+                         f"range columns, got {cols.shape[0]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("filter_reduce_q6 kernel takes contiguous tensors")
+    n = val.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=val.dtype, device=val.device)
+    out = torch.empty((), dtype=val.dtype, device=val.device)
+    nblocks = grid_blocks(n)
+    partials = torch.empty((nblocks,), dtype=val.dtype, device=val.device)
+    lib = _build.library()
+    with torch.cuda.device(val.device):
+        rc = lib.weld_filter_reduce_q6(
+            DTYPE_CODES[val.dtype], cols.data_ptr(), cols.shape[0],
+            lo.data_ptr(), hi.data_ptr(), val.data_ptr(), n,
+            partials.data_ptr(), nblocks, out.data_ptr(),
+            torch.cuda.current_stream(val.device).cuda_stream)
+    _build.check(rc, "filter_reduce_q6 kernel launch")
+    filter_reduce_q6.launches += 1
+    return out
+
+
+filter_reduce_q6.launches = 0
+filter_reduce_q6.plain_calls = 0

@@ -17,7 +17,9 @@ from . import filter_reduce as _fr
 from . import group_build as _gb
 from . import hash_probe as _hp
 from . import hash_table as _ht
+from . import map_chain as _mc
 from . import segment_reduce as _sr
+from . import tiled_matmul as _tm
 
 IMPLS = ("cuda", "ref")
 
@@ -31,6 +33,9 @@ WRAPPERS = {
     "dict_probe": _hp.dict_probe,
     "group_probe": _hp.group_probe,
     "slot_hist": _gb.slot_hist,
+    "map_elementwise": _mc.map_elementwise,
+    "tiled_matmul": _tm.tiled_matmul,
+    "filter_reduce_q6": _fr.filter_reduce_q6,
 }
 
 
@@ -65,6 +70,13 @@ def filter_reduce_sum_multi(vals, pred, impl: Optional[str] = None):
     """Predicated row sums: vals (A, n) + pred (n,) -> (A,) in ONE pass."""
     _check_impl(impl, vals)
     return _fr.filter_reduce_sum_multi(vals, pred)
+
+
+def filter_reduce_q6(cols, lo, hi, val, impl: Optional[str] = None):
+    """The hand-fused TPC-H Q6: sum(val where all(lo_k <= cols[k] < hi_k))
+    in one pass; cols (K, n), lo/hi (K,), val (n,)."""
+    _check_impl(impl, val)
+    return _fr.filter_reduce_q6(cols, lo, hi, val)
 
 
 def segment_sum(seg_ids, vals, num_segments: int,
@@ -115,3 +127,26 @@ def group_probe(table_keys, offsets, count, queries,
     match-count pass in one launch; ``sizes`` is 0 where not found."""
     _check_impl(impl, queries)
     return _hp.group_probe(table_keys, offsets, count, queries)
+
+
+# -- tiled matmul (linalg.matmul / linalg.matvec) --------------------------------
+
+
+def matmul(a, b, impl: Optional[str] = None):
+    """C = A @ B for 2-D f32/f64 operands of one dtype, accumulated in that
+    dtype; a (k, 1) right-hand side is the matvec launch shape."""
+    _check_impl(impl, a)
+    return _tm.tiled_matmul(a, b)
+
+
+# -- fused elementwise map chain -------------------------------------------------
+
+
+def map_elementwise(fn, arrays, impl: Optional[str] = None, lam=None,
+                    env=None):
+    """Apply a staged elementwise body to 1-D columns in one fused pass.
+    ``fn`` is the body as a whole-column torch closure (the plain
+    version), ``lam`` the same body as IR (the CUDA route generates its
+    kernel from it) and ``env`` binds the body's free scalars."""
+    _check_impl(impl, arrays[0])
+    return _mc.map_elementwise(fn, arrays, lam=lam, env=env)

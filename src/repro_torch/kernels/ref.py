@@ -165,3 +165,28 @@ def group_build(keys: torch.Tensor, capacity: int):
     offsets = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
                          torch.cumsum(counts, 0)]).to(torch.int32)
     return cslots, offsets, is_new.sum().to(torch.int32)
+
+
+def filter_reduce_q6(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     val: torch.Tensor) -> torch.Tensor:
+    """sum(val where all(lo[k] <= cols[k] < hi[k])) as a 0-dim tensor of
+    val's dtype; cols (K, n), lo/hi (K,), val (n,)."""
+    keep = torch.all((cols >= lo[:, None]) & (cols < hi[:, None]), dim=0)
+    zero = torch.zeros((), dtype=val.dtype, device=val.device)
+    return torch.where(keep, val, zero).sum(dtype=val.dtype)
+
+
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B in the operands' own dtype (no TF32: the reference
+    keeps full f32)."""
+    return torch.matmul(a, b)
+
+
+def map_elementwise(fn, arrays):
+    """``fn`` (a whole-column torch closure staged from the IR body)
+    over the columns, broadcast to the first column's length."""
+    n = arrays[0].shape[0]
+    out = fn(*arrays)
+    if out.ndim >= 1 and out.shape[0] == n:
+        return out
+    return torch.broadcast_to(out, (n,) + tuple(out.shape)).contiguous()

@@ -24,6 +24,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import filter_reduce as j_fr  # noqa: E402
 from repro.kernels import hash_probe as j_hp  # noqa: E402
+from repro.kernels import map_chain as j_mc  # noqa: E402
+from repro.kernels import tiled_matmul as j_tm  # noqa: E402
 from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels import segment_reduce as j_sr  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -136,6 +138,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     from repro_torch.kernels import group_build as t_gb
 
     t_gb.slot_hist(torch.tensor([0, 2, 2], dtype=torch.int32), 3)
+    ops.matmul(torch.ones(3, 2, dtype=torch.float64),
+               torch.ones(2, 1, dtype=torch.float64))
+    ops.map_elementwise(lambda a: a * 2.0 + 1.0, [x])
+    ops.filter_reduce_q6(torch.stack([x, x]), torch.tensor([1.0, 2.0]),
+                         torch.tensor([5.0, 9.0]), x)
     assert ops.counts() == {name: (0, 1) for name in ops.WRAPPERS}
     ops.reset_counts()
     assert ops.counts() == {name: (0, 0) for name in ops.WRAPPERS}
@@ -186,7 +193,14 @@ def test_filter_reduce_grid_depends_only_on_n():
 
 
 def test_kernel_library_is_not_built_on_import():
+    from repro_torch.kernels import map_chain as t_mc
+
     assert _build._lib is None
+    assert not t_mc._libs
+    for src in ("tiled_matmul.cu", "filter_reduce.cu"):
+        assert _build.CSRC.joinpath(src).exists()
+    for fn in ("weld_tiled_matmul", "weld_filter_reduce_q6"):
+        assert fn in _build._C_SIGNATURES
     assert _build.CSRC.joinpath("filter_reduce.cu").exists()
     assert _build.CSRC.joinpath("segment_reduce.cu").exists()
     for src in ("hash_table.cu", "hash_probe.cu", "group_build.cu"):
@@ -377,3 +391,101 @@ def test_group_build_plain_and_composite(n, distinct, cap):
         assert int(got[2]) > cap
     else:
         _eq(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the array path's kernels: tiled_matmul, map_elementwise, filter_reduce_q6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (70, 33, 90), (300, 64, 1),
+                                   (257, 130, 3), (5, 0, 4)])
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+def test_tiled_matmul_plain(m, k, n, dtype):
+    """The plain product against the TPU kernel in interpret mode (ragged
+    tiles on every side, the matvec shape n = 1) and its jnp oracle (an
+    empty k too, which the interpret mode cannot slice)."""
+    rng = np.random.RandomState(m + k + n)
+    a = rng.randn(m, k).astype(dtype)
+    b = rng.randn(k, n).astype(dtype)
+    got = ops.matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.from_numpy(a).dtype
+    if k:
+        want = j_tm.tiled_matmul(jnp.asarray(a), jnp.asarray(b),
+                                 interpret=True)
+        _close(got, want, dtype)
+    _close(got, j_ref.tiled_matmul(jnp.asarray(a), jnp.asarray(b)), dtype)
+
+
+#: (jnp body, torch body) pairs: the same elementwise function written
+#: once per package (a map body with no captured constants, which the
+#: TPU kernel's interpret mode requires)
+MAP_BODIES = {
+    "exp_affine": (lambda a, b: jnp.exp(a * 2.0) + b,
+                   lambda a, b: torch.exp(a * 2.0) + b),
+    "blend": (lambda a, b: jnp.where(a > b, a * b, a - b),
+              lambda a, b: torch.where(a > b, a * b, a - b)),
+    "sqrt_ratio": (lambda a, b: jnp.sqrt(a * a + b * b) / (1.0 + a * a),
+                   lambda a, b: torch.sqrt(a * a + b * b) / (1.0 + a * a)),
+}
+
+
+@pytest.mark.parametrize("n", [0, 1, 8 * 1024 + 3, 20_000])
+@pytest.mark.parametrize("body", sorted(MAP_BODIES))
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+def test_map_elementwise_plain(n, body, dtype):
+    jfn, tfn = MAP_BODIES[body]
+    rng = np.random.RandomState(n + 7)
+    a = rng.randn(n).astype(dtype)
+    b = rng.randn(n).astype(dtype)
+    got = ops.map_elementwise(tfn, [torch.from_numpy(a), torch.from_numpy(b)])
+    want = j_mc.map_elementwise(jfn, [jnp.asarray(a), jnp.asarray(b)],
+                                interpret=True)
+    _close(got, want, dtype)
+    _close(got, j_ref.map_elementwise(jfn, [a, b]), dtype)
+
+
+def test_map_elementwise_plain_broadcasts_a_constant_body():
+    x = np.arange(5, dtype=np.float64)
+    got = t_ref.map_elementwise(
+        lambda a: torch.tensor(3.0, dtype=torch.float64),
+        [torch.from_numpy(x)])
+    want = j_ref.map_elementwise(lambda a: jnp.float64(3.0), [x])
+    _close(got, want, np.float64)
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (3, 3001), (3, 8 * 1024 + 5),
+                                 (2, 0), (8, 700)])
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+def test_filter_reduce_q6_plain(k, n, dtype):
+    """Integer-valued columns and values: the sums are exact in both
+    packages whatever the order, so they must be equal (n = 0 against
+    the jnp oracle only)."""
+    rng = np.random.RandomState(k * 1000 + n)
+    cols = rng.randint(0, 100, (k, n)).astype(dtype)
+    lo = rng.randint(0, 40, k).astype(dtype)
+    hi = (lo + rng.randint(20, 70, k)).astype(dtype)
+    val = rng.randint(-50, 50, n).astype(dtype)
+    got = ops.filter_reduce_q6(*(torch.from_numpy(v)
+                                 for v in (cols, lo, hi, val)))
+    if n:  # the interpret mode cannot slice an empty column
+        want = j_fr.filter_reduce_q6(
+            *(jnp.asarray(v) for v in (cols, lo, hi, val)), interpret=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(
+        np.asarray(got), np.asarray(j_ref.filter_reduce_q6(cols, lo, hi, val)))
+
+
+def test_array_wrappers_refuse_what_their_kernels_do_not_take():
+    """The CUDA-side argument checks run before any launch; on a CPU
+    machine they are reached through a tensor that claims another device
+    only on the card, so here the dtype/shape checks of the Q6 and matmul
+    wrappers are held on the meta device."""
+    meta = torch.device("meta")
+    a = torch.empty((4, 3), dtype=torch.float64, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_fr.filter_reduce_q6(a, a[:, 0], a[:, 0], a[0])
+    from repro_torch.kernels import tiled_matmul as t_tm
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_tm.tiled_matmul(a, a.T)
