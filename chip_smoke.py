@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card (and
 ``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
 kernels/csrc`` and then
 
-1. runs ten phases through the frames a user calls — TPC-H Q6 (Weld's
-   and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
+1. runs eleven phases through the entry points a user calls — TPC-H Q6
+   (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
    vertices x 16,777,216 edges under ``kernelize="always"``, 1,000,000 x
@@ -21,12 +21,18 @@ kernels/csrc`` and then
    price vector and as a sum, logistic-regression scoring through
    ``weldflow`` (4,194,304 x 64, sessions native, xla and weld) and a
    ``weldnp`` 4096 x 4096 matmul — each checked against numpy computed
-   here, with every kernel launch counter zeroed just before a phase and
-   read just after;
-2. holds each of the eleven kernels against its plain PyTorch version
+   here — and LM serving (``repro_torch.launch.serve``: Llama 3.2 3B at
+   full width and depth in bf16 on random weights, 4 prompts of 2,048
+   tokens and 32 generated; each layer's prefill attention against
+   ``ref.attention``, teacher-forced decode against prefill, runs bitwise
+   equal, and a 2-layer f32 copy on the card against the CPU), with
+   every kernel launch counter zeroed just before a phase and read just
+   after;
+2. holds each of the twelve kernels against its plain PyTorch version
    on the card at the phases' shapes, for every dtype its planner spec
    takes (the map chain on the Black-Scholes and logreg bodies the
-   phases routed and on an f32 body), runs it twice
+   phases routed and on an f32 body; flash_attention at the prefill's
+   shape, a ragged S, Sq < Skv and in f32), runs it twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
    compacted slots to the plain version's) and times kernel, plain
@@ -40,6 +46,7 @@ any check fails.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -78,6 +85,22 @@ class Sizes:
     bs_options: int = 33_554_432
     logreg: tuple = (4_194_304, 64)
     matmul: int = 4096
+    #: LM serving: the architecture (full width and depth unless
+    #: lm_smoke), batch x prompt + generated tokens, the prompt tokens
+    #: decoded teacher-forced against prefill, and the f32 copy run on the
+    #: card and the CPU (layers, batch, prompt, generated)
+    lm_arch: str = "llama3.2-3b"
+    lm_smoke: bool = False
+    lm_batch: int = 4
+    lm_prompt: int = 2048
+    lm_gen: int = 32
+    lm_decode_check: int = 8
+    lm_cross: tuple = (2, 2, 256, 4)
+    #: flash_attention's hold: the prefill's (B, H, Hkv, S, D), a ragged S
+    #: and the Sq of the Sq < Skv case
+    attn_shape: tuple = (4, 24, 8, 2048, 128)
+    attn_ragged: int = 1999
+    attn_sq: int = 256
     timing_reps: int = 10
 
 
@@ -713,6 +736,279 @@ def phase_matmul(mp: MainPath) -> None:
         check(err <= 1e-10, f"matmul[{mode}]: relative error {err}")
 
 
+# -- the LM serving path ---------------------------------------------------------
+
+#: bf16 attention (kernel against the plain version, and per layer): the
+#: kernel rounds p to bf16 before the PV product as the TPU kernel does
+#: (up to 2**-9 of each weight) and both sides round their f32 result to
+#: bf16 (2**-8): |kernel - plain| <= ATTN_BF16_ATOL + ATTN_BF16_RTOL |plain|
+ATTN_BF16_ATOL = ATTN_BF16_RTOL = 2e-2
+#: f32 attention: the JAX package's own kernel test
+ATTN_F32_ATOL, ATTN_F32_RTOL = 2e-5, 2e-4
+#: decode against prefill in bf16, as a share of the largest |logit|: 28
+#: layers of bf16 (2**-8 per rounding) through two paths that round at
+#: other places (the kernel's p, cuBLAS's shapes, the decode's f32
+#: softmax over the bf16 cache)
+DECODE_BF16_REL = 5e-2
+#: the same f32 model on the card and on the CPU, as a share of the
+#: largest |logit|: other summation orders only (TF32 off)
+CROSS_F32_REL = 1e-4
+
+
+def _attention_close(torch, got, want):
+    """(max |got - want|, whether every element is within tolerance)."""
+    if want.dtype == torch.float32:
+        atol, rtol = ATTN_F32_ATOL, ATTN_F32_RTOL
+    else:
+        atol, rtol = ATTN_BF16_ATOL, ATTN_BF16_RTOL
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    return float(diff.max()), ok
+
+
+def _device_profile(torch, fn, top: int = 6):
+    """Device-busy ms of one call of ``fn`` (the CUDA activities of a
+    profiler trace, summed: one stream, so they do not overlap) and its
+    ``top`` kernels as [(name, ms, calls)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+        if us:
+            rows.append((e.key[:60], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return busy, [(n, round(ms, 3), c) for n, ms, c in rows[:top]]
+
+
+class _Capture:
+    """Swaps ``ops.attention`` (what every layer's prefill calls) for a
+    wrapper that keeps each call's q, k, v, output and options; launches
+    nothing of its own."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig = self.ops.attention
+
+        def attention(q, k, v, **kw):
+            out = orig(q, k, v, **kw)
+            self.calls.append((q, k, v, out, kw))
+            return out
+
+        self.ops.attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.attention = self.orig
+
+
+def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
+                   dev="cuda") -> dict:
+    """Serve ``sizes.lm_arch`` at full width and depth through
+    ``repro_torch.launch.serve``: each prefill must launch flash_attention
+    once per layer and serve no plain version; every layer's attention is
+    held against ``ref.attention`` on its own q/k/v; teacher-forced decode
+    against prefill; two runs bitwise equal; and a depth-cut f32 copy on
+    the card against the same weights on the CPU."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as lm
+    from repro_torch.models import build_model
+
+    dev = torch.device(dev)
+    cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
+    model = build_model(cfg)
+    b, prompt, gen_len = sizes.lm_batch, sizes.lm_prompt, sizes.lm_gen
+    group = cfg.n_heads // cfg.n_kv_heads
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = model.param_count(params)
+    log(f"lm_serve: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} vocab={cfg.vocab} "
+        f"{cfg.dtype}: {n_params} parameters drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def drive(what, capture=None):
+        """One serve call on the main path, counters zeroed just before
+        and read just after."""
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        if capture is None:
+            out = lm.serve(cfg, batch=b, prompt_len=prompt, gen_len=gen_len,
+                           seed=seed, verbose=False, params=params)
+        else:
+            with capture:
+                out = lm.serve(cfg, batch=b, prompt_len=prompt,
+                               gen_len=gen_len, seed=seed, verbose=False,
+                               params=params)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        for name, (n, _) in counts.items():
+            launches[name] += n
+        fa, plain = counts["flash_attention"]
+        check(fa == cfg.n_layers,
+              f"lm_serve {what}: flash_attention launched {fa} times in one "
+              f"prefill, the model has {cfg.n_layers} layers")
+        check(all(p == 0 for _, p in counts.values()),
+              f"lm_serve {what}: plain versions served calls: {counts}")
+        step_ms = out["decode_s"] / max(gen_len - 1, 1) * 1e3
+        log(f"lm_serve {what}: prefill_ms={out['prefill_s'] * 1e3:.3f} "
+            f"decode_ms_per_step={step_ms:.3f} tok_per_s="
+            f"{out['tok_per_s']:.1f} flash_attention launches={fa} "
+            f"tokens[0][:8]={out['tokens'][0][:8].tolist()}")
+        check(tuple(out["tokens"].shape) == (b, gen_len)
+              and bool(torch.isfinite(out["logits"]).all()),
+              f"lm_serve {what}: tokens {out['tokens'].shape} or logits not "
+              f"finite")
+        return out
+
+    # run 1, with every layer's attention kept: each against ref.attention
+    cap = _Capture(ops)
+    first = drive("run 1 (layers captured)", cap)
+    check(len(cap.calls) == cfg.n_layers,
+          f"lm_serve: {len(cap.calls)} attention calls captured")
+    worst = 0.0
+    for i, (q, k, v, out, kw) in enumerate(cap.calls):
+        for j in range(q.shape[0]):  # one sequence at a time: 1.6 GB scores
+            want = ref.attention(q[j], k[j], v[j], causal=kw["causal"],
+                                 group=kw["group"])
+            err, ok = _attention_close(torch, out[j], want)
+            check(ok, f"lm_serve: layer {i} sequence {j} attention differs "
+                      f"from ref.attention by {err}")
+            worst = max(worst, err)
+    log(f"lm_serve: {len(cap.calls)} layers x {b} sequences of attention "
+        f"match ref.attention, max |kernel - plain| {worst:.3e} "
+        f"(tolerance {ATTN_BF16_ATOL} + {ATTN_BF16_RTOL} |plain|)")
+    del cap, q, k, v, out, want
+
+    # runs 2 and 3: timed, bitwise equal to each other and to run 1
+    second = drive("run 2")
+    third = drive("run 3")
+    for name, other in (("run 1", first), ("run 3", third)):
+        check(np.array_equal(second["tokens"], other["tokens"])
+              and torch.equal(second["logits"], other["logits"]),
+              f"lm_serve: run 2 and {name} differ")
+    log("lm_serve: runs 1-3 bitwise equal (tokens and logits)")
+
+    # where the time goes: one prefill and decode steps under the profiler
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab, (b, prompt)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        busy_p, top_p = _device_profile(
+            torch, lambda: model.prefill(params, {"tokens": toks}))
+        _, cache = model.prefill(params, {"tokens": toks})
+        cache = lm._pad_cache_to(cache, model.cache_spec(b, prompt + 4))
+        last = toks[:, -1:]
+
+        def steps():
+            for t in range(prompt, prompt + 4):
+                model.decode_step(params, cache, last, t)
+
+        busy_d, top_d = _device_profile(torch, steps)
+        busy_d /= 4
+    del cache
+    wall_p = min(r["prefill_s"] for r in (second, third)) * 1e3
+    wall_d = min(r["decode_s"] for r in (second, third)) / max(
+        gen_len - 1, 1) * 1e3
+    log(f"lm_serve profile: prefill device-busy {busy_p:.3f} ms of "
+        f"{wall_p:.3f} ms wall (idle share {1 - busy_p / wall_p:.3f}); "
+        f"top: {top_p}")
+    log(f"lm_serve profile: decode step device-busy {busy_d:.3f} ms of "
+        f"{wall_d:.3f} ms wall (idle share {1 - busy_d / wall_d:.3f}); "
+        f"top (4 steps): {top_d}")
+
+    # decode against prefill, teacher-forced over the prompt's last tokens
+    n_dec = sizes.lm_decode_check
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": toks[:, :prompt - n_dec]})
+        cache = lm._pad_cache_to(cache, model.cache_spec(b, prompt))
+        for t in range(prompt - n_dec, prompt):
+            step, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+    full = second["logits"][:, 0]
+    dec_err = float((step[:, 0] - full).abs().max())
+    scale = float(full.abs().max())
+    check(dec_err <= DECODE_BF16_REL * scale,
+          f"lm_serve: decode differs from prefill by {dec_err} "
+          f"(> {DECODE_BF16_REL} x {scale})")
+    agree = int((step[:, 0].argmax(-1) == full.argmax(-1)).sum())
+    log(f"lm_serve: teacher-forced decode of the last {n_dec} prompt tokens "
+        f"vs prefill: max |diff| {dec_err:.4e} (max |logit| {scale:.4f}, "
+        f"tolerance {DECODE_BF16_REL} of it), argmax equal in {agree}/{b}")
+    del cache, step, params
+    torch.cuda.empty_cache()
+
+    # the same code on both devices: a depth-cut f32 copy, one set of weights
+    layers, cb, cprompt, cgen = sizes.lm_cross
+    small = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                                param_dtype="float32")
+    with torch.inference_mode():
+        cpu_params = build_model(small).init(torch.Generator().manual_seed(
+            seed + 1))
+    t0 = time.perf_counter()
+    repro_torch.set_default_device("cpu")
+    try:
+        on_cpu = lm.serve(small, batch=cb, prompt_len=cprompt, gen_len=cgen,
+                          seed=seed, verbose=False, params=cpu_params)
+    finally:
+        repro_torch.set_default_device(dev)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_counts()
+    on_card = lm.serve(small, batch=cb, prompt_len=cprompt, gen_len=cgen,
+                       seed=seed, verbose=False, params=cpu_params)
+    torch.cuda.synchronize()
+    fa, plain = ops.counts()["flash_attention"]
+    launches["flash_attention"] += fa
+    check(fa == layers and plain == 0,
+          f"lm_serve f32 on the card: flash_attention {fa} launches, "
+          f"{plain} plain calls")
+    err = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+    scale = float(on_cpu["logits"].abs().max())
+    check(np.array_equal(on_card["tokens"], on_cpu["tokens"])
+          and err <= CROSS_F32_REL * max(scale, 1.0),
+          f"lm_serve: f32 card vs CPU: tokens equal "
+          f"{np.array_equal(on_card['tokens'], on_cpu['tokens'])}, max |diff| "
+          f"{err} (tolerance {CROSS_F32_REL} x {scale})")
+    log(f"lm_serve: {layers}-layer f32 copy, batch {cb} x prompt {cprompt} + "
+        f"{cgen}: card vs CPU tokens equal, max |logit diff| {err:.3e} "
+        f"(max |logit| {scale:.4f}, tolerance {CROSS_F32_REL} of it); CPU "
+        f"run {cpu_s:.1f} s")
+    del cpu_params, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    runs = (second, third)
+    best = min(runs, key=lambda r: r["prefill_s"])
+    return {
+        "arch": cfg.name, "params": n_params, "batch": b, "prompt": prompt,
+        "gen": gen_len,
+        "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
+        "decode_ms_per_step": [r["decode_s"] / max(gen_len - 1, 1) * 1e3
+                               for r in runs],
+        "tok_per_s": [r["tok_per_s"] for r in runs],
+        "best_prefill_ms": best["prefill_s"] * 1e3,
+        "layer_attention_max_err": worst, "decode_vs_prefill_err": dec_err,
+        "cross_device_f32_err": err, "prefill_device_busy_ms": busy_p,
+        "decode_step_device_busy_ms": busy_d, "prefill_top": top_p,
+        "decode_top": top_d,
+    }
+
+
+
 # ---------------------------------------------------------------------------
 # each kernel against its plain version, timed
 # ---------------------------------------------------------------------------
@@ -1278,6 +1574,106 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     return rows
 
 
+def _attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(q, kv) pairs the mask leaves, per (batch, head)."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(min(skv, i + off + 1) for i in range(sq))
+
+
+def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
+                          dev="cuda") -> list:
+    """flash_attention against its plain version on the card: at the
+    serving prefill's shape (timed, with SDPA as the library yardstick),
+    a ragged S, Sq < Skv, and f32; each case twice, bitwise equal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 20)
+    bsz, h, hk, s, d = sizes.attn_shape
+    group = h // hk
+    cases = [  # (case, dtype, Sq, Skv, causal, timed)
+        ("prefill", torch.bfloat16, s, s, True, True),
+        ("ragged", torch.bfloat16, sizes.attn_ragged, sizes.attn_ragged,
+         True, False),
+        ("sq_lt_skv", torch.bfloat16, sizes.attn_sq, s, True, False),
+        ("f32", torch.float32, s, s, True, True),
+    ]
+    per_case = []
+    for case, dt, sq, skv, causal, timed in cases:
+        def draw(heads, n, mul):
+            x = torch.randn((bsz, n, heads, d), generator=gen, device=dev)
+            return (x * mul).to(dt).transpose(1, 2)  # a layer's (B,H,S,D)
+
+        q, k, v = draw(h, sq, 0.5), draw(hk, skv, 0.5), draw(hk, skv, 1.0)
+
+        def kern():
+            return fa.flash_attention(q, k, v, causal=causal, group=group)
+
+        def plain():
+            return ref.chunked_attention(q, k, v, causal=causal, group=group)
+
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(first, second),
+              f"flash_attention[{case}]: two runs differ bitwise")
+        err, ok = 0.0, True
+        for j in range(bsz):
+            e, o = _attention_close(torch, first[j], ref.attention(
+                q[j], k[j], v[j], causal=causal, group=group))
+            err, ok = max(err, e), ok and o
+        check(ok, f"flash_attention[{case}]: |kernel - ref.attention| {err}")
+        pairs = _attention_pairs(sq, skv, causal)
+        row = dict(case=case, dtype=str(dt).replace("torch.", ""),
+                   shape=[bsz, h, hk, sq, skv, d], max_abs_err=err)
+        if timed:
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=causal, enable_gqa=True)
+
+            item = q.element_size()
+            nbytes = (2 * bsz * h * sq + 2 * bsz * hk * skv) * d * item
+            peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
+            row.update(_timed_row(torch, kern, plain, library,
+                                  sizes.timing_reps, nbytes,
+                                  4 * bsz * h * d * pairs, peak))
+            log(f"kernel flash_attention[{case}] {row['dtype']} "
+                f"B={bsz} H={h}/{hk} Sq={sq} Skv={skv} D={d} "
+                f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
+                f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
+                f"sdpa_ms={row['library_ms']:.4f} bound_ms="
+                f"{row['bound_ms']:.4f} ({row['bound_by']}) max_abs_err="
+                f"{err:.3e} bitwise_repeat=ok")
+            del qc, kc, vc
+        else:
+            log(f"kernel flash_attention[{case}] {row['dtype']} B={bsz} "
+                f"H={h}/{hk} Sq={sq} Skv={skv} D={d} max_abs_err={err:.3e} "
+                f"bitwise_repeat=ok")
+        per_case.append(row)
+        del q, k, v, first, second
+        torch.cuda.empty_cache()
+    main = per_case[0]
+    return [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74",
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in per_case),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "dtype": "bfloat16", "per_dtype": per_case,
+    }]
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1329,12 +1725,16 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     phase_blackscholes(mp)
     phase_logreg(mp)
     phase_matmul(mp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm_serve(torch, sizes, seed, mp.launches)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies)
-    return {"kernels": kernels, "phase_ms": mp.phase_ms,
+    kernels += hold_attention_kernel(torch, sizes, seed, mp.launches)
+    return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
             "total_s": time.perf_counter() - t_all}
 
 

@@ -10,4 +10,7 @@ calls.
   * hash_table      — open-addressing hash-to-slot (hash-join builds)
   * hash_probe      — dict / group probes by binary search (join probes)
   * group_build     — slot histogram of the CSR group build (m:n joins)
+  * tiled_matmul    — blocked matrix product (linalg matmul / matvec)
+  * map_chain       — one generated kernel per fused elementwise body
+  * flash_attention — online-softmax GQA attention (the LM's prefill)
 """

@@ -75,6 +75,12 @@ _C_SIGNATURES = {
         _P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P),
     # (slots, n, num_slots, out, stream)
     "weld_slot_hist": (_P, ctypes.c_longlong, ctypes.c_int, _P, _P),
+    # (dtype, q, k, v, o, strides[12], batch, heads, group, sq, skv, d,
+    #  causal, scale, stream)
+    "weld_flash_attention": (
+        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, _P),
 }
 
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from . import filter_reduce as _fr
+from . import flash_attention as _fa
 from . import group_build as _gb
 from . import hash_probe as _hp
 from . import hash_table as _ht
@@ -36,6 +37,7 @@ WRAPPERS = {
     "map_elementwise": _mc.map_elementwise,
     "tiled_matmul": _tm.tiled_matmul,
     "filter_reduce_q6": _fr.filter_reduce_q6,
+    "flash_attention": _fa.flash_attention,
 }
 
 
@@ -150,3 +152,17 @@ def map_elementwise(fn, arrays, impl: Optional[str] = None, lam=None,
     kernel from it) and ``env`` binds the body's free scalars."""
     _check_impl(impl, arrays[0])
     return _mc.map_elementwise(fn, arrays, lam=lam, env=env)
+
+
+# -- attention (the LM stack's prefill) ------------------------------------------
+
+
+def attention(q, k, v, causal: bool = True, group: int = 1, scale=None,
+              chunk: int = 1024, impl: Optional[str] = None):
+    """Online-softmax attention: q (H, Sq, D), k/v (H // group, Skv, D),
+    or the same with a leading batch dimension; the causal mask is
+    aligned to the last Sq kv positions.  ``chunk`` is the plain
+    version's kv chunk."""
+    _check_impl(impl, q)
+    return _fa.flash_attention(q, k, v, causal=causal, group=group,
+                               scale=scale, chunk=chunk)

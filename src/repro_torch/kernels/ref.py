@@ -190,3 +190,65 @@ def map_elementwise(fn, arrays):
     if out.ndim >= 1 and out.shape[0] == n:
         return out
     return torch.broadcast_to(out, (n,) + tuple(out.shape)).contiguous()
+
+
+def _repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
+    """kv head j serves q heads j * group .. j * group + group - 1."""
+    return x.repeat_interleave(group, dim=-3) if group > 1 else x
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, group: int = 1, scale=None) -> torch.Tensor:
+    """Dense attention: q (..., H, Sq, D), k/v (..., H // group, Skv, D),
+    scores and softmax in f32, the causal mask aligned to the last Sq kv
+    positions; the result in q's dtype."""
+    sq, d = q.shape[-2:]
+    scale = float(scale if scale is not None else d ** -0.5)
+    k, v = _repeat_kv(k, group), _repeat_kv(v, group)
+    s = torch.einsum("...hqd,...hkd->...hqk", q.float(), k.float()) * scale
+    skv = k.shape[-2]
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kj = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(kj <= qi, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("...hqk,...hkd->...hqd", p, v.float()).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, group: int = 1, scale=None,
+                      chunk: int = 1024) -> torch.Tensor:
+    """``attention`` with O(Sq * chunk) live scores: an online softmax over
+    kv chunks (running max, normaliser and f32 accumulator), kv padding
+    masked.  Shapes as ``attention``."""
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    scale = float(scale if scale is not None else d ** -0.5)
+    lead = q.shape[:-1]
+    dev = q.device
+    neg = torch.tensor(-1e30, device=dev)
+    qf = q.float()
+    qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    m = torch.full(lead, -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros(lead, dtype=torch.float32, device=dev)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    for j0 in range(0, skv, chunk):
+        kb = _repeat_kv(k[..., j0:j0 + chunk, :], group).float()
+        vb = _repeat_kv(v[..., j0:j0 + chunk, :], group).float()
+        pad = chunk - kb.shape[-2]
+        if pad:  # the reference pads the last chunk with zeros
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+        s = torch.einsum("...hqd,...hkd->...hqk", qf, kb) * scale
+        kj = j0 + torch.arange(chunk, device=dev)[None, :]
+        s = torch.where(kj < skv, s, neg)
+        if causal:
+            s = torch.where(kj <= qi, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("...hqk,...hkd->...hqd",
+                                                   p, vb)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)

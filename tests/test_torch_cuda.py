@@ -1,7 +1,8 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
 shapes and ``filter_reduce_q6`` on exact data, each against its plain
-version on the same CUDA tensors.
+version on the same CUDA tensors; and the LM's ``flash_attention``
+against ``ref.attention``.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -14,7 +15,12 @@ bitwise (built with -fmad=false; PyTorch's CUDA operators round each
 step as IEEE does), "libm" cases f64 rtol 1e-12 and f32 rtol 1e-5
 (CUDA's and PyTorch's transcendental paths may differ in the last
 bits), integers and bools exactly; products f64 rtol 1e-12 and f32 rtol
-1e-5 of the largest magnitude (another summation order).
+1e-5 of the largest magnitude (another summation order).  Attention: f32
+rtol 2e-4, atol 2e-5 (the JAX package's own kernel test); bf16 atol 2e-2
+plus rtol 2e-2 — the kernel rounds p to bf16 before the PV product (the
+TPU kernel's cast, which the plain version does not make: up to 2**-9 of
+each weight) and both sides round their f32 result to bf16 (2**-8 of the
+value), on values of magnitude about 1.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import filter_reduce as t_fr
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import map_chain as t_mc
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import tiled_matmul as t_tm
@@ -120,3 +127,106 @@ def test_filter_reduce_q6_matches_the_plain_version(k, n, dtype, card):
     got = t_fr.filter_reduce_q6(cols, lo, hi, val)
     want = t_ref.filter_reduce_q6(cols, lo, hi, val)
     assert float(got) == float(want)
+
+
+# -- flash_attention ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _qkv(dev, dtype, b, h, group, sq, skv, d, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(heads, s, mul):
+        x = torch.randn((b, heads, s, d), generator=gen, device=dev)
+        return (x * mul).to(dtype)
+
+    return (draw(h, sq, 0.5), draw(h // group, skv, 0.5),
+            draw(h // group, skv, 1.0))
+
+
+def _hold_attention(q, k, v, causal, group):
+    t_fa.flash_attention.launches = 0
+    got = t_fa.flash_attention(q, k, v, causal=causal, group=group)
+    again = t_fa.flash_attention(q, k, v, causal=causal, group=group)
+    want = t_ref.attention(q, k, v, causal=causal, group=group)
+    torch.cuda.synchronize()
+    assert t_fa.flash_attention.launches == 2
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, again), "two runs differ bitwise"
+    if q.dtype == torch.float32:
+        rtol, atol = 2e-4, 2e-5
+    else:
+        rtol, atol = 2e-2, 2e-2
+    err = (got.float() - want.float()).abs()
+    bound = atol + rtol * want.float().abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("group", (1, 3, 4))
+@pytest.mark.parametrize("d", (64, 128))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_flash_attention_matches_the_plain_version(dtype, d, group, causal,
+                                                   gpu):
+    q, k, v = _qkv(gpu, dtype, 2, 2 * group, group, 256, 256, d,
+                   seed=d + group * 10 + int(causal))
+    _hold_attention(q, k, v, causal, group)
+
+
+@pytest.mark.parametrize("sq,skv,d,group,causal", [
+    (333, 333, 128, 3, True),    # ragged: neither tile width divides S
+    (77, 300, 64, 4, True),      # Sq < Skv: q are the last 77 positions
+    (77, 300, 64, 4, False),
+    (1, 517, 128, 3, True),      # one query row against a long kv
+    (100, 100, 8, 1, True),      # the smallest head dimension
+    (100, 130, 72, 2, True),     # a head dimension between the buckets
+    (65, 129, 256, 2, True),     # the largest head dimension
+])
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_flash_attention_ragged_shapes(dtype, sq, skv, d, group, causal, gpu):
+    q, k, v = _qkv(gpu, dtype, 2, 2 * group, group, sq, skv, d,
+                   seed=sq + skv + d)
+    _hold_attention(q, k, v, causal, group)
+
+
+def test_flash_attention_reads_strided_views(gpu):
+    """The layer hands over (B, T, H, D) activations as (B, H, T, D) views
+    and a 3-D (H, S, D) call is the batched one without B."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(5)
+    x = torch.randn((2, 200, 12, 64), generator=gen, device=gpu)
+    x = x.to(torch.bfloat16)
+    kv = torch.randn((2, 200, 4, 64), generator=gen, device=gpu)
+    kv = kv.to(torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    got = t_fa.flash_attention(q, k, k, group=3)
+    want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
+                                k.contiguous(), group=3)
+    assert torch.equal(got, want)
+    one = t_fa.flash_attention(q[1].contiguous(), k[1].contiguous(),
+                               k[1].contiguous(), group=3)
+    assert one.shape == (12, 200, 64) and torch.equal(one, want[1])
+
+
+@pytest.mark.parametrize("dtype,d,sq,skv,what", [
+    (torch.float16, 64, 8, 8, TypeError),
+    (torch.float64, 64, 8, 8, TypeError),
+    (torch.bfloat16, 12, 8, 8, ValueError),
+    (torch.bfloat16, 264, 8, 8, ValueError),
+    (torch.float32, 64, 9, 8, ValueError),
+])
+def test_flash_attention_refuses_what_it_does_not_take(dtype, d, sq, skv,
+                                                       what, gpu):
+    q = torch.zeros((1, 2, sq, d), dtype=dtype, device=gpu)
+    k = torch.zeros((1, 2, skv, d), dtype=dtype, device=gpu)
+    t_fa.flash_attention.launches = 0
+    with pytest.raises(what):
+        t_fa.flash_attention(q, k, k)
+    assert t_fa.flash_attention.launches == 0

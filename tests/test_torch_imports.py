@@ -27,7 +27,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 25, names
+assert len(names) >= 54, names
+for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
+             "repro_torch.models.transformer", "repro_torch.models.convert",
+             "repro_torch.launch.serve"):
+    assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))

@@ -143,6 +143,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
     ops.map_elementwise(lambda a: a * 2.0 + 1.0, [x])
     ops.filter_reduce_q6(torch.stack([x, x]), torch.tensor([1.0, 2.0]),
                          torch.tensor([5.0, 9.0]), x)
+    ops.attention(torch.ones(2, 3, 8), torch.ones(1, 3, 8),
+                  torch.ones(1, 3, 8), group=2)
     assert ops.counts() == {name: (0, 1) for name in ops.WRAPPERS}
     ops.reset_counts()
     assert ops.counts() == {name: (0, 0) for name in ops.WRAPPERS}
