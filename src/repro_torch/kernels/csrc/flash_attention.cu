@@ -25,11 +25,14 @@
 // and the q tiles are handed out last-first so that the longest walks start
 // first.  Every sum runs in one fixed order with no atomics, so two runs
 // give bitwise equal results.
-//  * bf16: 4 warps, 64 q rows (16 a warp) x 64 kv rows a tile, staged in
-//    shared memory (rows padded by 16 bytes: conflict-free fragment loads).
-//    S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
-//    accumulate); P goes from the S accumulators to the A fragments in
-//    registers, rounded to bf16 as the TPU kernel's p.astype(v.dtype).
+//  * bf16: 4 warps, 64 q rows (16 a warp) x 64 kv rows a tile.  K and V
+//    tiles come into shared memory by cp.async in two stages (tile j + 1
+//    loads while tile j computes; rows padded by 16 bytes, so ldmatrix
+//    reads them without bank conflicts).  S = Q K^T and O += P V run on
+//    mma.sync m16n8k16 (bf16 in, f32 accumulate), their B fragments by
+//    ldmatrix (V's transposed); P goes from the S accumulators to the A
+//    fragments in registers, rounded to bf16 as the TPU kernel's
+//    p.astype(v.dtype).
 //    Scores are taken in the log2 domain (exp2 of scale * log2(e) * qk):
 //    the same softmax.
 //  * f32: the CUDA cores in full f32 (no TF32), 32 q rows x 32 kv rows a
@@ -92,12 +95,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// rows [r0, r0 + 64) of a (seq, D) slab into smem rows of `ld` elements,
-// zero past `rows` and past column d
+// rows [r0, r0 + 64) of a (seq, D) slab into smem rows of `ld` elements by
+// asynchronous 16-byte copies, zero-filled past `rows` and past column d
 template <int DP>
 __device__ __forceinline__ void load_tile16(__nv_bfloat16* dst, int ld,
                                             const __nv_bfloat16* src,
@@ -107,26 +110,54 @@ __device__ __forceinline__ void load_tile16(__nv_bfloat16* dst, int ld,
   for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads16) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows && c < d) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    const bool in = r0 + r < rows && c < d;
+    const __nv_bfloat16* from = in ? src + (r0 + r) * ss + c : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst + r * ld + c)),
+                 "l"(from), "r"(in ? 16 : 0));
   }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives (row l / 4, columns 2 (l % 4) + {0, 1}) of each
+// (of the transposed matrices with .trans)
+__device__ __forceinline__ void ldm_x4(uint32_t* r, const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+__device__ __forceinline__ void ldm_x4_trans(uint32_t* r, const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
 }
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads16)
 flash_bf16(const Params p) {
-  constexpr int LD = DP + 8;
+  constexpr int LD = DP + 8;   // smem row: 16 bytes of padding, so the 8
+                               // rows of an ldmatrix phase hit 32 banks
   constexpr int KS = DP / 16;  // k steps of S = Q K^T
   constexpr int NT = kBK / 8;  // n tiles of S
   constexpr int DT = DP / 8;   // n tiles of O
   constexpr bool kQRegs = DP <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
+  // Q, then two stages of (K, V): tile j + 1 loads while tile j computes
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kBQ * LD;
-  __nv_bfloat16* vs = ks + kBK * LD;
+  __nv_bfloat16* stage0 = qs + kBQ * LD;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest walks first
   const int h = blockIdx.y;
@@ -134,8 +165,10 @@ flash_bf16(const Params p) {
   const int q0 = qt * kBQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // row within the 8-row group
-  const int t = lane % 4;  // thread within the quad
+  const int g = lane / 4;   // row within the 8-row group
+  const int t = lane % 4;   // thread within the quad
+  const int lm = lane / 8;  // the ldmatrix matrix this lane addresses
+  const int lr = lane % 8;  // and its row there
   const int hk = h / p.group;
   const int offset = p.skv - p.sq;
 
@@ -146,22 +179,16 @@ flash_bf16(const Params p) {
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
                             b * p.v_sb + hk * p.v_sh;
 
+  const int ntiles = kv_tiles(p, q0, kBQ, kBK);
   load_tile16<DP>(qs, LD, qg, p.q_ss, q0, p.sq, p.d);
-  __syncthreads();
+  load_tile16<DP>(stage0, LD, kg, p.k_ss, 0, p.skv, p.d);
+  load_tile16<DP>(stage0 + kBK * LD, LD, vg, p.v_ss, 0, p.skv, p.d);
+  cp_commit();
 
   const int wr = warp * 16;  // this warp's first row in the tile
+  // the A fragments of this warp's 16 q rows, k step kk
+  const __nv_bfloat16* qa = qs + (wr + (lm % 2) * 8 + lr) * LD + (lm / 2) * 8;
   uint32_t qf[kQRegs ? KS : 1][4];
-  if constexpr (kQRegs) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const __nv_bfloat16* r0 = qs + (wr + g) * LD + kk * 16 + 2 * t;
-      const __nv_bfloat16* r1 = r0 + 8 * LD;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-    }
-  }
 
   float o[DT][4];
 #pragma unroll
@@ -175,35 +202,47 @@ flash_bf16(const Params p) {
   const int qi1 = qi0 + 8;
   const float sl2 = p.scale * kLog2e;
 
-  const int ntiles = kv_tiles(p, q0, kBQ, kBK);
   for (int j = 0; j < ntiles; ++j) {
     const int kv0 = j * kBK;
-    __syncthreads();  // the previous tile is consumed
-    load_tile16<DP>(ks, LD, kg, p.k_ss, kv0, p.skv, p.d);
-    load_tile16<DP>(vs, LD, vg, p.v_ss, kv0, p.skv, p.d);
+    if (j + 1 < ntiles) {
+      __nv_bfloat16* next = stage0 + ((j + 1) % 2) * 2 * kBK * LD;
+      load_tile16<DP>(next, LD, kg, p.k_ss, kv0 + kBK, p.skv, p.d);
+      load_tile16<DP>(next + kBK * LD, LD, vg, p.v_ss, kv0 + kBK, p.skv,
+                      p.d);
+      cp_commit();
+      cp_wait<1>();  // everything but the tile just asked for
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
+    const __nv_bfloat16* ks = stage0 + (j % 2) * 2 * kBK * LD;
+    const __nv_bfloat16* vs = ks + kBK * LD;
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) ldm_x4(qf[kk], qa + kk * 16);
+      }
+    }
 
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    // B fragments of n tiles n, n + 1: K rows (n + lm / 2) * 8 + lr
+    const __nv_bfloat16* kb = ks + ((lm / 2) * 8 + lr) * LD + (lm % 2) * 8;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t a[4];
       if constexpr (kQRegs) {
         a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
       } else {
-        const __nv_bfloat16* r0 = qs + (wr + g) * LD + kk * 16 + 2 * t;
-        const __nv_bfloat16* r1 = r0 + 8 * LD;
-        a[0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[1] = *reinterpret_cast<const uint32_t*>(r1);
-        a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+        ldm_x4(a, qa + kk * 16);
       }
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma16816(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t bf[4];
+        ldm_x4(bf, kb + n * 8 * LD + kk * 16);
+        mma16816(s[n], a, bf[0], bf[1]);
+        mma16816(s[n + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -251,7 +290,10 @@ flash_bf16(const Params p) {
     }
 
     // O += P V: the S accumulators of n tiles 2kk, 2kk + 1 are the A
-    // fragment of k step kk
+    // fragment of k step kk; V's B fragments come transposed, two d tiles
+    // at a time (V rows kk * 16 + (lm % 2) * 8 + lr, columns i * 8 +
+    // (lm / 2) * 8)
+    const __nv_bfloat16* vb = vs + ((lm % 2) * 8 + lr) * LD + (lm / 2) * 8;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t a[4];
@@ -259,15 +301,15 @@ flash_bf16(const Params p) {
       a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vr = reinterpret_cast<const uint16_t*>(vs) +
-                           (kk * 16 + 2 * t) * LD + g;
 #pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        const uint16_t* c = vr + i * 8;
-        mma16816(o[i], a, pack_u16(c[0], c[LD]),
-                 pack_u16(c[8 * LD], c[9 * LD]));
+      for (int i = 0; i < DT; i += 2) {
+        uint32_t bf[4];
+        ldm_x4_trans(bf, vb + kk * 16 * LD + i * 8);
+        mma16816(o[i], a, bf[0], bf[1]);
+        mma16816(o[i + 1], a, bf[2], bf[3]);
       }
     }
+    __syncthreads();  // this stage is consumed before it is loaded again
   }
 
 #pragma unroll
@@ -433,7 +475,7 @@ cudaError_t run(int dtype, const Params& p, int batch, int heads,
                 cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid((p.sq + kBQ - 1) / kBQ, heads, batch);
-    const size_t smem = sizeof(__nv_bfloat16) * (kBQ + 2 * kBK) * (DP + 8);
+    const size_t smem = sizeof(__nv_bfloat16) * (kBQ + 4 * kBK) * (DP + 8);
     return launch(flash_bf16<DP>, grid, kThreads16, smem, p, s);
   }
   const dim3 grid((p.sq + kBQ32 - 1) / kBQ32, heads, batch);

@@ -20,7 +20,7 @@ reference's is plain ``jnp``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -247,6 +247,18 @@ class Attention(Initialised):
         ctx = torch.einsum("bhgs,bshk->bhgk", probs, cache_v.float())
         ctx = ctx.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
         return self.out(ctx, x.dtype)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not yet allocated."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def attention_cache_spec(cfg, batch: int, max_seq: int, dtype):
+    """One layer's cache leaves, ``{"k", "v"}``, each (B, S, Hkv, hd)."""
+    spec = TensorSpec((batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype)
+    return {"k": spec, "v": spec}
 
 
 # ---------------------------------------------------------------------------

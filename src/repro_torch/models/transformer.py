@@ -13,18 +13,12 @@ KV cache keeps the reference's layout, ``{"dense": {"k", "v"}}``, each
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from . import layers as L
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor not yet allocated."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -140,10 +134,11 @@ class DenseLM(nn.Module):
     # -- cache ------------------------------------------------------------------
 
     def cache_spec(self, batch: int, max_seq: int):
+        """Each layer's ``layers.attention_cache_spec``, stacked."""
         cfg = self.cfg
-        spec = TensorSpec((cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-                           cfg.head_dim), cfg.act_dtype)
-        return {"dense": {"k": spec, "v": spec}}
+        one = L.attention_cache_spec(cfg, batch, max_seq, cfg.act_dtype)
+        return {"dense": {n: L.TensorSpec((cfg.n_layers,) + s.shape, s.dtype)
+                          for n, s in one.items()}}
 
     def cache_init(self, batch: int, max_seq: int, device=None):
         return {fam: {n: torch.zeros(s.shape, dtype=s.dtype, device=device)
