@@ -32,7 +32,9 @@ kernels/csrc`` and then
    on the card at the phases' shapes, for every dtype its planner spec
    takes (the map chain on the Black-Scholes and logreg bodies the
    phases routed and on an f32 body; flash_attention at the prefill's
-   shape, a ragged S, Sq < Skv and in f32), runs it twice
+   shape, a ragged S, Sq < Skv and in f32, each element within a limit
+   tied to its own size, which two planted faults built from copies of
+   its source must break), runs it twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
    compacted slots to the plain version's) and times kernel, plain
@@ -738,13 +740,21 @@ def phase_matmul(mp: MainPath) -> None:
 
 # -- the LM serving path ---------------------------------------------------------
 
-#: bf16 attention (kernel against the plain version, and per layer): the
-#: kernel rounds p to bf16 before the PV product as the TPU kernel does
-#: (up to 2**-9 of each weight) and both sides round their f32 result to
-#: bf16 (2**-8): |kernel - plain| <= ATTN_BF16_ATOL + ATTN_BF16_RTOL |plain|
-ATTN_BF16_ATOL = ATTN_BF16_RTOL = 2e-2
-#: f32 attention: the JAX package's own kernel test
-ATTN_F32_ATOL, ATTN_F32_RTOL = 2e-5, 2e-4
+#: attention, kernel against the plain version (the hold and each layer
+#: of lm_serve): the per-element limit of ``flash_attention.tolerance``
+#: (f32: 2e-5 + 2e-4 |plain|, the JAX package's own kernel test; bf16:
+#: 2**-7 |plain| for the two bf16 roundings of the result plus 2**-6 R for
+#: the kernel's rounding of p, R the root of the squared softmax-weighted
+#: values), read as the largest |kernel - plain| / limit, which must not
+#: exceed 1
+#: planted faults the bf16 limit must reject, each a copy of
+#: csrc/flash_attention.cu with one text replaced: (name, text, by)
+ATTN_FAULTS = (
+    ("causal_off_by_one", "(p.causal && kj > qi)",
+     "(p.causal && kj > qi + 1)"),
+    ("kv_head_interleaved", "const int hk = h / p.group;",
+     "const int hk = h % (gridDim.y / p.group);"),
+)
 #: decode against prefill in bf16, as a share of the largest |logit|: 28
 #: layers of bf16 (2**-8 per rounding) through two paths that round at
 #: other places (the kernel's p, cuBLAS's shapes, the decode's f32
@@ -753,17 +763,6 @@ DECODE_BF16_REL = 5e-2
 #: the same f32 model on the card and on the CPU, as a share of the
 #: largest |logit|: other summation orders only (TF32 off)
 CROSS_F32_REL = 1e-4
-
-
-def _attention_close(torch, got, want):
-    """(max |got - want|, whether every element is within tolerance)."""
-    if want.dtype == torch.float32:
-        atol, rtol = ATTN_F32_ATOL, ATTN_F32_RTOL
-    else:
-        atol, rtol = ATTN_BF16_ATOL, ATTN_BF16_RTOL
-    diff = (got.float() - want.float()).abs()
-    ok = bool((diff <= atol + rtol * want.float().abs()).all())
-    return float(diff.max()), ok
 
 
 def _device_profile(torch, fn, top: int = 6):
@@ -823,7 +822,7 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
 
     import repro_torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve as lm
     from repro_torch.models import build_model
 
@@ -831,7 +830,6 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
     cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
     model = build_model(cfg)
     b, prompt, gen_len = sizes.lm_batch, sizes.lm_prompt, sizes.lm_gen
-    group = cfg.n_heads // cfg.n_kv_heads
     t0 = time.perf_counter()
     with torch.inference_mode():
         gen = torch.Generator(device=dev)
@@ -883,19 +881,19 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
     first = drive("run 1 (layers captured)", cap)
     check(len(cap.calls) == cfg.n_layers,
           f"lm_serve: {len(cap.calls)} attention calls captured")
-    worst = 0.0
+    worst = worst_ratio = 0.0
     for i, (q, k, v, out, kw) in enumerate(cap.calls):
-        for j in range(q.shape[0]):  # one sequence at a time: 1.6 GB scores
-            want = ref.attention(q[j], k[j], v[j], causal=kw["causal"],
-                                 group=kw["group"])
-            err, ok = _attention_close(torch, out[j], want)
-            check(ok, f"lm_serve: layer {i} sequence {j} attention differs "
-                      f"from ref.attention by {err}")
-            worst = max(worst, err)
+        err, ratio, *_ = _attention_held(torch, out, q, k, v, kw["causal"],
+                                         kw["group"])
+        check(ratio <= 1.0,
+              f"lm_serve: layer {i} attention differs from ref.attention "
+              f"by {err}, {ratio} x its limit")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
     log(f"lm_serve: {len(cap.calls)} layers x {b} sequences of attention "
-        f"match ref.attention, max |kernel - plain| {worst:.3e} "
-        f"(tolerance {ATTN_BF16_ATOL} + {ATTN_BF16_RTOL} |plain|)")
-    del cap, q, k, v, out, want
+        f"match ref.attention, max |kernel - plain| {worst:.3e}, at most "
+        f"{worst_ratio:.4f} of the per-element limit (2**-7 |plain| + "
+        f"2**-6 R)")
+    del cap, q, k, v, out
 
     # runs 2 and 3: timed, bitwise equal to each other and to run 1
     second = drive("run 2")
@@ -1001,7 +999,9 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
                                for r in runs],
         "tok_per_s": [r["tok_per_s"] for r in runs],
         "best_prefill_ms": best["prefill_s"] * 1e3,
-        "layer_attention_max_err": worst, "decode_vs_prefill_err": dec_err,
+        "layer_attention_max_err": worst,
+        "layer_attention_max_limit_share": worst_ratio,
+        "decode_vs_prefill_err": dec_err,
         "cross_device_f32_err": err, "prefill_device_busy_ms": busy_p,
         "decode_step_device_busy_ms": busy_d, "prefill_top": top_p,
         "decode_top": top_d,
@@ -1582,11 +1582,104 @@ def _attention_pairs(sq: int, skv: int, causal: bool) -> int:
     return sum(min(skv, i + off + 1) for i in range(sq))
 
 
+def _start_fault_builds(tmp: Path) -> list:
+    """One ``nvcc`` per planted fault, all started together: a copy of
+    csrc/flash_attention.cu with the fault, built with the library's
+    flags into ``tmp``.  Returns [(name, .so path, process)]."""
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    builds = []
+    for name, old, new in ATTN_FAULTS:
+        check(old in text, f"planted fault {name}: {old!r} is not in "
+                           f"flash_attention.cu")
+        src, so = tmp / f"{name}.cu", tmp / f"{name}.so"
+        src.write_text(text.replace(old, new))
+        builds.append((name, so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return builds
+
+
+def _with_fault(name: str, so: Path, proc, fn):
+    """``fn()`` with the flash_attention wrapper launching the faulty
+    build instead of the library's kernel."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"planted fault {name}: nvcc failed:\n{out}")
+    lib = ctypes.CDLL(str(so))
+    lib.weld_flash_attention.argtypes = list(
+        _build._C_SIGNATURES["weld_flash_attention"])
+    lib.weld_flash_attention.restype = ctypes.c_int
+    orig = _build.library
+    _build.library = lambda: lib
+    try:
+        return fn()
+    finally:
+        _build.library = orig
+
+
+def _attention_held(torch, got, q, k, v, causal: bool, group: int):
+    """``got`` (B, H, Sq, D) against ``ref.attention`` one sequence at a
+    time (a sequence's scores at the serving prefill are 0.4 GB in f32):
+    (max |diff|, max |diff| / limit, the same over the later half of
+    the rows, and both over a fixed limit 2e-2 + 2e-2 |plain| for
+    comparison)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    err = share = late = old = old_late = 0.0
+    half = q.shape[2] // 2
+    for j in range(q.shape[0]):
+        want = ref.attention(q[j], k[j], v[j], causal=causal, group=group)
+        limit = fa.tolerance(q[j], k[j], v[j], want, causal=causal,
+                             group=group).clamp_min(1e-30)
+        diff = (got[j].float() - want.float()).abs()
+        rel = diff / limit
+        err = max(err, float(diff.max()))
+        share = max(share, float(rel.max()))
+        late = max(late, float(rel[:, half:].max()))
+        fixed = diff / (2e-2 + 2e-2 * want.float().abs())
+        old = max(old, float(fixed.max()))
+        old_late = max(old_late, float(fixed[:, half:].max()))
+    return err, share, late, old, old_late
+
+
+def _planted_faults(torch, builds, kern, q, k, v, group: int) -> dict:
+    """Each planted fault's kernel at the case of ``kern`` (causal), held
+    as the kernel is: the bf16 limit must reject it over all rows and over
+    the later half of the rows."""
+    faults = {}
+    for name, so, proc in builds:
+        err, share, late, old, old_late = _with_fault(
+            name, so, proc,
+            lambda: _attention_held(torch, kern(), q, k, v, True, group))
+        faults[name] = dict(max_abs_err=err, max_limit_share=share,
+                            late_rows_limit_share=late, fixed_limit_share=old,
+                            late_rows_fixed_limit_share=old_late)
+        log(f"planted fault {name} at the prefill shape: max |kernel - "
+            f"plain| {err:.3e}, {share:.4g} x the limit ({late:.4g} x over "
+            f"the later half of the rows); {old:.4g} x a fixed 2e-2 + 2e-2 "
+            f"|plain| ({old_late:.4g} x over the later rows)")
+        check(share > 1.0 and late > 1.0,
+              f"planted fault {name} passed the bf16 limit: {share} x it, "
+              f"{late} x over the later rows")
+    return faults
+
+
 def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                           dev="cuda") -> list:
     """flash_attention against its plain version on the card: at the
     serving prefill's shape (timed, with SDPA as the library yardstick),
-    a ragged S, Sq < Skv, and f32; each case twice, bitwise equal."""
+    a ragged S, Sq < Skv, and f32; each case twice, bitwise equal.  At the
+    prefill's shape the bf16 limit must also reject each planted fault
+    (``ATTN_FAULTS``)."""
+    import tempfile
+
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1605,60 +1698,82 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
         ("f32", torch.float32, s, s, True, True),
     ]
     per_case = []
-    for case, dt, sq, skv, causal, timed in cases:
-        def draw(heads, n, mul):
-            x = torch.randn((bsz, n, heads, d), generator=gen, device=dev)
-            return (x * mul).to(dt).transpose(1, 2)  # a layer's (B,H,S,D)
+    tmp = tempfile.TemporaryDirectory(prefix="weld-faults-")
+    builds = _start_fault_builds(Path(tmp.name))
+    try:
+        for case, dt, sq, skv, causal, timed in cases:
+            def draw(heads, n, mul):
+                x = torch.randn((bsz, n, heads, d), generator=gen,
+                                device=dev)
+                return (x * mul).to(dt).transpose(1, 2)  # (B, H, S, D)
 
-        q, k, v = draw(h, sq, 0.5), draw(hk, skv, 0.5), draw(hk, skv, 1.0)
+            q, k, v = draw(h, sq, 0.5), draw(hk, skv, 0.5), draw(hk, skv, 1.)
 
-        def kern():
-            return fa.flash_attention(q, k, v, causal=causal, group=group)
+            def kern():
+                return fa.flash_attention(q, k, v, causal=causal, group=group)
 
-        def plain():
-            return ref.chunked_attention(q, k, v, causal=causal, group=group)
+            def plain():
+                return ref.chunked_attention(q, k, v, causal=causal,
+                                             group=group)
 
-        first, second = kern(), kern()
-        torch.cuda.synchronize()
-        check(torch.equal(first, second),
-              f"flash_attention[{case}]: two runs differ bitwise")
-        err, ok = 0.0, True
-        for j in range(bsz):
-            e, o = _attention_close(torch, first[j], ref.attention(
-                q[j], k[j], v[j], causal=causal, group=group))
-            err, ok = max(err, e), ok and o
-        check(ok, f"flash_attention[{case}]: |kernel - ref.attention| {err}")
-        pairs = _attention_pairs(sq, skv, causal)
-        row = dict(case=case, dtype=str(dt).replace("torch.", ""),
-                   shape=[bsz, h, hk, sq, skv, d], max_abs_err=err)
-        if timed:
-            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=causal, enable_gqa=True)
-
-            item = q.element_size()
-            nbytes = (2 * bsz * h * sq + 2 * bsz * hk * skv) * d * item
-            peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
-            row.update(_timed_row(torch, kern, plain, library,
-                                  sizes.timing_reps, nbytes,
-                                  4 * bsz * h * d * pairs, peak))
-            log(f"kernel flash_attention[{case}] {row['dtype']} "
-                f"B={bsz} H={h}/{hk} Sq={sq} Skv={skv} D={d} "
-                f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
-                f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
-                f"sdpa_ms={row['library_ms']:.4f} bound_ms="
-                f"{row['bound_ms']:.4f} ({row['bound_by']}) max_abs_err="
-                f"{err:.3e} bitwise_repeat=ok")
-            del qc, kc, vc
-        else:
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            check(torch.equal(first, second),
+                  f"flash_attention[{case}]: two runs differ bitwise")
+            err, share, late, _, _ = _attention_held(torch, first, q, k, v,
+                                                     causal, group)
+            check(share <= 1.0, f"flash_attention[{case}]: |kernel - "
+                                f"ref.attention| {err}, {share} x its limit")
+            row = dict(case=case, dtype=str(dt).replace("torch.", ""),
+                       shape=[bsz, h, hk, sq, skv, d], max_abs_err=err,
+                       max_limit_share=share, late_rows_limit_share=late)
             log(f"kernel flash_attention[{case}] {row['dtype']} B={bsz} "
                 f"H={h}/{hk} Sq={sq} Skv={skv} D={d} max_abs_err={err:.3e} "
-                f"bitwise_repeat=ok")
-        per_case.append(row)
-        del q, k, v, first, second
-        torch.cuda.empty_cache()
+                f"({share:.4f} x the limit, {late:.4f} x over the later "
+                f"half of the rows) bitwise_repeat=ok")
+            if case == "prefill":
+                want = ref.attention(q[0], k[0], v[0], group=group)
+                limit = fa.tolerance(q[0], k[0], v[0], want, group=group)
+                row.update(
+                    late_rows_median_abs_plain=float(
+                        want[:, sq // 2:].float().abs().median()),
+                    late_rows_median_limit=float(
+                        limit[:, sq // 2:].median()))
+                log(f"flash_attention[prefill] later half of the rows: "
+                    f"median |plain| {row['late_rows_median_abs_plain']:.4e}"
+                    f", median limit {row['late_rows_median_limit']:.4e}")
+                del want, limit
+                faults = _planted_faults(torch, builds, kern, q, k, v, group)
+            if timed:
+                qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=causal, enable_gqa=True)
+
+                nbytes = ((2 * bsz * h * sq + 2 * bsz * hk * skv) * d
+                          * q.element_size())
+                peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
+                row.update(_timed_row(
+                    torch, kern, plain, library, sizes.timing_reps, nbytes,
+                    4 * bsz * h * d * _attention_pairs(sq, skv, causal),
+                    peak))
+                log(f"kernel flash_attention[{case}] kernel_ms="
+                    f"{row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
+                    f"{row['ms_runs'][1]:.4f}) plain_ms="
+                    f"{row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
+                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+                del qc, kc, vc
+            per_case.append(row)
+            del q, k, v, first, second
+            torch.cuda.empty_cache()
+    finally:  # every nvcc started has ended when this returns
+        for _, _, proc in builds:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+        tmp.cleanup()
     main = per_case[0]
     return [{
         "name": "flash_attention", "route": "cuda",
@@ -1671,6 +1786,7 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
         "library_ms": main["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "dtype": "bfloat16", "per_dtype": per_case,
+        "planted_faults": faults,
     }]
 
 

@@ -22,10 +22,19 @@ import ctypes
 import torch
 
 from . import _build
+from . import ref
 from .ref import chunked_attention as attention_plain
 
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_D = 256
+
+#: f32: |kernel - ref.attention| <= F32_ATOL + F32_RTOL |plain| (the JAX
+#: package's own kernel test)
+F32_ATOL, F32_RTOL = 2e-5, 2e-4
+#: bf16: |kernel - ref.attention| <= BF16_VALUE_TOL |plain| +
+#: BF16_WEIGHT_TOL R, see :func:`tolerance`
+BF16_VALUE_TOL = 2.0 ** -7
+BF16_WEIGHT_TOL = 2.0 ** -6
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -93,3 +102,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+
+
+def tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              plain: torch.Tensor, *, causal: bool = True, group: int = 1,
+              scale=None) -> torch.Tensor:
+    """The f32 per-element limit of |kernel - plain|, where ``plain`` is
+    ``ref.attention(q, k, v, ...)``.
+
+    In bf16 the kernel differs from the plain version in two roundings.
+    Both round their f32 result to bf16: once the f32 values agree, the
+    two differ by at most one bf16 step, 2**-7 of the value.  And the
+    kernel rounds each softmax weight p_j to bf16 before the PV product
+    (the TPU kernel's cast), each by at most 2**-8 of itself: a sum of
+    independent roundings whose standard deviation is at most
+    2**-8 / sqrt(3) R, with R = sqrt(sum_j (p_j / l)**2 v_j**2) the root of
+    the squared weighted values.  The limit allows 2**-6 R, 6.9 standard
+    deviations, which is also the whole worst case 2**-8 sum_j p_j |v_j| / l
+    whenever 16 or fewer weights carry the row.  The f32 arithmetic's
+    own differences (order of sums, exp2 for exp) lie far below both.
+    R shrinks with the row's
+    spread as its value does (a near-uniform row over n keys has both
+    about n**-0.5), so the limit follows the size of what it compares."""
+    want = plain.float()
+    if plain.dtype == torch.float32:
+        return F32_ATOL + F32_RTOL * want.abs()
+    p = ref.attention_weights(q, k, causal=causal, group=group, scale=scale)
+    v2 = ref._repeat_kv(v, group).float().square()
+    r = torch.einsum("...hqk,...hkd->...hqd", p.square_(), v2).sqrt_()
+    return BF16_VALUE_TOL * want.abs() + BF16_WEIGHT_TOL * r

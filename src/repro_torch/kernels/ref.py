@@ -197,22 +197,30 @@ def _repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
     return x.repeat_interleave(group, dim=-3) if group > 1 else x
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, group: int = 1, scale=None) -> torch.Tensor:
-    """Dense attention: q (..., H, Sq, D), k/v (..., H // group, Skv, D),
-    scores and softmax in f32, the causal mask aligned to the last Sq kv
-    positions; the result in q's dtype."""
+def attention_weights(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, group: int = 1,
+                      scale=None) -> torch.Tensor:
+    """The f32 softmax weights (..., H, Sq, Skv) of ``attention``."""
     sq, d = q.shape[-2:]
     scale = float(scale if scale is not None else d ** -0.5)
-    k, v = _repeat_kv(k, group), _repeat_kv(v, group)
+    k = _repeat_kv(k, group)
     s = torch.einsum("...hqd,...hkd->...hqk", q.float(), k.float()) * scale
     skv = k.shape[-2]
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
         kj = torch.arange(skv, device=q.device)[None, :]
         s = torch.where(kj <= qi, s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("...hqk,...hkd->...hqd", p, v.float()).to(q.dtype)
+    return torch.softmax(s, dim=-1)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, group: int = 1, scale=None) -> torch.Tensor:
+    """Dense attention: q (..., H, Sq, D), k/v (..., H // group, Skv, D),
+    scores and softmax in f32, the causal mask aligned to the last Sq kv
+    positions; the result in q's dtype."""
+    p = attention_weights(q, k, causal=causal, group=group, scale=scale)
+    return torch.einsum("...hqk,...hkd->...hqd", p,
+                        _repeat_kv(v, group).float()).to(q.dtype)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

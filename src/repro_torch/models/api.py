@@ -10,8 +10,9 @@ package's ``models/api.py``):
 ``params`` is a dict of tensors named as ``DenseLM``'s parameters.  The
 model is built on the ``meta`` device and holds no weights of its own:
 an entry point binds the ``params`` it is given (without copying them)
-and keeps them bound until another dict comes.  Only the dense family
-is ported.
+and binds again when another dict comes or an entry of the bound dict
+is replaced; an update in place (``params[name].copy_(...)``) is seen as
+it is.  Only the dense family is ported.
 """
 from __future__ import annotations
 
@@ -42,11 +43,15 @@ class Model:
         self.cfg = cfg
         self.impl = impl
         self._bound: Optional[Dict[str, torch.Tensor]] = None
+        self._bound_values: tuple = ()
 
     def _bind(self, params: Dict[str, torch.Tensor]) -> DenseLM:
-        if params is not self._bound:
+        values = tuple(params.values())
+        if params is not self._bound or len(values) != len(
+                self._bound_values) or any(
+                a is not b for a, b in zip(values, self._bound_values)):
             self.impl.load_state_dict(params, strict=True, assign=True)
-            self._bound = params
+            self._bound, self._bound_values = params, values
         return self.impl
 
     # -- delegation -------------------------------------------------------------
