@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card (and
 ``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
 kernels/csrc`` and then
 
-1. runs eleven phases through the entry points a user calls — TPC-H Q6
+1. runs twelve phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -27,14 +27,23 @@ kernels/csrc`` and then
    ``ref.attention``, teacher-forced decode against prefill, runs bitwise
    equal, and a 2-layer f32 copy on the card against the CPU), with
    every kernel launch counter zeroed just before a phase and read just
-   after;
-2. holds each of the twelve kernels against its plain PyTorch version
+   after; and LM training (``repro_torch.launch.train``: the same model
+   at full width and depth, bf16 parameters, remat on, 3 steps of
+   ``TokenPipeline`` batches of 4 x 2,048 tokens in 2 micro-batches;
+   fused_adamw once per parameter tensor a step, flash_attention in every
+   layer's forward and its recompute, losses and gnorms finite, the
+   parameters moved; and a 2-layer f32 copy through ``build_train_step``
+   on the card against the CPU, bitwise repeatable on the card and
+   bitwise equal across a ``Checkpointer`` save and restore);
+2. holds each of the thirteen kernels against its plain PyTorch version
    on the card at the phases' shapes, for every dtype its planner spec
    takes (the map chain on the Black-Scholes and logreg bodies the
    phases routed and on an f32 body; flash_attention at the prefill's
    shape, a ragged S, Sq < Skv and in f32, each element within a limit
    tied to its own size, which two planted faults built from copies of
-   its source must break), runs it twice
+   its source must break; fused_adamw at the embedding table's size for
+   every p/g dtype pair and t in {1, 5}, and at an odd size), runs it
+   twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
    compacted slots to the plain version's) and times kernel, plain
@@ -98,6 +107,16 @@ class Sizes:
     lm_gen: int = 32
     lm_decode_check: int = 8
     lm_cross: tuple = (2, 2, 256, 4)
+    #: LM training (full width and depth, ``lm_arch``): global batch x
+    #: sequence, micro-batches, steps; and the f32 copy run on the card and
+    #: the CPU (layers, batch, sequence, steps — two: the first at lr 0)
+    train_batch: int = 4
+    train_seq: int = 2048
+    train_accum: int = 2
+    train_steps: int = 3
+    train_cross: tuple = (2, 2, 128, 2)
+    #: fused_adamw's hold: an odd size beside the largest parameter
+    adamw_odd: int = 16_384 * 3 + 7
     #: flash_attention's hold: the prefill's (B, H, Hkv, S, D), a ragged S
     #: and the Sq of the Sq < Skv case
     attn_shape: tuple = (4, 24, 8, 2048, 128)
@@ -1009,6 +1028,329 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
 
 
 
+#: the f32 depth-cut training copy, card against CPU: the losses to
+#: TRAIN_LOSS_RTOL, and each AdamW moment within TRAIN_GRAD_REL of its
+#: leaf's largest value (m is linear in the gradients, v quadratic: 2x);
+#: other summation orders only, TF32 off.  A parameter's last update is
+#: lr m^/(sqrt(v^) + eps), homogeneous of degree 0 in the gradients: a
+#: gradient error of TRAIN_GRAD_REL of the leaf's scale s moves it by at
+#: most about 2 TRAIN_GRAD_REL s / sqrt(v^) of lr, and never by more than
+#: ADAM_T2_BOUND lr, the largest |m^ / sqrt(v^)| at t = 2 (b1 0.9, b2 0.999:
+#: Cauchy-Schwarz over the two steps' gradients).  See _train_param_limit.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+ADAM_T2_BOUND = 1.0013
+
+
+def _train_param_limit(torch, p_cpu, v_cpu, lr: float, c2: float):
+    """The per-element limit of |p_card - p_cpu| after the depth-cut
+    copy's two steps (the first at lr 0, so both start the second from the
+    same parameters): lr min(2 ADAM_T2_BOUND, 2 TRAIN_GRAD_REL s /
+    (sqrt(v^) + eps)) + 2**-22 |p|, s the leaf's largest sqrt(v^), the
+    last term two f32 roundings of p."""
+    rms = torch.sqrt(v_cpu / c2)
+    s = float(rms.max())
+    step = torch.clamp(2 * TRAIN_GRAD_REL * s / (rms + 1e-8),
+                       max=2 * ADAM_T2_BOUND)
+    return lr * step + 2.0 ** -22 * p_cpu.abs()
+
+
+def _train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one step: 6 N per token, plus the causal attention's
+    12 L B S**2 d_head H / 2."""
+    return (6.0 * n_params * batch * seq
+            + 12.0 * cfg.n_layers * batch * seq * seq * cfg.head_dim
+            * cfg.n_heads / 2)
+
+
+def _attention_backward_ms(torch, cfg, batch: int, seq: int, reps: int,
+                           dev) -> float:
+    """CUDA-event ms of one layer's attention backward at a micro-batch's
+    shape (the plain version's recompute and autograd; the forward's
+    kernel time subtracted)."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    hk, group = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+
+    def draw(heads):
+        x = torch.randn((batch, seq, heads, cfg.head_dim), generator=gen,
+                        device=dev) * 0.5
+        return x.to(cfg.act_dtype).transpose(1, 2).requires_grad_()
+
+    q, k, v = draw(cfg.n_heads), draw(hk), draw(hk)
+    dout = torch.randn((batch, cfg.n_heads, seq, cfg.head_dim),
+                       generator=gen, device=dev).to(cfg.act_dtype)
+
+    def fwd():
+        return ops.attention(q, k, v, group=group,
+                             chunk=min(cfg.attn_chunk, seq))
+
+    def both():
+        torch.autograd.backward(fwd(), dout)
+        q.grad = k.grad = v.grad = None
+
+    with torch.no_grad():
+        t_fwd = time_ms(torch, fwd, reps)
+    return time_ms(torch, both, reps) - t_fwd
+
+
+def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
+                   dev="cuda") -> dict:
+    """Train ``sizes.lm_arch`` at full width and depth through
+    ``repro_torch.launch.train.train`` for ``sizes.train_steps`` steps of
+    ``TokenPipeline`` batches with gradient accumulation: every loss and
+    gnorm finite, parameters moved, ``fused_adamw`` launched once per
+    parameter tensor a step, ``flash_attention`` once per layer and
+    micro-batch forward and once more in its checkpointed recompute, the
+    attention backward once per layer and micro-batch, no plain version
+    served.  Then a depth-cut f32 copy through ``build_train_step`` on the
+    card and on the CPU from one set of weights and batches: card against
+    CPU, card bitwise repeatable, and two steps bitwise equal to one step,
+    a ``Checkpointer`` save and restore into a fresh state, and one step."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import adamw_scalars
+    from repro_torch.launch import train as lm
+    from repro_torch.models import build_model
+    from repro_torch.optim import (adamw_init, adamw_update_tree,
+                                   cosine_warmup)
+
+    dev = torch.device(dev)
+    cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
+    model = build_model(cfg)
+    b, seq, accum, steps = (sizes.train_batch, sizes.train_seq,
+                            sizes.train_accum, sizes.train_steps)
+    n_params = model.param_count()
+    n_tensors = len(list(model.impl.parameters()))
+    log(f"lm_train: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab} params {cfg.param_dtype} remat={cfg.remat}: "
+        f"{n_params} parameters in {n_tensors} tensors; batch {b} x {seq} "
+        f"tokens, accum {accum}, {steps} steps")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = lm.train(cfg, steps=steps, global_batch=b, seq_len=seq,
+                   accum=accum, seed=seed, log_every=1, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.counts()
+    backward = fa.flash_attention.backward_calls
+    for name, (n, _) in counts.items():
+        launches[name] += n
+    check(all(np.isfinite(x) for x in out["losses"] + out["gnorms"])
+          and all(x > 0 for x in out["gnorms"]),
+          f"lm_train: losses {out['losses']}, gnorms {out['gnorms']}")
+    check(all(p == 0 for _, p in counts.values()),
+          f"lm_train: plain versions served calls: {counts}")
+    want_fa = cfg.n_layers * accum * (2 if cfg.remat else 1) * steps
+    check(counts["fused_adamw"][0] == n_tensors * steps,
+          f"lm_train: fused_adamw launched {counts['fused_adamw'][0]} "
+          f"times in {steps} steps, the model has {n_tensors} tensors")
+    check(counts["flash_attention"][0] == want_fa
+          and backward == cfg.n_layers * accum * steps,
+          f"lm_train: flash_attention {counts['flash_attention'][0]} "
+          f"launches (want {want_fa}), {backward} backward calls (want "
+          f"{cfg.n_layers * accum * steps})")
+    tokens = b * seq
+    flops = _train_flops(cfg, n_params, b, seq)
+    step_ms = [s * 1e3 for s in out["step_s"]]
+    best = min(step_ms)
+    log(f"lm_train: losses {out['losses']} gnorms {out['gnorms']} lrs "
+        f"{out['lrs']}")
+    log(f"lm_train: step_ms {[round(x, 3) for x in step_ms]} (best "
+        f"{best:.3f}), tokens/s {tokens / best * 1e3:.1f}, model FLOP "
+        f"utilisation {flops / (best * 1e-3) / 989e12:.4f} ({flops:.4e} "
+        f"FLOPs a step over 989 TFLOP/s bf16 dense); launches a step: "
+        f"fused_adamw {counts['fused_adamw'][0] // steps}, flash_attention "
+        f"{counts['flash_attention'][0] // steps}, attention backward "
+        f"{backward // steps}; peak memory {peak / 1e9:.3f} GB; wall "
+        f"{wall:.3f} s")
+
+    lrs = out["lrs"]
+    params, opt = out["params"], out["opt"]
+    del out
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        init = model.init(gen)
+        changed = sum(int((params[k] != init[k]).sum()) for k in params)
+    del init
+    check(changed > 0, "lm_train: no parameter element changed")
+    log(f"lm_train: {changed} of {n_params} parameter elements changed "
+        f"(share {changed / n_params:.6f}) at lrs {lrs}: a bf16 element "
+        f"moves only once its update reaches half a bf16 step")
+
+    # where the time goes: one more step of the same shape, profiled
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=b,
+                         seed=seed + 1)
+    batch = {k: torch.from_numpy(x).to(dev)
+             for k, x in pipe.next_batch().items()}
+    busy, top = _device_profile(
+        torch, lambda: lm.build_train_step(model, accum=accum)(
+            params, opt, batch), top=8)
+    del batch
+    log(f"lm_train profile: a step device-busy {busy:.3f} ms against the "
+        f"best unprofiled step's {best:.3f} ms wall (idle share "
+        f"{1 - busy / best:.3f}); top: {top}")
+
+    # the optimizer pass of a step alone (254 launches; f32 grads as at
+    # accum > 1), and one layer's attention backward at a micro-batch
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for k, p in params.items()}
+    opt_ms = time_ms(torch, lambda: adamw_update_tree(params, grads, opt,
+                                                      0.0), 3)
+    del grads, params, opt
+    torch.cuda.empty_cache()
+    # p read and written, an f32 grad read, m and v read and written
+    p_bytes = torch.empty((), dtype=cfg.p_dtype).element_size()
+    moved = (2 * p_bytes + 4 + 16) * n_params
+    opt_bound = moved / HBM_BYTES_PER_S * 1e3
+    bwd_ms = _attention_backward_ms(torch, cfg, b // accum, seq, 3, dev)
+    bwd_share = bwd_ms * cfg.n_layers * accum / best
+    log(f"lm_train: optimizer pass ({n_tensors} fused_adamw launches) "
+        f"{opt_ms:.3f} ms, bound {opt_bound:.3f} ms ({moved / 1e9:.2f} GB at "
+        f"3.35 TB/s); attention backward {bwd_ms:.3f} ms a layer and "
+        f"micro-batch, x {cfg.n_layers * accum} = {bwd_share:.4f} of the "
+        f"best step")
+
+    # the same code on both devices: a depth-cut f32 copy
+    layers, cb, cseq, csteps = sizes.train_cross
+    small = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                                param_dtype="float32")
+    smodel = build_model(small)
+    with torch.no_grad():
+        weights = smodel.init(torch.Generator().manual_seed(seed + 2))
+    pipe = TokenPipeline(vocab=small.vocab, seq_len=cseq, global_batch=cb,
+                         seed=seed + 3)
+    batches = [pipe.next_batch() for _ in range(csteps)]
+    step_fn = lm.build_train_step(smodel, warmup=1)
+
+    def start(on):
+        params = {k: v.to(on, copy=True) for k, v in weights.items()}
+        return params, adamw_init(params)
+
+    def run(on, params, opt, which):
+        losses = []
+        for batch in which:
+            params, opt, m = step_fn(params, opt, {
+                k: torch.from_numpy(x).to(on) for k, x in batch.items()})
+            losses.append(float(m["loss"]))
+        return params, opt, losses
+
+    t0 = time.perf_counter()
+    cpu_p, cpu_o, cpu_l = run(torch.device("cpu"), *start("cpu"), batches)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_counts()
+    card = [run(dev, *start(dev), batches) for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    for name, (n, _) in counts.items():
+        launches[name] += n
+    check(counts["fused_adamw"] == (2 * csteps * len(weights), 0)
+          and counts["flash_attention"][1] == 0,
+          f"lm_train f32 on the card: counts {counts}")
+    (p1, o1, l1), (p2, o2, l2) = card
+    check(l1 == l2 and all(torch.equal(p1[k], p2[k])
+                           and torch.equal(o1["m"][k], o2["m"][k])
+                           and torch.equal(o1["v"][k], o2["v"][k])
+                           for k in p1),
+          "lm_train: the f32 copy's two card runs differ bitwise")
+    del p2, o2, card
+
+    # one step, a checkpoint, a restore into a fresh state, one step
+    with tempfile.TemporaryDirectory(prefix="weld-ckpt-") as tmp:
+        params, opt, la = run(dev, *start(dev), batches[:1])
+        ck = Checkpointer(tmp)
+        ck.save(1, {"params": params, "opt": opt}, extra={"step": 1})
+        shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in params.items()}
+        moments = {k: torch.empty(v.shape, dtype=torch.float32,
+                                  device="meta") for k, v in params.items()}
+        del params, opt
+        ck.wait()
+        state, extra = ck.restore(1, {
+            "params": shapes, "opt": {"m": moments, "v": moments,
+                                      "step": torch.zeros(
+                                          (), dtype=torch.int32)}})
+    params = {k: v.to(dev) for k, v in state["params"].items()}
+    opt = {"m": {k: v.to(dev) for k, v in state["opt"]["m"].items()},
+           "v": {k: v.to(dev) for k, v in state["opt"]["v"].items()},
+           "step": state["opt"]["step"]}
+    del state
+    params, opt, lb = run(dev, params, opt, batches[1:])
+    check(extra["step"] == 1 and la + lb == l1
+          and all(torch.equal(params[k], p1[k])
+                  and torch.equal(opt["m"][k], o1["m"][k])
+                  and torch.equal(opt["v"][k], o1["v"][k]) for k in p1),
+          "lm_train: two steps differ from one step, a checkpoint, a "
+          "restore and one step")
+    del params, opt
+    log(f"lm_train: {layers}-layer f32 copy on the card: two runs bitwise "
+        f"equal, and bitwise equal to 1 step + Checkpointer save/restore + "
+        f"1 step")
+
+    # card against CPU
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(l1, cpu_l))
+    # the last step's lr and bias correction (build_train_step's defaults)
+    last_lr = float(cosine_warmup(csteps - 1, peak_lr=3e-4, warmup=1,
+                                  total=1000))
+    lr, _, _, _, c2 = adamw_scalars(last_lr, csteps, 0.9, 0.999)
+    worst = {"m": 0.0, "v": 0.0, "p": 0.0, "p_abs": 0.0}
+    for k in weights:
+        for mom, rel in (("m", TRAIN_GRAD_REL), ("v", 2 * TRAIN_GRAD_REL)):
+            want = cpu_o[mom][k].to(dev)
+            err = float((o1[mom][k] - want).abs().max())
+            scale = float(want.abs().max())
+            worst[mom] = max(worst[mom], err / max(scale, 1e-30) / rel)
+        want = cpu_p[k].to(dev)
+        limit = _train_param_limit(torch, want, cpu_o["v"][k].to(dev), lr,
+                                   c2)
+        diff = (p1[k] - want).abs()
+        worst["p"] = max(worst["p"], float((diff / limit).max()))
+        worst["p_abs"] = max(worst["p_abs"], float(diff.max()))
+    check(loss_err <= TRAIN_LOSS_RTOL and max(worst["m"], worst["v"],
+                                              worst["p"]) <= 1.0,
+          f"lm_train: f32 card vs CPU: loss rel err {loss_err}, "
+          f"shares of the limits {worst}")
+    log(f"lm_train: {layers}-layer f32 copy, batch {cb} x {cseq}, {csteps} "
+        f"steps (warmup 1, lr {last_lr:.3e} at the last): card vs CPU "
+        f"losses {l1} / {cpu_l} (max rel err {loss_err:.3e}, limit "
+        f"{TRAIN_LOSS_RTOL}); m, v at most {worst['m']:.4f}, "
+        f"{worst['v']:.4f} of their limits; parameters at most "
+        f"{worst['p']:.4f} of theirs (max |diff| {worst['p_abs']:.3e}); "
+        f"CPU run {cpu_s:.1f} s")
+    del p1, o1, cpu_p, cpu_o, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "params": n_params, "tensors": n_tensors,
+        "batch": b, "seq": seq, "accum": accum, "steps": steps,
+        "step_ms": step_ms, "best_step_ms": best,
+        "tokens_per_s": tokens / best * 1e3,
+        "mfu": flops / (best * 1e-3) / 989e12, "flops_per_step": flops,
+        "peak_memory_bytes": peak, "changed_share": changed / n_params,
+        "step_device_busy_ms": busy, "step_top": top,
+        "optimizer_pass_ms": opt_ms, "optimizer_pass_bound_ms": opt_bound,
+        "attention_backward_ms": bwd_ms,
+        "attention_backward_share": bwd_share,
+        "cross_device_loss_rel_err": loss_err,
+        "cross_device_limit_shares": worst,
+    }
+
+
 # ---------------------------------------------------------------------------
 # each kernel against its plain version, timed
 # ---------------------------------------------------------------------------
@@ -1790,6 +2132,123 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
     }]
 
 
+def hold_fused_adamw(torch, sizes: Sizes, seed: int, launches: dict,
+                     dev="cuda") -> list:
+    """fused_adamw against ``ref.adamw_update`` on the card: the largest
+    parameter of the training run (the embedding table) with bf16 and f32
+    p, bf16 and f32 g, t in {1, 5}, and an odd size for every dtype pair;
+    each case launched twice on copies (bitwise equal, written in place).
+    m, v and an f32 p within rtol 2e-5, atol 1e-7 (the JAX package's
+    kernel test), a bf16 p within 2**-7 of the value (one bf16 step).  The
+    main path's case (bf16 p, f32 g at accum > 1) and the all-f32 case
+    are timed beside the plain version; the all-f32 case also beside
+    ``torch.optim.AdamW(fused=True).step()`` on the same tensors (it keeps
+    m and v in p's dtype, so with a bf16 p it is another function)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_adamw as aw
+    from repro_torch.kernels import ref
+
+    dev = torch.device(dev)
+    cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
+    big = cfg.vocab * cfg.d_model
+    bf16, f32 = torch.bfloat16, torch.float32
+    pairs = [(bf16, f32), (f32, f32), (bf16, bf16), (f32, bf16)]
+    cases = [(big, pd, gd, t) for pd, gd in pairs for t in (1, 5)]
+    cases += [(sizes.adamw_odd, pd, gd, 5) for pd, gd in pairs]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 30)
+    lr = 3e-4
+    per_case = []
+    for n, pd, gd, t in cases:
+        def draw(mul, dtype, positive=False):
+            x = torch.randn((n,), generator=gen, device=dev) * mul
+            return (x.abs() if positive else x).to(dtype)
+
+        p, g = draw(1.0, pd), draw(0.1, gd)
+        m, v = draw(0.01, f32), draw(0.001, f32, True)
+        runs = []
+        for _ in range(2):
+            out = (p.clone(), m.clone(), v.clone())
+            ptrs = [x.data_ptr() for x in out]
+            got = aw.adamw_update(out[0], g, out[1], out[2], lr, t)
+            check(all(a is b for a, b in zip(got, out))
+                  and [x.data_ptr() for x in got] == ptrs,
+                  "fused_adamw: the update is not in place")
+            runs.append(out)
+        want = ref.adamw_update(p, g, m, v, lr, t)
+        torch.cuda.synchronize()
+        name = (f"fused_adamw[n={n} p={str(pd)[6:]} g={str(gd)[6:]} "
+                f"t={t}]")
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"{name}: two launches differ bitwise")
+        errs, shares = [], []
+        for i, (a, w) in enumerate(zip(runs[0], want)):
+            diff = (a.float() - w.float()).abs()
+            if i == 0 and pd == bf16:
+                limit = w.float().abs() * 2.0 ** -7
+            else:
+                limit = 1e-7 + 2e-5 * w.float().abs()
+            errs.append(float(diff.max()))
+            shares.append(float((diff / limit.clamp_min(1e-30)).max()))
+        plain_equal = all(torch.equal(a, w) for a, w in zip(runs[0], want))
+        check(max(shares) <= 1.0,
+              f"{name}: |kernel - plain| (p, m, v) {errs}, {shares} x the "
+              f"limits")
+        row = dict(n=n, p_dtype=str(pd)[6:], g_dtype=str(gd)[6:], t=t,
+                   max_abs_err=max(errs), max_abs_err_pmv=errs,
+                   max_limit_share=max(shares), plain_bitwise=plain_equal)
+        del runs, want
+        timed = n == big and t == 5 and gd == f32
+        if timed:
+            library = None
+            if pd == f32:
+                leaf = torch.nn.Parameter(p.clone())
+                leaf.grad = g.clone()
+                lib_opt = torch.optim.AdamW(
+                    [leaf], lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=0.01, fused=True)
+                library = lib_opt.step
+            nbytes = n * (2 * p.element_size() + g.element_size() + 16)
+            row.update(_timed_row(
+                torch, lambda: aw.adamw_update(p, g, m, v, lr, t),
+                lambda: ref.adamw_update(p, g, m, v, lr, t), library,
+                sizes.timing_reps, nbytes, 20 * n, PEAK_OPS["float32"]))
+            lib = (f"{row['library_ms']:.4f}" if library is not None
+                   else "none")
+            log(f"kernel {name} kernel_ms={row['ms']:.4f} (runs "
+                f"{row['ms_runs'][0]:.4f}, {row['ms_runs'][1]:.4f}) "
+                f"plain_ms={row['plain_ms']:.4f} "
+                f"torch.optim.AdamW(fused)_ms={lib} bound_ms="
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            if library is not None:
+                del leaf, lib_opt, library
+        log(f"kernel {name} max |kernel - plain| p, m, v "
+            f"{[f'{e:.3e}' for e in errs]} ({max(shares):.4f} x the limit) "
+            f"bitwise equal to the plain version: {plain_equal} "
+            f"bitwise_repeat=ok")
+        per_case.append(row)
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    timed = {r["p_dtype"]: r for r in per_case if "ms" in r}
+    main, f32_row = timed["bfloat16"], timed["float32"]
+    return [{
+        "name": "fused_adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_adamw.cu",
+        "replaces": "src/repro/kernels/fused_adamw.py:50",
+        "launches": launches["fused_adamw"],
+        "max_abs_err": max(r["max_abs_err"] for r in per_case),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": f32_row["library_ms"],
+        "library": "torch.optim.AdamW(fused=True).step(), p and g f32 "
+                   "(f32_case)",
+        "dtype": "p bfloat16, g float32",
+        "f32_case": {k: f32_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")},
+        "per_dtype": per_case,
+    }]
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1844,14 +2303,20 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm_serve(torch, sizes, seed, mp.launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train = phase_lm_train(torch, sizes, seed, mp.launches)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies)
     kernels += hold_attention_kernel(torch, sizes, seed, mp.launches)
+    kernels += hold_fused_adamw(torch, sizes, seed, mp.launches)
+    check(sorted(r["name"] for r in kernels) == sorted(mp.launches),
+          f"the kernels line lists {sorted(r['name'] for r in kernels)}")
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "total_s": time.perf_counter() - t_all}
+            "lm_train": lm_train, "total_s": time.perf_counter() - t_all}
 
 
 def main(argv=None) -> int:

@@ -81,6 +81,11 @@ _C_SIGNATURES = {
         ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, _P),
+    # (p_dtype, g_dtype, p, g, m, v, n, lr, b1, 1 - b1, b2, 1 - b2, eps, wd,
+    #  c1, c2, stream)
+    "weld_fused_adamw": (
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+        *(ctypes.c_float,) * 9, _P),
 }
 
 

@@ -7,6 +7,16 @@ plain version, ``ref.chunked_attention`` (what the reference's ``ops``
 runs off the TPU).  The wrapper counts its kernel launches in
 ``.launches`` and its plain-version calls in ``.plain_calls``.
 
+Gradients: on a CPU tensor autograd runs through the plain version.  On
+a CUDA tensor that needs a gradient the launch goes through
+``FlashAttention``, a ``torch.autograd.Function`` whose backward
+recomputes the attention with ``ref.chunked_attention`` under autograd
+and differentiates that — as the reference does, whose kernel has no
+backward of its own (its gradient is XLA's through
+``chunked_attention``).  Each backward is counted in
+``.backward_calls``, not in ``.plain_calls``: the forward still ran the
+kernel.  A backward kernel written by hand is later work.
+
 The kernel takes bf16 (tensor cores, p rounded to bf16 before the PV
 product as the TPU kernel does) or f32 (CUDA cores, full f32), a head
 dimension that is a multiple of 8 up to 256, and ``Sq <= Skv``; anything
@@ -50,11 +60,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 1024) -> torch.Tensor:
     """q (B, H, Sq, D) or (H, Sq, D); k, v (B, H // group, Skv, D) or
     (H // group, Skv, D).  Returns q's shape and dtype.  ``chunk`` is the
-    plain version's kv chunk (the kernel tiles by itself)."""
+    plain version's kv chunk (the kernel tiles by itself; the backward
+    recomputes with the plain version at this chunk)."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_plain(q, k, v, causal=causal, group=group,
                                scale=scale, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, group, scale, chunk)
+    return _launch(q, k, v, causal, group, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, group, scale, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, group=group, scale=scale, chunk=chunk)
+        return _launch(q, k, v, causal, group, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        flash_attention.backward_calls += 1
+        q, k, v = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip((q, k, v),
+                                                               need)]
+            out = attention_plain(*ins, **ctx.opts)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, dout))
+        return (*(next(got) if n else None for n in need), None, None, None,
+                None)
+
+
+def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
+    """Check the operands and launch the kernel (counted)."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention kernel takes CUDA tensors on one "
@@ -102,6 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+flash_attention.backward_calls = 0
 
 
 def tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,6 +15,7 @@ import torch
 
 from . import filter_reduce as _fr
 from . import flash_attention as _fa
+from . import fused_adamw as _aw
 from . import group_build as _gb
 from . import hash_probe as _hp
 from . import hash_table as _ht
@@ -38,6 +39,7 @@ WRAPPERS = {
     "tiled_matmul": _tm.tiled_matmul,
     "filter_reduce_q6": _fr.filter_reduce_q6,
     "flash_attention": _fa.flash_attention,
+    "fused_adamw": _aw.adamw_update,
 }
 
 
@@ -58,9 +60,12 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
+    """Zero every wrapper's counters (flash_attention's
+    ``backward_calls`` too)."""
     for f in WRAPPERS.values():
         f.launches = 0
         f.plain_calls = 0
+    _fa.flash_attention.backward_calls = 0
 
 
 def filter_reduce_sum(x, pred, impl: Optional[str] = None):
@@ -166,3 +171,16 @@ def attention(q, k, v, causal: bool = True, group: int = 1, scale=None,
     _check_impl(impl, q)
     return _fa.flash_attention(q, k, v, causal=causal, group=group,
                                scale=scale, chunk=chunk)
+
+
+# -- fused AdamW (the LM stack's optimizer step) ---------------------------------
+
+
+def adamw_update(p, g, m, v, lr, step, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, wd: float = 0.01,
+                 impl: Optional[str] = None):
+    """One fused AdamW step over one parameter tensor: p (bf16 or f32), g
+    (bf16 or f32), m and v (f32) are updated in place and returned."""
+    _check_impl(impl, p)
+    return _aw.adamw_update(p, g, m, v, lr, step, b1=b1, b2=b2, eps=eps,
+                            wd=wd)

@@ -260,3 +260,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                    p, vb)
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def adamw_scalars(lr, step, b1: float, b2: float):
+    """The f32 scalars of an AdamW step, as Python floats: lr, 1 - b1,
+    1 - b2 (rounded from their double values, as a Python scalar in an
+    f32 expression is) and the bias corrections c1 = 1 - b1**t and
+    c2 = 1 - b2**t, computed in f32 as the reference's kernel does."""
+    f32 = torch.float32
+    t = torch.as_tensor(step, dtype=f32).cpu()
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=f32), t)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=f32), t)
+    as_f32 = lambda x: float(torch.tensor(x, dtype=f32))  # noqa: E731
+    return (float(torch.as_tensor(lr, dtype=f32).cpu()), as_f32(1.0 - b1),
+            as_f32(1.0 - b2), float(c1), float(c2))
+
+
+def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, lr, step, *, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, wd: float = 0.01):
+    """One AdamW step with bias correction, ``wd * p`` folded into the
+    lr-scaled update: returns new (p in p's dtype, m, v in f32).  p and g
+    may be bf16 or f32; the arithmetic is f32, one IEEE operation at a
+    time (the divisions by c1 and c2 divide by a tensor: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal)."""
+    lr, _, _, c1, c2 = adamw_scalars(lr, step, b1, b2)
+    c1 = torch.tensor(c1, dtype=torch.float32, device=p.device)
+    c2 = torch.tensor(c2, dtype=torch.float32, device=p.device)
+    gf, pf = g.float(), p.float()
+    m_new = b1 * m + (1.0 - b1) * gf
+    v_new = b2 * v + (1.0 - b2) * gf * gf
+    upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps) + wd * pf
+    return (pf - lr * upd).to(p.dtype), m_new, v_new

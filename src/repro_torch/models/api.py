@@ -4,6 +4,7 @@ package's ``models/api.py``):
     model = build_model(cfg)
     params = model.init(gen)                  # or convert.params_from_jax
     loss = model.loss_fn(params, batch)
+    loss, grads = model.loss_and_grad(params, batch)
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
@@ -12,7 +13,10 @@ model is built on the ``meta`` device and holds no weights of its own:
 an entry point binds the ``params`` it is given (without copying them)
 and binds again when another dict comes or an entry of the bound dict
 is replaced; an update in place (``params[name].copy_(...)``) is seen as
-it is.  Only the dense family is ported.
+it is.  ``loss_and_grad`` runs the module on the caller's tensors
+instead (``torch.func.functional_call``), so that the gradient reaches
+them; it leaves the bound dict as it was.  Only the dense family is
+ported.
 """
 from __future__ import annotations
 
@@ -65,6 +69,18 @@ class Model:
 
     def loss_fn(self, params, batch):
         return self._bind(params).loss_fn(batch)
+
+    def loss_and_grad(self, params, batch):
+        """(loss, grads): the training loss and its gradient, a dict named
+        like ``params`` with each gradient in its parameter's dtype (the
+        reference's ``jax.value_and_grad(model.loss_fn)``).  ``params`` are
+        not changed and need not require grad."""
+        names = list(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+        with torch.enable_grad():
+            loss, grads = torch.func.functional_call(
+                self.impl, leaves, (batch,), {"wrt": list(leaves.values())})
+        return loss.detach(), dict(zip(names, grads))
 
     def prefill(self, params, batch):
         return self._bind(params).prefill(batch)

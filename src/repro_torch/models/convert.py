@@ -7,7 +7,8 @@ The reference keeps a dense LM's layers stacked on a leading axis
 ``jax.device_get`` or ``np.asarray`` gives) and returns the port's
 parameter dict: the same values in the same shapes, the layer axis taken
 apart, each named after its tree path with the layer index put in
-(``dense_layers.3.attn.wq``).  Nothing here imports JAX.
+(``dense_layers.3.attn.wq``).  :func:`state_from_jax` does the same for
+an AdamW state, whose moments stay f32.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -39,6 +40,22 @@ def _flatten(tree: Mapping, prefix: str = ""):
 def params_from_jax(cfg, tree: Mapping) -> Dict[str, torch.Tensor]:
     """The port's parameters (CPU tensors of ``cfg.param_dtype``) from the
     reference's layer-stacked tree of the same config."""
+    return _named(cfg, tree, cfg.p_dtype)
+
+
+def state_from_jax(cfg, opt_tree: Mapping) -> Dict:
+    """The port's AdamW state from the reference's ``{"m", "v", "step"}``
+    (``adamw_init``'s tree, or one a train step returned): m and v as f32
+    CPU tensors named like the parameters, step a 0-dim int32 tensor."""
+    return {"m": _named(cfg, opt_tree["m"], torch.float32),
+            "v": _named(cfg, opt_tree["v"], torch.float32),
+            "step": torch.tensor(int(np.asarray(opt_tree["step"])),
+                                 dtype=torch.int32)}
+
+
+def _named(cfg, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
+    """A layer-stacked tree shaped like the config's parameters, taken
+    apart by layer, named as the port names them and cast to ``dtype``."""
     want = {n: p for n, p in DenseLM(cfg).named_parameters()}
     out = {}
     for name, leaf in _flatten(tree):
@@ -61,5 +78,5 @@ def params_from_jax(cfg, tree: Mapping) -> Dict[str, torch.Tensor]:
         if tuple(t.shape) != tuple(want[name].shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, the config "
                              f"gives {tuple(want[name].shape)}")
-        out[name] = t.to(cfg.p_dtype)
+        out[name] = t.to(dtype)
     return out

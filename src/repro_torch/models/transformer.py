@@ -4,8 +4,12 @@ decode_step and the cache; ``loss_fn`` runs the forward pass — the port
 of the JAX package's ``models/transformer.py``.
 
 The reference scans a layer-stacked parameter tree; here each layer is a
-``Block`` of its own in ``dense_layers`` and the scan is a Python loop
-(remat is a training matter; this slice serves).  Parameter names follow
+``Block`` of its own in ``dense_layers`` and the scan is a Python loop.
+Training differentiates ``loss_fn`` (``forward``); with
+``cfg.remat`` each layer of it runs under ``torch.utils.checkpoint``
+(non-reentrant), which keeps only the layer's input and recomputes the
+rest in the backward pass — the reference's ``jax.checkpoint`` of each
+layer body.  Parameter names follow
 the reference's tree paths with the layer index put in:
 ``dense_layers.<i>.attn.wq`` is layer i of ``dense_layers/attn/wq``.  The
 KV cache keeps the reference's layout, ``{"dense": {"k", "v"}}``, each
@@ -13,10 +17,11 @@ KV cache keeps the reference's layout, ``{"dense": {"k", "v"}}``, each
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -100,10 +105,22 @@ class DenseLM(nn.Module):
 
     def loss_fn(self, batch) -> torch.Tensor:
         x = self._embed(batch["tokens"])
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.dense_layers:
-            x, _ = blk.prefill(x)
+            if remat:
+                x = checkpoint(lambda h, blk=blk: blk.prefill(h)[0], x,
+                               use_reentrant=False)
+            else:
+                x, _ = blk.prefill(x)
         logits = self.embed.unembed(self.final_norm(x))
         return xent_loss(logits, batch["labels"])
+
+    def forward(self, batch, wrt: Sequence[torch.Tensor]):
+        """(loss, grads): the training loss and its gradient with respect
+        to ``wrt``, taken while they are bound (so that a checkpointed
+        layer's recompute reads them too)."""
+        loss = self.loss_fn(batch)
+        return loss, torch.autograd.grad(loss, wrt)
 
     def prefill(self, batch):
         """Logits of the last position (B, 1, V) f32 and the prompt's cache

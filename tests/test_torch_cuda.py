@@ -1,8 +1,11 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
 shapes and ``filter_reduce_q6`` on exact data, each against its plain
-version on the same CUDA tensors; and the LM's ``flash_attention``
-against ``ref.attention``.
+version on the same CUDA tensors; the LM's ``flash_attention`` against
+``ref.attention``; and the training path: ``fused_adamw`` against
+``ref.adamw_update`` for every p/g dtype pair, the attention's gradient
+through ``FlashAttention`` against plain autograd, and two ``train``
+steps of a smoke config on the card against the same on the CPU.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -24,7 +27,14 @@ sides round their f32 result to bf16: one bf16 step apart at most) plus
 cast, which the plain version does not make: up to 2**-8 of each
 weight).  With q and k at 0.5 N(0, 1) the softmax rows are nearly
 uniform, so a row's values are about (its keys)**-0.5 in size; the
-limit shrinks with them.
+limit shrinks with them.  fused_adamw: m, v and an f32 p to rtol 2e-5,
+atol 1e-7 (the JAX package's kernel test), a bf16 p within one bf16 step
+(both round an f32 result); two launches bitwise equal.  The attention's
+gradient equals plain autograd through ``ref.chunked_attention`` bitwise
+(the backward recomputes with it) and autograd through ``ref.attention``
+to f32 rtol 1e-4, atol 1e-5 (bf16: 2**-6 of the largest gradient).  The
+smoke train steps: losses to rtol 1e-5, parameters to atol 1e-6 (the CPU
+tests' limits against the JAX step).
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ import torch
 
 from repro_torch.kernels import filter_reduce as t_fr
 from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import fused_adamw as t_aw
+from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import map_chain as t_mc
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels import tiled_matmul as t_tm
@@ -230,3 +242,145 @@ def test_flash_attention_refuses_what_it_does_not_take(dtype, d, sq, skv,
     with pytest.raises(what):
         t_fa.flash_attention(q, k, k)
     assert t_fa.flash_attention.launches == 0
+
+
+# -- fused_adamw -------------------------------------------------------------
+
+
+def _adam_state(dev, n, p_dtype, g_dtype, seed, offset=0):
+    """p, g, m, v on the card; ``offset`` elements into larger buffers (an
+    address off 16 bytes takes the kernel's scalar path)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def draw(mul, dtype, positive=False):
+        x = torch.randn((n + offset,), generator=gen, device=dev) * mul
+        return (x.abs() if positive else x).to(dtype)[offset:]
+
+    return (draw(1.0, p_dtype), draw(0.1, g_dtype),
+            draw(0.01, torch.float32), draw(0.001, torch.float32, True))
+
+
+def _hold_adamw(p, g, m, v, lr, t):
+    want = t_ref.adamw_update(p, g, m, v, lr, t)
+    runs = []
+    for _ in range(2):
+        pp, mm, vv = p.clone(), m.clone(), v.clone()
+        ptrs = [x.data_ptr() for x in (pp, mm, vv)]
+        out = t_aw.adamw_update(pp, g, mm, vv, lr, t)
+        assert all(a is b for a, b in zip(out, (pp, mm, vv)))
+        assert [x.data_ptr() for x in out] == ptrs
+        runs.append(out)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b), "two launches differ bitwise"
+    got = runs[0]
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-7)
+    if p.dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=1e-7)
+    else:
+        diff = (got[0].float() - want[0].float()).abs()
+        assert bool((diff <= want[0].float().abs() * 2.0 ** -7).all())
+
+
+@pytest.mark.parametrize("t", (1, 5, 1000))
+@pytest.mark.parametrize("n", (1, 7, 16_384 * 3 + 7, 1_000_003))
+@pytest.mark.parametrize("g_dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("p_dtype", (torch.bfloat16, torch.float32))
+def test_fused_adamw_matches_the_plain_version(p_dtype, g_dtype, n, t, gpu):
+    before = t_aw.adamw_update.launches
+    _hold_adamw(*_adam_state(gpu, n, p_dtype, g_dtype, seed=n + t), 3e-4, t)
+    assert t_aw.adamw_update.launches == before + 2
+
+
+@pytest.mark.parametrize("offset", (1, 3))
+def test_fused_adamw_on_unaligned_views(offset, gpu):
+    p, g, m, v = _adam_state(gpu, 100_001, torch.bfloat16, torch.float32,
+                             seed=offset, offset=offset)
+    assert p.data_ptr() % 16
+    _hold_adamw(p, g, m, v, 1e-3, 3)
+
+
+@pytest.mark.parametrize("what", ["p_f16", "m_bf16", "sizes", "strided",
+                                  "device"])
+def test_fused_adamw_refuses_what_it_does_not_take(what, gpu):
+    p, g, m, v = _adam_state(gpu, 64, torch.float32, torch.float32, seed=1)
+    if what == "p_f16":
+        p, err = p.half(), TypeError
+    elif what == "m_bf16":
+        m, err = m.bfloat16(), TypeError
+    elif what == "sizes":
+        g, err = g[:63], ValueError
+    elif what == "strided":
+        p, err = torch.zeros((128,), device=gpu)[::2], ValueError
+    else:
+        g, err = g.cpu(), ValueError
+    before = t_aw.adamw_update.launches
+    with pytest.raises(err):
+        t_aw.adamw_update(p, g, m, v, 1e-3, 1)
+    assert t_aw.adamw_update.launches == before
+
+
+# -- the attention's gradient ------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_attention_gradient_matches_plain_autograd(dtype, gpu):
+    b, h, group, s, d = 2, 6, 3, 200, 64
+    q, k, v = _qkv(gpu, dtype, b, h, group, s, s, d, seed=31)
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(32)
+    w = torch.randn((b, h, s, d), generator=gen, device=gpu).to(dtype)
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*ins).float() * w.float()).sum().backward()
+        return [x.grad for x in ins]
+
+    t_ops.reset_counts()
+    got = grads(lambda *x: t_ops.attention(*x, group=group, chunk=64))
+    torch.cuda.synchronize()
+    assert t_ops.counts()["flash_attention"] == (1, 0)
+    assert t_fa.flash_attention.backward_calls == 1
+    same = grads(lambda *x: t_ref.chunked_attention(*x, group=group,
+                                                    chunk=64))
+    dense = grads(lambda *x: t_ref.attention(*x, group=group))
+    for a, b_, c in zip(got, same, dense):
+        assert a.dtype == dtype
+        assert torch.equal(a, b_)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        else:
+            scale = float(c.float().abs().max())
+            assert float((a.float() - c.float()).abs().max()) \
+                <= 2.0 ** -6 * scale
+
+
+def test_train_steps_on_the_card_match_the_cpu(gpu):
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(3))
+    kw = dict(steps=2, global_batch=4, seq_len=64, accum=2, verbose=False,
+              params=params, peak_lr=3e-3)
+    repro_torch.set_default_device("cpu")
+    try:
+        on_cpu = train(cfg, **kw)
+    finally:
+        repro_torch.set_default_device("cuda")
+    t_ops.reset_counts()
+    on_card = train(cfg, **kw)
+    torch.cuda.synchronize()
+    counts = t_ops.counts()
+    assert counts["fused_adamw"] == (2 * len(params), 0)
+    assert counts["flash_attention"] == (2 * 2 * cfg.n_layers, 0)
+    assert t_fa.flash_attention.backward_calls == 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(on_card["losses"], on_cpu["losses"],
+                               rtol=1e-5)
+    for name, p in on_cpu["params"].items():
+        torch.testing.assert_close(on_card["params"][name].cpu(), p,
+                                   rtol=0, atol=1e-6)

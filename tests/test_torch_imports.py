@@ -27,10 +27,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 54, names
+assert len(names) >= 65, names
 for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.models.transformer", "repro_torch.models.convert",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve", "repro_torch.kernels.fused_adamw",
+             "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+             "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+             "repro_torch.distributed.straggler", "repro_torch.launch.train"):
     assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

@@ -145,6 +145,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
                          torch.tensor([5.0, 9.0]), x)
     ops.attention(torch.ones(2, 3, 8), torch.ones(1, 3, 8),
                   torch.ones(1, 3, 8), group=2)
+    ops.adamw_update(torch.ones(5), torch.ones(5), torch.zeros(5),
+                     torch.zeros(5), 1e-3, 1)
     assert ops.counts() == {name: (0, 1) for name in ops.WRAPPERS}
     ops.reset_counts()
     assert ops.counts() == {name: (0, 0) for name in ops.WRAPPERS}
