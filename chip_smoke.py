@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card (and
 ``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
 kernels/csrc`` and then
 
-1. runs twelve phases through the entry points a user calls — TPC-H Q6
+1. runs thirteen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -17,7 +17,11 @@ kernels/csrc`` and then
    lineitem as lineorder, 59,986,052 rows, against the 365 date rows of
    1993: inner with a filter, left, anti), an m:n join on TPC-H
    partsupp's fan-out (16,777,216 probe rows against 50,000 parts x 4
-   suppliers: inner, left), Black-Scholes over 33,554,432 options as a
+   suppliers: inner, left), the recovery ladder (that inner join with
+   its build capacity under-estimated by the ``join.capacity`` failpoint,
+   regrown to the healthy run's rows; the group-by with keys outside its
+   capacity, regrown until they fit; every other phase must not have
+   climbed the ladder), Black-Scholes over 33,554,432 options as a
    price vector and as a sum, logistic-regression scoring through
    ``weldflow`` (4,194,304 x 64, sessions native, xla and weld) and a
    ``weldnp`` 4096 x 4096 matmul — each checked against numpy computed
@@ -159,10 +163,13 @@ class MainPath:
         #: map-chain bodies (IR lambdas) the phases routed, by phase
         self.bodies = {}
 
-    def run(self, phase: str, mode: str, fn, expect=()):
+    def run(self, phase: str, mode: str, fn, expect=(), recovers=False):
         """Zero the counters, drive ``fn(mode, stats)`` and read them.
         Under "always" every wrapper in ``expect`` must have launched and
-        no wrapper may have served its plain version."""
+        no wrapper may have served its plain version.  Unless the phase
+        ``recovers`` on purpose, the recovery ladder must not have run: a
+        kernel that raised a false overflow would otherwise climb it to
+        the generic lowering unseen."""
         torch = self.torch
         torch.cuda.synchronize()
         self.ops.reset_counts()
@@ -192,6 +199,14 @@ class MainPath:
             if stats.get("kernels.prepare_ms") and not stats.get("cache.hit"):
                 parts.append(f"prepare_ms={stats['kernels.prepare_ms']:.3f}")
         self.phase_ms[key] = entry
+        if recovers:
+            entry["recovery"] = {k[len("recovery."):]: v
+                                 for k, v in stats.items()
+                                 if k.startswith("recovery.")}
+        else:
+            check("recovery.attempts" not in stats,
+                  f"{phase}[{mode}]: the recovery ladder ran: "
+                  f"{stats.get('recovery.events')}")
         log(f"phase {phase} kernelize={mode}: wall_ms={wall:.3f} "
             f"({' '.join(parts)}) routed={routed} launches="
             f"{ {k: v[0] for k, v in counts.items() if v[0]} } "
@@ -543,34 +558,49 @@ def phase_join_m1(mp: MainPath, cols: dict) -> None:
         del want
 
 
-def phase_join_mn(mp: MainPath) -> None:
-    """An m:n join on partsupp's fan-out: lineitem-shaped rows with a part
-    key uniform over twice the part range, against every supplier of
-    each part."""
-    from repro_torch.frames import weldrel
+JOIN_MN_EXPECT = [("group_build", "hash_to_slot"),
+                  ("group_build", "slot_hist"),
+                  ("group_probe", "group_probe")]
 
+
+def join_mn_tables(mp: MainPath):
+    """partsupp (the build side) and the lineitem-shaped probe rows of the
+    m:n join, each part key uniform over twice the part range."""
     s = mp.sizes
     build = partsupp(s.join_mn_parts, s.join_mn_fanout, mp.seed)
     probe = lineitem(s.join_mn_rows, mp.seed + 6)
     rng = np.random.RandomState(mp.seed + 7)
     probe["partkey"] = rng.randint(0, 2 * s.join_mn_parts,
                                    s.join_mn_rows).astype(np.int64)
+    return build, probe
+
+
+def join_mn_want(build: dict, probe: dict, how: str) -> dict:
+    """numpy's m:n join: probe-row order, build-row order within a key."""
     bk = build["partkey"]  # sorted: within a key, build-row order
     lo = np.searchsorted(bk, probe["partkey"], side="left")
     cnt = np.searchsorted(bk, probe["partkey"], side="right") - lo
-    expect = [("group_build", "hash_to_slot"), ("group_build", "slot_hist"),
-              ("group_probe", "group_probe")]
+    rep = cnt if how == "inner" else np.maximum(cnt, 1)
+    rows = np.repeat(np.arange(cnt.shape[0]), rep)
+    ordinal = np.arange(rows.shape[0]) - np.repeat(np.cumsum(rep) - rep, rep)
+    hit = cnt[rows] > 0
+    gidx = np.where(hit, lo[rows] + ordinal, 0)
+    want = {c: v[rows] for c, v in probe.items()}
+    want["suppkey"] = np.where(hit, build["suppkey"][gidx], 0)
+    want["supplycost"] = np.where(hit, build["supplycost"][gidx], np.nan)
+    return want
+
+
+def phase_join_mn(mp: MainPath) -> None:
+    """An m:n join on partsupp's fan-out: lineitem-shaped rows with a part
+    key uniform over twice the part range, against every supplier of
+    each part."""
+    from repro_torch.frames import weldrel
+
+    build, probe = join_mn_tables(mp)
+    expect = JOIN_MN_EXPECT
     for how in ("inner", "left"):
-        rep = cnt if how == "inner" else np.maximum(cnt, 1)
-        rows = np.repeat(np.arange(s.join_mn_rows), rep)
-        ordinal = np.arange(rows.shape[0]) - np.repeat(np.cumsum(rep) - rep,
-                                                       rep)
-        hit = cnt[rows] > 0
-        gidx = np.where(hit, lo[rows] + ordinal, 0)
-        want = {c: v[rows] for c, v in probe.items()}
-        want["suppkey"] = np.where(hit, build["suppkey"][gidx], 0)
-        want["supplycost"] = np.where(hit, build["supplycost"][gidx], np.nan)
-        del rows, ordinal, hit, gidx
+        want = join_mn_want(build, probe, how)
         log(f"join_mn.{how}: {want['suppkey'].shape[0]} output rows")
 
         def join(mode, stats, how=how):
@@ -580,6 +610,111 @@ def phase_join_mn(mp: MainPath) -> None:
 
         _join_runs(mp, "join_mn", how, join, want, expect)
         del want
+
+
+def same_row_set(got: dict, want: dict, what: str) -> None:
+    """The same rows in any order: equal as they stand, or equal once
+    both are sorted on every column (floats by their bits)."""
+    check(list(got) == list(want), f"{what}: columns {list(got)} vs "
+                                   f"{list(want)}")
+    if all(np.array_equal(got[c].view(np.int64) if got[c].dtype.kind == "f"
+                          else got[c],
+                          want[c].view(np.int64) if want[c].dtype.kind == "f"
+                          else want[c]) for c in want):
+        return
+
+    def keys(t):
+        return [t[c].view(np.int64) if t[c].dtype.kind == "f" else t[c]
+                for c in reversed(list(t))]
+
+    go, wo = np.lexsort(keys(got)), np.lexsort(keys(want))
+    for c in want:
+        same_column(got[c][go], want[c][wo], f"{what}.{c} (sorted)")
+
+
+def phase_recovery(mp: MainPath) -> None:
+    """The recovery ladder on the card, at full size: the m:n join with
+    its build capacity under-estimated by the ``join.capacity`` failpoint
+    (regrown, never degraded), and the SF10 group-by with keys outside
+    the dense-key route's [0, capacity) (regrown until they fit)."""
+    from repro_torch.core import faults
+    from repro_torch.frames import weldrel, welddf
+
+    s = mp.sizes
+    build, probe = join_mn_tables(mp)
+    want = join_mn_want(build, probe, "inner")
+
+    def join(mode, stats):
+        res = weldrel.Query(weldrel.Table(probe)).join(
+            weldrel.Table(build), on="partkey", how="inner", kernelize=mode,
+            collect_stats=stats)
+        return {c: np.asarray(weldrel._host(res.cols[c])) for c in res.cols}
+
+    healthy, _ = mp.run("recovery.join_mn.inner", "always", join,
+                        expect=JOIN_MN_EXPECT)
+    same_table(healthy, want, "recovery.join_mn.inner[healthy]")
+    del want
+    # a power of two between a quarter and a half of the distinct build
+    # keys: x2 still overflows, x4 covers them (16,384 -> 65,536 for
+    # 50,000 parts) without passing the hash kernels' MAX_CAP (65,536),
+    # above which the planner stops routing; a capacity of 1 would need
+    # x65,536, past the ladder's x8, in the reference too
+    cap = 1 << (s.join_mn_parts.bit_length() - 2)
+    faults.clear()
+    faults.inject("join.capacity", "cap", times=1, value=cap)
+    try:
+        got, stats = mp.run("recovery.join_mn.inner", "always", join,
+                            expect=JOIN_MN_EXPECT, recovers=True)
+        check([f["site"] for f in faults.fired()] == ["join.capacity"],
+              f"recovery.join_mn: fired {faults.fired()}")
+    finally:
+        faults.clear()
+    events = stats.get("recovery.events", [])
+    check(stats.get("recovery.attempts", 0) >= 2 and events
+          and all(e["action"] == "regrow" for e in events)
+          and stats["recovery.fallback"] is False,
+          f"recovery.join_mn: expected regrows and no fallback, got "
+          f"{ {k: v for k, v in stats.items() if k.startswith('recovery.')} }")
+    check(mp.last_counts["hash_to_slot"][0] == stats["recovery.attempts"],
+          f"recovery.join_mn: {mp.last_counts['hash_to_slot'][0]} builds on "
+          f"the card for {stats['recovery.attempts']} attempts")
+    same_row_set(got, healthy, "recovery.join_mn.inner")
+    log(f"  recovery.join_mn.inner: capacity {cap} -> attempts "
+        f"{stats['recovery.attempts']}, regrow x"
+        f"{stats['recovery.regrow_factor']}, rows equal the healthy run's "
+        f"({got['suppkey'].shape[0]})")
+    del got, healthy, build, probe
+
+    n = s.groupby_rows
+    rng = np.random.RandomState(mp.seed + 1)
+    keys = rng.randint(0, s.groupby_keys, n).astype(np.int64)
+    vals = rng.rand(n)
+    wsum = np.bincount(keys, weights=vals, minlength=s.groupby_keys)
+    wkeys = np.flatnonzero(np.bincount(keys, minlength=s.groupby_keys))
+    # half the key range: keys >= capacity poison the dense-key route
+    capacity = s.groupby_keys // 2
+
+    def groupby(mode, stats):
+        df = welddf.DataFrame({"k": keys, "v": vals})
+        return df.groupby_sum("k", "v", capacity=capacity, kernelize=mode,
+                              collect_stats=stats)
+
+    got, stats = mp.run("recovery.groupby", "always", groupby,
+                        expect=[("dict_group_sum", "segment_sum_vectors")],
+                        recovers=True)
+    check(stats.get("recovery.attempts", 0) >= 2,
+          f"recovery.groupby: attempts {stats.get('recovery.attempts')}")
+    check(mp.last_counts["segment_sum_vectors"][0] >= 2,
+          f"recovery.groupby: {mp.last_counts['segment_sum_vectors'][0]} "
+          f"segment_sum_vectors launches, expected one an attempt")
+    check(sorted(got) == wkeys.tolist(), "recovery.groupby: wrong key set")
+    err = max(abs(got[k] - wsum[k]) for k in got)
+    check(err <= 1e-9 * float(np.abs(wsum).max()),
+          f"recovery.groupby: max error {err}")
+    log(f"  recovery.groupby: capacity {capacity} -> attempts "
+        f"{stats['recovery.attempts']}, regrow x"
+        f"{stats['recovery.regrow_factor']}, fallback "
+        f"{stats['recovery.fallback']}, max error {err:.3e}")
 
 
 def _routed_body(stats: dict):
@@ -2297,6 +2432,7 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     phase_pagerank(mp)
     phase_quickstart(mp)
     phase_join_mn(mp)
+    phase_recovery(mp)
     phase_blackscholes(mp)
     phase_logreg(mp)
     phase_matmul(mp)

@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import faults
 from .. import ir
 from .. import wtypes as wt
 from ..cudf import has_cudf, lookup_cudf_torch
@@ -326,8 +327,11 @@ def _finalize_keyed(acc, is_group: bool = False):
     seg = torch.where(valid, seg, torch.full_like(seg, cap))  # park invalid
     count = is_new.sum()
     # more distinct keys than capacity POISONS (negative count), never
-    # silently truncates: the segment arrays below are only `cap` wide
+    # silently truncates: the segment arrays below are only `cap` wide.
+    # The dict.build/group.build failpoints force the flag for tests.
     overflow = count > cap
+    if faults.poisoned("group.build" if is_group else "dict.build"):
+        overflow = torch.ones_like(overflow)
     count = torch.where(overflow, -count - 1, count)
 
     first_idx = torch.where(is_new, torch.arange(n, device=dev),
@@ -1019,7 +1023,7 @@ class Emitter:
             self._charge(self._kernel_footprint(spec, args, x, params),
                          f" (incl. kernel {x.kernel} scratch)")
         fns = [self._stage_elem_fn(lam, env) for lam in x.fns]
-        return spec.execute(args, params, fns, self.kernel_impl)
+        return kreg.execute_spec(spec, args, params, fns, self.kernel_impl)
 
     @staticmethod
     def _kernel_footprint(spec, args, x: ir.KernelCall, params) -> int:

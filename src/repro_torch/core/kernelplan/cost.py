@@ -15,10 +15,11 @@ an "auto" decision here is the reference's decision under H100 rates,
 not a measured one.  The join probes are the exception: their kernels
 search where the TPU's compared a one-hot tile, and are priced as
 searches.  So are the array routes: ``matmul``/``matvec`` against one
-``torch.matmul`` (cuBLAS, which may use the FP64 tensor cores the port's
-kernel does not), and the map chain against one eager PyTorch operator
-per IR node, each intermediate materialized.  The ledger calibration
-and the autotuner wait for their slices.
+``torch.matmul`` (cuBLAS, on the FP64 tensor cores; the kernel's f64
+launch now runs there too but is still priced at the CUDA-core rate,
+until ROADMAP A4 re-derives the formulas), and the map chain against
+one eager PyTorch operator per IR node, each intermediate materialized.
+The ledger calibration and the autotuner wait for their slices.
 
 ``estimate(spec, meta)`` returns a :class:`CostEstimate`; ``meta`` is
 the planner-collected static description of the match.  Unknown sizes
@@ -31,14 +32,14 @@ from dataclasses import dataclass
 from math import ceil, log2
 
 #: NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense rates): HBM3 at
-#: 3.35 TB/s; 67 TFLOP/s FP32 and 34 TFLOP/s FP64 on the CUDA cores
-#: (no tensor cores: the port's kernels use none).  Rates assume the
-#: card's full 700 W power limit.
+#: 3.35 TB/s; 67 TFLOP/s FP32 and 34 TFLOP/s FP64 on the CUDA cores,
+#: 67 TFLOP/s FP64 on the tensor cores.  Rates assume the card's full
+#: 700 W power limit.
 HW_H100 = {
     "hbm_bw": 3.35e12,          # B/s
     "peak_flops_f32": 67e12,    # FLOP/s
     "peak_flops_f64": 34e12,    # FLOP/s
-    # the FP64 tensor cores (DMMA), which a library matmul may use
+    # the FP64 tensor cores (DMMA)
     "peak_flops_f64_tc": 67e12,  # FLOP/s
 }
 
@@ -298,11 +299,13 @@ def cost_group_probe(meta: dict) -> CostEstimate:
 
 
 def cost_matmul(meta: dict) -> CostEstimate:
-    """Tiled matmul kernel (CUDA cores, operand-dtype accumulation, no
-    padding) vs. one ``torch.matmul``: the same bytes, but the library
-    may run f64 on the FP64 tensor cores at twice the CUDA-core rate, so
-    a large f64 product prices the generic route ahead; a matvec is
-    bound by bytes on both routes and the kernel pays its launch."""
+    """Tiled matmul kernel (operand-dtype accumulation, no padding),
+    priced at the CUDA-core rate, vs. one ``torch.matmul``: the same
+    bytes, but the library runs f64 on the FP64 tensor cores at twice
+    that rate, so a large f64 product prices the generic route ahead
+    (the kernel's f64 launch is on DMMA now, and still slower than the
+    library's: ROADMAP F2, A4); a matvec is bound by bytes on both
+    routes and the kernel pays its launch."""
     dims = meta.get("dims")
     if not dims or any(d is None for d in dims):
         return REJECT_UNKNOWN

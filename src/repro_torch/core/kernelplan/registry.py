@@ -143,6 +143,42 @@ def describe() -> str:
 # ---------------------------------------------------------------------------
 
 
+def _poison_value(out):
+    """Negate every dynamic count in a kernel result (the ``poison``
+    fault action): downstream probes and decode then see exactly what a
+    real capacity overflow produces."""
+    if isinstance(out, WVec):
+        if out.count is None:
+            leaf = out.data[0] if isinstance(out.data, tuple) else out.data
+            return WVec(out.data, torch.tensor(-1, dtype=torch.int64,
+                                               device=leaf.device))
+        return WVec(out.data, -torch.abs(out.count) - 1)
+    if isinstance(out, WDict):
+        return WDict(out.keys, out.vals, -torch.abs(out.count) - 1)
+    if isinstance(out, WGroup):
+        return WGroup(out.keys, out.values, out.offsets,
+                      -torch.abs(out.count) - 1)
+    if isinstance(out, tuple):
+        return tuple(_poison_value(v) for v in out)
+    return out
+
+
+def execute_spec(spec: KernelSpec, args, params, fns, impl):
+    """Every planned kernel launch funnels through here.
+
+    A ``poison`` armed at the ``kernel.<name>`` failpoint negates the
+    result's counts, as a capacity overflow would.  A kernel that fails
+    raises as it is (the reference's ``KernelCompileError`` wrapping and
+    its quarantine rung are not ported yet).
+    """
+    from .. import faults
+
+    out = spec.execute(args, params, fns, impl)
+    if faults.poisoned(f"kernel.{spec.name}"):
+        out = _poison_value(out)
+    return out
+
+
 def _dense_data(v, what: str):
     if not isinstance(v, WVec):
         raise KernelPlanError(f"{what}: expected a vector value")

@@ -55,13 +55,17 @@ def optimize(
     stats = stats if stats is not None else {}
     from . import fusion as _fusion
 
+    from .. import obs
+
     for it in range(MAX_FIXPOINT_ITERS):
         before = ir.canon_key(e)
         for name in names:
-            if name == "fusion":
-                e = _fusion.fuse_loops(e, stats, input_shapes=input_shapes)
-            else:
-                e = _PASS_FNS[name](e, stats)
+            with obs.span(f"pass.{name}", iteration=it):
+                if name == "fusion":
+                    e = _fusion.fuse_loops(e, stats,
+                                           input_shapes=input_shapes)
+                else:
+                    e = _PASS_FNS[name](e, stats)
         stats["iterations"] = it + 1
         if ir.canon_key(e) == before:
             break

@@ -13,10 +13,12 @@ key while peers wait on the in-flight slot, eviction is
 least-recently-used, and hit/miss/evict/wait counters surface in every
 result's ``stats["cache.*"]``.
 
+``compile_and_run`` (what `Evaluate` calls) runs under the recovery
+ladder (``core/recovery.py``): a poisoned result regrows the builder
+capacities and retries, then degrades to the generic lowering.
+
 Left for later slices (ROADMAP A): the AOT staging API, weldbound
-admission, the recovery ladder (a poisoned result raises the typed
-``CapacityError`` at decode here), tracing spans and the measured
-replay.
+admission and the measured replay.
 """
 from __future__ import annotations
 
@@ -29,11 +31,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import faults
 from . import ir
+from . import obs
 from . import wtypes as wt
 from ..device import default_device
 from .backend.torchgen import emit_program
 from .backend.values import WDict, WGroup, WVec
+from .errors import CapacityError
 from .lazy import Program
 from .passes import loop_count, optimize as run_passes
 
@@ -193,7 +198,8 @@ def _cache_key(prog: Program, names: List[str], arrays, opt: bool,
     return (
         ir.canon_key(prog.expr, name_map)
         + f"|opt={opt}|mem={memory_limit}|passes={passes}"
-        + f"|kz={mode}|kimpl={kernel_impl}|kreg={kreg}|dev={device}|{sig}"
+        + f"|kz={mode}|kimpl={kernel_impl}|kreg={kreg}|dev={device}"
+        + f"|flt={faults.fingerprint()}|{sig}"
     )
 
 
@@ -205,14 +211,16 @@ def _compile(prog: Program, names, shapes, types, opt: bool, memory_limit,
     stats: dict = {}
     stats["loops.before"] = loop_count(expr)
     if opt:
-        expr = run_passes(expr, passes=passes, stats=stats,
-                          input_shapes=shapes)
+        with obs.span("optimize"):
+            expr = run_passes(expr, passes=passes, stats=stats,
+                              input_shapes=shapes)
     stats["loops.after"] = loop_count(expr)
     if mode != "off":
         from .kernelplan import plan_kernels
 
-        expr = plan_kernels(expr, input_shapes=shapes, stats=stats,
-                            mode=mode)
+        with obs.span("kernelplan", mode=mode):
+            expr = plan_kernels(expr, input_shapes=shapes, stats=stats,
+                                mode=mode)
         if torch.device(device).type == "cuda":
             # build what the routed calls need before the first row (the
             # generated map-chain kernels); counted in compile_ms
@@ -232,7 +240,9 @@ def _compile_cached(key: str, build) -> Tuple[object, dict, bool]:
     """The cached, single-flight compile path: one thread compiles a
     key, peers wait on the flight and receive the entry from it."""
     while True:
-        kind, payload = _cache.lookup_or_begin(key)
+        with obs.span("cache.lookup") as sp:
+            kind, payload = _cache.lookup_or_begin(key)
+            sp.set("hit", kind == "hit")
         if kind == "hit":
             fn, stats = payload
             return fn, stats, True
@@ -268,15 +278,32 @@ def compile_and_run(
     ``kernel_impl`` is ``"cuda"``, ``"ref"`` or None (by device); it must
     agree with the device (see ``repro_torch.kernels.ops``).
 
-    A poisoned result (negative count) raises ``CapacityError`` at
-    decode; there is no recovery ladder in this slice.
+    A poisoned result (negative count) climbs the recovery ladder: the
+    builder capacities regrow ×2 up to ``recovery.MAX_REGROW`` times,
+    then the program degrades to the generic ``kernelize="off"``
+    lowering; the stats of a recovered run carry ``recovery.*``.  With
+    recovery disabled (``WELD_RECOVERY=0``) the typed ``CapacityError``
+    surfaces at decode.
     """
     from .kernelplan import normalize_kernelize
+    from .recovery import run_with_recovery
 
-    device = default_device()
     mode = normalize_kernelize(kernelize)
+    with obs.span("weld.evaluate", kernelize=mode, impl=kernel_impl) as root:
+        return run_with_recovery(
+            _compile_and_run, prog, optimize=optimize,
+            memory_limit=memory_limit, passes=passes, mode=mode,
+            kernel_impl=kernel_impl, root=root,
+        )
+
+
+def _compile_and_run(prog, optimize, memory_limit, passes, mode,
+                     kernelize_on, kernel_impl, root):
+    del kernelize_on  # carried by mode
+    device = default_device()
     t0 = time.perf_counter()
-    names, arrays, shapes, types = _encode(prog, device)
+    with obs.span("encode", inputs=len(prog.inputs)):
+        names, arrays, shapes, types = _encode(prog, device)
     encode_ms = (time.perf_counter() - t0) * 1e3
     key = _cache_key(prog, names, arrays, optimize, memory_limit, passes,
                      mode, kernel_impl, device)
@@ -285,15 +312,25 @@ def compile_and_run(
                               memory_limit, passes, mode, kernel_impl,
                               device))
     compile_ms = 0.0 if from_cache else stats.get("compile_ms", 0.0)
+    root.set("from_cache", from_cache)
     t0 = time.perf_counter()
-    out = fn(*arrays)
-    value = decode_value(out, prog.out_ty)
+    with obs.span("execute"):
+        out = fn(*arrays)
+        if device.type == "cuda":
+            # the span ends when the card is done, not when the launches
+            # are queued
+            torch.cuda.synchronize(device)
+    with obs.span("decode"):
+        faults.maybe_raise("decode")
+        if faults.poisoned("decode"):
+            raise CapacityError("fault injected at decode: result poisoned")
+        value = decode_value(out, prog.out_ty)
     run_ms = (time.perf_counter() - t0) * 1e3
     exported = _copy_stats(stats)
     exported.update(_cache.counters())
     exported["cache.hit"] = from_cache
     # host clock: the copy to the device, and execution through the
-    # decode's copy back to the host (which waits for the device)
+    # decode's copy back to the host
     exported["encode_ms"] = encode_ms
     exported["run_ms"] = run_ms
     return value, compile_ms, from_cache, exported

@@ -6,8 +6,8 @@ own loop, independent of downstream operators*, and Weld's optimizer
 fuses the chain into one pass.  Used for the TPC-H Q1/Q6 workloads.
 
 The copy of the JAX package's module for the ported slices: ``explain``,
-``stage`` and ``compile`` wait for the AOT slice (ROADMAP, next slices:
-"AOT staging and serving").
+``stage`` and ``compile`` wait for the AOT slice (ROADMAP, queue A
+item 5: "AOT staging and serving").
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..core import ir, wtypes as wt
+from ..core import faults, ir, wtypes as wt
 from ..core.errors import CapacityError
 from ..core.lazy import Evaluate, NewWeldObject, WeldObject
 from . import weldnp
@@ -314,15 +314,15 @@ class Query:
         host value scan — raise under ``precount=False``.
 
         ``memory_limit`` (compile-time admission control in the
-        reference) waits for the port's weldbound slice (ROADMAP, next
-        slices: "weldbound and weldcheck hooks"): anything but None
+        reference) waits for the port's weldbound admission (ROADMAP,
+        queue A item 2: "weldcheck and weldbound"): anything but None
         raises ``NotImplementedError``.
         """
         if memory_limit is not None:
             raise NotImplementedError(
                 "join memory_limit admission waits for the weldbound slice "
-                "of the port (ROADMAP, next slices: \"weldbound and "
-                "weldcheck hooks\")")
+                "of the port (ROADMAP, queue A item 2: \"weldcheck and "
+                "weldbound\")")
         if how not in ("inner", "left", "anti"):
             raise NotImplementedError(
                 f"join how={how!r} (supported: inner, left, anti)"
@@ -445,13 +445,16 @@ class Query:
             int(capacity) if capacity is not None
             else (None if static_caps else max(distinct, 1))
         )
-        # the reference's "join.capacity" failpoint
-        # (faults.capacity_override) comes with the recovery ladder
-        # (ROADMAP, next slices: "The recovery ladder")
-        if static_caps:
+        injected_cap = faults.capacity_override("join.capacity")
+        if injected_cap is not None:
+            # fault injection: simulate a mis-estimated build capacity
+            # (bypassing the guard below) so the runtime's poison ->
+            # regrow -> fallback recovery ladder can be exercised
+            cap = injected_cap
+        elif static_caps:
             # no distinct count exists to guard against — an undersized
-            # explicit capacity surfaces as runtime capacity poison
-            # (CapacityError at decode)
+            # explicit capacity surfaces as runtime capacity poison and
+            # rides the recovery regrow ladder instead
             pass
         elif cap < distinct:
             # an undersized dict poisons the build at decode time — on

@@ -6,8 +6,11 @@ A CUDA tensor launches the kernel — or raises; a CPU tensor takes the
 plain version in ``ref``.  The wrapper counts its kernel launches in
 ``.launches`` and its plain-version calls in ``.plain_calls``.  The
 product is accumulated in the operands' dtype (f32 or f64, no TF32), in
-one fixed order: bitwise the same from run to run.  A (k, 1) right-hand
-side takes the kernel's row launch shape (a warp per row of A).
+one fixed order: bitwise the same from run to run.  f64 runs on the
+FP64 tensor cores (DMMA), f32 on the CUDA cores; a (k, 1) right-hand
+side takes the kernel's row launch shape (a warp per row of A).  The
+tile launches index their tiles on a 1-D grid, so n has no limit of its
+own.
 """
 from __future__ import annotations
 
@@ -17,8 +20,6 @@ from . import _build
 from .ref import tiled_matmul as tiled_matmul_plain
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
-#: the output tile of one block of the tile launch (csrc kBM x kBN)
-TILE = 64
 
 
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,9 +41,6 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (m, k), n = a.shape, b.shape[1]
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=a.dtype, device=a.device)
-    if n > 1 and -(-n // TILE) > 65535:
-        raise ValueError(f"tiled_matmul kernel takes at most {65535 * TILE} "
-                         f"output columns, got {n}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):

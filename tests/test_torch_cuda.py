@@ -18,7 +18,10 @@ bitwise (built with -fmad=false; PyTorch's CUDA operators round each
 step as IEEE does), "libm" cases f64 rtol 1e-12 and f32 rtol 1e-5
 (CUDA's and PyTorch's transcendental paths may differ in the last
 bits), integers and bools exactly; products f64 rtol 1e-12 and f32 rtol
-1e-5 of the largest magnitude (another summation order).  Attention:
+1e-5 of the largest magnitude (another summation order); the f64 tile
+launch on DMMA over edge shapes, 8-byte-aligned rows and more than
+65,535 x 64 columns within 1e-10 of the largest element (the limit
+``chip_smoke.py`` holds it to), and bitwise equal across runs.  Attention:
 the per-element limit of ``flash_attention.tolerance`` — f32 rtol 2e-4,
 atol 2e-5 (the JAX package's own kernel test); bf16 2**-7 |plain| (both
 sides round their f32 result to bf16: one bf16 step apart at most) plus
@@ -128,6 +131,98 @@ def test_tiled_matmul_matches_the_plain_version(m, k, n, dtype, card):
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     err = float((got - want).abs().max())
     assert err <= rtol * max(float(want.abs().max()), 1.0) * k
+
+
+EDGES = (1, 7, 16, 17, 127, 128, 129, 1000)
+
+
+def _held_product(got, again, want):
+    """Bitwise repeatable, and within 1e-10 of the largest element of the
+    plain product (f64 on DMMA sums in another order than the plain
+    version's library call)."""
+    assert torch.equal(got, again)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 1e-10 * max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("m", EDGES)
+def test_tiled_matmul_f64_edges(m, card):
+    """Every (m, n, k) over the edge sizes: ragged block tiles (128), odd k
+    and n (rows that start on 8 bytes: the 8-byte copy path), k not a
+    multiple of the 32-deep slab."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m)
+    for n in EDGES:
+        for k in EDGES:
+            a = torch.randn((m, k), generator=gen, device=card,
+                            dtype=torch.float64)
+            b = torch.randn((k, n), generator=gen, device=card,
+                            dtype=torch.float64)
+            got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
+            _held_product(got, again, t_ref.tiled_matmul(a, b))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_tiled_matmul_on_8_byte_aligned_operands(dtype, card):
+    """Contiguous views one element into their storage: even k and n, but
+    the rows start on 8 bytes, so the 16-byte copies must not be taken."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    m, k, n = 130, 64, 258
+    a = torch.randn(m * k + 1, generator=gen, device=card,
+                    dtype=dtype)[1:].view(m, k)
+    b = torch.randn(k * n + 1, generator=gen, device=card,
+                    dtype=dtype)[1:].view(k, n)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
+    want = t_ref.tiled_matmul(a, b)
+    if dtype == torch.float64:
+        _held_product(got, again, want)
+    else:
+        assert torch.equal(got, again)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_tiled_matmul_past_the_grid_y_limit(dtype, card):
+    """m = 1 and more than 65,535 x 64 columns: the tile launches index
+    their tiles on a 1-D grid."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(9)
+    n = 65_535 * 64 + 3
+    a = torch.randn((1, 3), generator=gen, device=card, dtype=dtype)
+    b = torch.randn((3, n), generator=gen, device=card, dtype=dtype)
+    before = t_tm.tiled_matmul.launches
+    got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
+    assert t_tm.tiled_matmul.launches == before + 2
+    want = t_ref.tiled_matmul(a, b)
+    assert torch.equal(got, again)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-10
+    assert float((got - want).abs().max()) <= \
+        rtol * max(float(want.abs().max()), 1.0)
+
+
+def test_tiled_matmul_f64_square_is_bitwise_repeatable(card):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    a = torch.rand((1024, 1536), generator=gen, device=card,
+                   dtype=torch.float64)
+    b = torch.rand((1536, 2048), generator=gen, device=card,
+                   dtype=torch.float64)
+    runs = [t_tm.tiled_matmul(a, b) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    _held_product(runs[0], runs[1], t_ref.tiled_matmul(a, b))
+
+
+def test_tiled_matmul_refuses_a_non_contiguous_operand(card):
+    a = torch.ones((64, 32), device=card, dtype=torch.float64)
+    b = torch.ones((64, 32), device=card, dtype=torch.float64)
+    before = t_tm.tiled_matmul.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        t_tm.tiled_matmul(a, b.t())
+    assert t_tm.tiled_matmul.launches == before
 
 
 @pytest.mark.parametrize("k,n", [(1, 1), (3, 3001), (3, 1_000_003), (8, 777)])

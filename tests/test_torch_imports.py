@@ -27,13 +27,24 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 65, names
+assert len(names) >= 83, names
 for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.models.transformer", "repro_torch.models.convert",
              "repro_torch.launch.serve", "repro_torch.kernels.fused_adamw",
              "repro_torch.optim.adamw", "repro_torch.optim.schedule",
              "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
-             "repro_torch.distributed.straggler", "repro_torch.launch.train"):
+             "repro_torch.distributed.straggler", "repro_torch.launch.train",
+             "repro_torch.core.faults", "repro_torch.core.obs",
+             "repro_torch.core.obs.tracer", "repro_torch.core.obs.ledger",
+             "repro_torch.core.analysis", "repro_torch.core.analysis.domain",
+             "repro_torch.core.analysis.bounds", "repro_torch.core.check",
+             "repro_torch.core.check.diagnostics",
+             "repro_torch.core.check.verify_types",
+             "repro_torch.core.check.capacity",
+             "repro_torch.core.check.linear", "repro_torch.core.check.races",
+             "repro_torch.core.check.bounds_lint",
+             "repro_torch.core.recovery", "repro_torch.errors",
+             "repro_torch.faults", "repro_torch.obs"):
     assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

@@ -257,9 +257,10 @@ def test_join_raises_like_the_reference(pkg, case):
 @pytest.mark.parametrize("mode", MODES)
 def test_undersized_symbolic_capacity_poisons_in_both(mode, monkeypatch):
     """precount=False with a capacity below the distinct build keys: no
-    host count can refuse it, so the build poisons and the decode raises
-    CapacityError — in the port, and in the reference with its recovery
-    ladder switched off (the port has none yet)."""
+    host count can refuse it, so the build poisons and, with the recovery
+    ladder switched off in both packages, the decode raises
+    CapacityError (with it on, both regrow and retry:
+    test_torch_recovery.py)."""
     monkeypatch.setenv("WELD_RECOVERY", "0")
     for pkg in (PORT, REF):
         with pytest.raises(pkg.CapacityError):
