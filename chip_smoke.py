@@ -13,7 +13,14 @@ kernels/csrc`` and then
    4096-key group-by over the same row count, PageRank iterations (4,096
    vertices x 16,777,216 edges under ``kernelize="always"``, 1,000,000 x
    10,000,000 under ``"auto"``, run twice), the quickstart workflow
-   (2,000,000 rows), the Star Schema Benchmark's Q1.1 join (the SF10
+   (2,000,000 rows), the reference's cost-gate workloads (filtered sums
+   of 256 and 500,000 rows, m:1 joins of 100 x 8 and 300,000 x 20,000
+   rows) and the 4096-key group-by at 100,000, 1 M and 16 M rows, under
+   "off", "always" and "auto" (every "auto" run logs the gate's
+   predicted times beside its measured ``run_ms``; each mode's warm
+   ``run_ms`` follows, and after the holds below its device kernel time
+   and launches from a profiler trace, with an operator census), the
+   Star Schema Benchmark's Q1.1 join (the SF10
    lineitem as lineorder, 59,986,052 rows, against the 365 date rows of
    1993: inner with a filter, left, anti), an m:n join on TPC-H
    partsupp's fan-out (16,777,216 probe rows against 50,000 parts x 4
@@ -29,7 +36,8 @@ kernels/csrc`` and then
    full width and depth in bf16 on random weights, 4 prompts of 2,048
    tokens and 32 generated; each layer's prefill attention against
    ``ref.attention``, teacher-forced decode against prefill, runs bitwise
-   equal, and a 2-layer f32 copy on the card against the CPU), with
+   equal, and a 2-layer f32 copy on the card against the CPU; every bf16
+   attention launch on the Hopper route), with
    every kernel launch counter zeroed just before a phase and read just
    after; and LM training (``repro_torch.launch.train``: the same model
    at full width and depth, bf16 parameters, remat on, 3 steps of
@@ -41,11 +49,13 @@ kernels/csrc`` and then
    bitwise equal across a ``Checkpointer`` save and restore);
 2. holds each of the thirteen kernels against its plain PyTorch version
    on the card at the phases' shapes, for every dtype its planner spec
-   takes (the map chain on the Black-Scholes and logreg bodies the
+   takes (segment_sum also past 4,096 keys, at the gate's 20,000-key
+   join build, which its kernel sums in windows; the map chain on the Black-Scholes and logreg bodies the
    phases routed and on an f32 body; flash_attention at the prefill's
-   shape, a ragged S, Sq < Skv and in f32, each element within a limit
-   tied to its own size, which two planted faults built from copies of
-   its source must break; fused_adamw at the embedding table's size for
+   and the train micro-batch's shapes (timed beside v1 on the same
+   operands and SDPA), a ragged S, Sq < Skv and in f32, each element
+   within a limit tied to its own size, which two planted faults built
+   from copies of the Hopper kernel's source must break; fused_adamw at the embedding table's size for
    every p/g dtype pair and t in {1, 5}, and at an odd size), runs it
    twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
@@ -76,6 +86,10 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float64": 34e12, "float32": 67e12, "int32": 67e12,
             "int64": 67e12}
+
+#: flash_attention's launches on its Hopper route (bf16, D in {64, 128},
+#: csrc/flash_attention_sm90.cu), kept beside the wrappers' counts
+SM90 = "flash_attention.sm90"
 
 SF10_ROWS = 59_986_052
 #: days of SSB's date dimension, 1992-01-01 .. 1998-12-31
@@ -159,6 +173,7 @@ class MainPath:
         self.sizes = sizes
         self.seed = seed
         self.launches = {name: 0 for name in ops.WRAPPERS}
+        self.launches[SM90] = 0
         self.phase_ms = {}
         #: map-chain bodies (IR lambdas) the phases routed, by phase
         self.bodies = {}
@@ -218,8 +233,9 @@ class MainPath:
             plan = stats.get("kernelplan", {})
             for c in plan.get("costs", []):
                 log(f"  auto decision: {c['kernel']} routed={c['routed']} "
-                    f"kernel_us={c['kernel_us']} generic_us={c['jnp_us']} "
-                    f"({c['why']})")
+                    f"predicted kernel_us={c['kernel_us']} generic_us="
+                    f"{c['jnp_us']} ({c['why']}); measured run_ms="
+                    f"{entry.get('run_ms', float('nan')):.3f}")
         if mode == "always":
             for spec, wrapper in expect:
                 check(stats.get(f"kernelize.{spec}", 0) > 0,
@@ -340,8 +356,13 @@ def phase_groupby(mp: MainPath) -> None:
 
     results = {}
     for mode in ("always", "auto", "off", "off"):
-        got, _ = mp.run("groupby", mode, groupby, expect=[
+        got, stats = mp.run("groupby", mode, groupby, expect=[
             ("dict_group_sum", "segment_sum_vectors")])
+        if mode == "auto":
+            check(stats.get("kernelize.dict_group_sum", 0) == 1
+                  and mp.last_counts["segment_sum_vectors"][0] > 0,
+                  f"groupby[auto]: the cost gate did not route "
+                  f"segment_sum_vectors: {stats.get('kernelplan')}")
         check(sorted(got) == want_keys.tolist(),
               f"groupby[{mode}]: wrong key set")
         err = max(abs(got[k] - want[k]) for k in got)
@@ -387,8 +408,10 @@ def _pagerank_iter(rank, src, dst, invdeg, nv, mode, stats):
 
 def phase_pagerank(mp: MainPath) -> None:
     """PageRank's scatter under "always" (the segment kernel) and under
-    "auto" (K > MAX_K: the generic vecmerger, whose float sum is sorted
-    and reduced in row order), the latter twice: bitwise the same."""
+    "auto" (K > MAX_K, which the gate prices as one pass over the edges a
+    window of MAX_K keys: the generic vecmerger, whose float sum is
+    sorted and reduced in row order), the latter twice: bitwise the
+    same."""
     previous = None
     for (nv, ne), mode in ((mp.sizes.pr_always, "always"),
                            (mp.sizes.pr_auto, "auto"),
@@ -415,7 +438,8 @@ def phase_pagerank(mp: MainPath) -> None:
             rejected = stats["kernelplan"]["rejected"]
             check(rejected.get("vecmerger_segment_sum", 0) > 0,
                   f"pagerank[auto] at K={nv} should stay on the generic "
-                  f"path (the gate rejects K > MAX_K), got {stats['kernelplan']}")
+                  f"path (past MAX_K keys the kernel reads the rows once a "
+                  f"window: the gate rejects it), got {stats['kernelplan']}")
             if previous is not None:
                 check(np.array_equal(got.view(np.int64),
                                      previous.view(np.int64)),
@@ -445,6 +469,258 @@ def phase_quickstart(mp: MainPath) -> None:
         got, _ = mp.run("quickstart", mode, quickstart,
                         expect=[("filter_reduce_sum", "filter_reduce_sum")])
         close(got, want, 1e-9, f"quickstart[{mode}]")
+
+
+def _device_kernels(torch, fn):
+    """(kernel ms, kernel launches, copy ms) of one call of ``fn`` on the
+    card, from a profiler trace: what the cost gate prices (its kernel
+    and generic ``us``), the host's time left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = copy_ms = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+        if not us:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy_ms += us / 1e3
+        else:
+            ms += us / 1e3
+            launches += e.count
+    return ms, launches, copy_ms
+
+
+#: gate workloads' group-by sizes (4,096 keys), beside phase_groupby's SF10
+GATE_GROUPBY_ROWS = (100_000, 1_000_000, 16_000_000)
+
+
+def operator_census(torch) -> list:
+    """Kernels that each PyTorch operator the cost gate counts as more
+    than one runs on the card (one call after a warm one, from a profiler
+    trace), at 100 and 1,000,000 elements, beside what
+    ``cost.operator_launches`` counts for it."""
+    from repro_torch.core.kernelplan import cost
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cases = []
+    for n in (100, 1_000_000):
+        keys = torch.randint(0, 4096, (n,), generator=gen, device=dev)
+        seg = torch.sort(keys).values
+        lengths = torch.bincount(seg, minlength=4096)
+        vals = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        keys32 = keys.to(torch.int32)
+        flags = (keys < 2048).to(torch.uint8)
+        cases += [
+            ("sort", keys, lambda keys=keys: torch.argsort(keys, stable=True)),
+            ("sort", keys32,
+             lambda keys32=keys32: torch.argsort(keys32, stable=True)),
+            ("sort", flags,
+             lambda flags=flags: torch.argsort(flags, stable=True)),
+            ("cumsum", keys, lambda keys=keys: torch.cumsum(keys, 0)),
+            ("bincount", keys,
+             lambda keys=keys: torch.bincount(keys, minlength=4096)),
+            ("segment_reduce", vals,
+             lambda vals=vals, lengths=lengths: torch.segment_reduce(
+                 vals, "sum", lengths=lengths, initial=0)),
+        ]
+    rows = []
+    for name, x, fn in cases:
+        fn()
+        rows.append({"op": name, "dtype": str(x.dtype).split(".")[-1],
+                     "n": x.numel(),
+                     "kernels": _device_kernels(torch, fn)[1],
+                     "counted": cost.operator_launches(name, x.numel(),
+                                                       x.element_size())})
+    log("  operator census (kernels on the card / counted by cost.py): "
+        + ", ".join(f"{r['op']}[{r['dtype']}, {r['n']}] {r['kernels']}/"
+                    f"{r['counted']}" for r in rows))
+    return rows
+
+
+def gate_workloads(sizes: Sizes) -> list:
+    """The reference's cost-gate workloads (its ``test_kernelplan.py`` and
+    ``test_join.py`` gate tests): a filtered sum of 256 and 500,000 rows,
+    a scatter of 100,000 rows into 50,000 slots, an m:1 join of 100 x 8
+    and 300,000 x 20,000 rows, and the 4,096-key group-by at 100,000, 1 M
+    and 16 M rows, as [(name, fn(mode, stats), held(got, what))], ``held``
+    checking a result against numpy."""
+    from repro_torch.core import ir, macros as M, wtypes as wt
+    from repro_torch.core.lazy import Evaluate, NewWeldObject
+    from repro_torch.frames import welddf, weldrel
+
+    def filtered_sum(n):
+        rng = np.random.RandomState(n % 1000)
+        price, disc = rng.rand(n), rng.rand(n)
+        want = float((price * disc)[price < 0.5].sum())
+
+        def fn(mode, stats):
+            po, do = NewWeldObject(price, None), NewWeldObject(disc, None)
+            expr = M.filter_reduce(
+                M.zip_map([ir.Ident(po.obj_id, po.weld_type()),
+                           ir.Ident(do.obj_id, do.weld_type())],
+                          lambda a, b: ir.MakeStruct((a, b))),
+                lambda x: ir.BinOp("<", ir.GetField(x, 0),
+                                   ir.Literal(0.5, wt.F64)),
+                "+", lambda x: ir.BinOp("*", ir.GetField(x, 0),
+                                        ir.GetField(x, 1)))
+            return Evaluate(NewWeldObject([po, do], expr), kernelize=mode,
+                            collect_stats=stats).value
+
+        def held(got, what):
+            close(float(got), want, 1e-9, what)
+        return fn, held
+
+    def join(n, k):
+        rng = np.random.RandomState(n + k)
+        lcols = {"key": rng.randint(0, 2 * k, n).astype(np.int64),
+                 "lv": rng.rand(n)}
+        rcols = {"key": np.arange(k, dtype=np.int64), "rv": rng.rand(k)}
+        hit = lcols["key"] < k
+        want = {"key": lcols["key"][hit], "lv": lcols["lv"][hit],
+                "rv": rcols["rv"][lcols["key"][hit]]}
+
+        def fn(mode, stats):
+            return weldrel.Query(weldrel.Table(lcols, eager=False)).join(
+                weldrel.Table(rcols, eager=False), on="key", kernelize=mode,
+                collect_stats=stats)
+
+        def held(got, what):
+            cols = {c: np.asarray(weldrel._host(got.cols[c]))
+                    for c in got.cols}
+            same_row_set(cols, want, what)
+        return fn, held
+
+    def scatter(n, k):
+        rng = np.random.RandomState(7)
+        idxs = rng.randint(0, k, n).astype(np.int64)
+        vals = rng.rand(n)
+        want = np.zeros(k)
+        np.add.at(want, idxs, vals)
+
+        def fn(mode, stats):
+            io, vo, bo = (NewWeldObject(a, None)
+                          for a in (idxs, vals, np.zeros(k)))
+            expr = M.scatter_add(*(ir.Ident(o.obj_id, o.weld_type())
+                                   for o in (bo, io, vo)))
+            return Evaluate(NewWeldObject([bo, io, vo], expr),
+                            kernelize=mode, collect_stats=stats).value
+
+        def held(got, what):
+            close_vec(got, want, 1e-9, what)
+        return fn, held
+
+    def groupby(n):
+        keys_n = sizes.groupby_keys
+        rng = np.random.RandomState(n % 1000 + 3)
+        keys = rng.randint(0, keys_n, n).astype(np.int64)
+        vals = rng.rand(n)
+        want = np.bincount(keys, weights=vals, minlength=keys_n)
+        want_keys = np.flatnonzero(np.bincount(keys, minlength=keys_n))
+
+        def fn(mode, stats):
+            df = welddf.DataFrame({"k": keys, "v": vals})
+            return df.groupby_sum("k", "v", capacity=keys_n, kernelize=mode,
+                                  collect_stats=stats)
+
+        def held(got, what):
+            check(sorted(got) == want_keys.tolist(), f"{what}: wrong key set")
+            err = max(abs(got[k] - want[k]) for k in got)
+            check(err <= 1e-9 * float(np.abs(want).max()),
+                  f"{what}: max error {err}")
+        return fn, held
+
+    cases = [("filter256", filtered_sum(256)),
+             ("filter500k", filtered_sum(500_000)),
+             ("scatter100kx50k", scatter(100_000, 50_000)),
+             ("join100x8", join(100, 8)),
+             ("join300kx20k", join(300_000, 20_000))]
+    cases += [(f"groupby{n}", groupby(n)) for n in GATE_GROUPBY_ROWS]
+    return [(name, fn, held) for name, (fn, held) in cases]
+
+
+def phase_gate(mp: MainPath) -> None:
+    """:func:`gate_workloads` on the card, each under "off", "always" and
+    "auto", checked against numpy.  Each mode runs four times (the first
+    builds and warms the cache), so that each "auto" decision stands
+    beside the best ``run_ms`` of the three warm runs."""
+    for name, fn, held in gate_workloads(mp.sizes):
+        best = {}
+        for mode in ("off", "always", "auto"):
+            runs = []
+            for _ in range(4):
+                got, stats = mp.run(f"gate.{name}", mode, fn)
+                held(got, f"gate.{name}[{mode}]")
+                runs.append(stats["run_ms"])
+            best[mode] = min(runs[1:])
+            if name.startswith("groupby") and mode == "auto":
+                check(stats.get("kernelize.dict_group_sum", 0) == 1,
+                      f"gate.{name}[auto]: the cost gate did not route "
+                      f"segment_sum_vectors: {stats.get('kernelplan')}")
+        log(f"  gate.{name}: best warm run_ms off {best['off']:.3f} always "
+            f"{best['always']:.3f} auto {best['auto']:.3f}")
+
+
+def profile_gate(torch, sizes: Sizes) -> dict:
+    """The operator census, then each gate workload once a mode (after a
+    warm call) under the profiler: the device's kernel ms and launches,
+    which the gate's ``us`` predict."""
+    census = operator_census(torch)
+    device = {}
+    for name, fn, _ in gate_workloads(sizes):
+        device[name] = {}
+        for mode in ("off", "always", "auto"):
+            fn(mode, {})
+            device[name][mode] = _device_kernels(
+                torch, lambda: fn(mode, {}))
+        log(f"  gate.{name}: device kernel ms (launches; copies ms) "
+            + ", ".join(f"{m} {ms:.4f} ({n}; {copy_ms:.4f})"
+                        for m, (ms, n, copy_ms) in device[name].items()))
+    return {"census": census, "device": device}
+
+
+#: the last line of the gate trace's process, before its JSON
+GATE_TRACE = "gate trace: "
+
+
+def trace_gate() -> None:
+    """:func:`profile_gate` in a process of its own (its last line, after
+    ``GATE_TRACE``, the result as JSON).  Traces taken late in a process
+    that has traced much, as the main run has, lose kernels, and these
+    many short ones upset the main run's later traces."""
+    import torch
+
+    import repro_torch
+
+    repro_torch.set_default_device("cuda")
+    print(GATE_TRACE + json.dumps(profile_gate(torch, Sizes())), flush=True)
+
+
+def run_gate_trace() -> dict:
+    """Run :func:`trace_gate` in a child process, relay its lines, and
+    return its result."""
+    import subprocess
+
+    root = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(root)!r}, "
+            f"{str(root / 'src')!r}]; import chip_smoke; "
+            f"chip_smoke.trace_gate()")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and lines and lines[-1].startswith(GATE_TRACE),
+          f"the gate trace failed ({proc.returncode}):\n"
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1][len(GATE_TRACE):])
 
 
 def ssb_dates() -> np.ndarray:
@@ -901,13 +1177,15 @@ def phase_matmul(mp: MainPath) -> None:
 #: the kernel's rounding of p, R the root of the squared softmax-weighted
 #: values), read as the largest |kernel - plain| / limit, which must not
 #: exceed 1
-#: planted faults the bf16 limit must reject, each a copy of
-#: csrc/flash_attention.cu with one text replaced: (name, text, by)
+#: planted faults the bf16 limit must reject, each a copy of the Hopper
+#: route's csrc/flash_attention_sm90.cu (the prefill shape's kernel) with
+#: one text replaced: (name, text, by)
+ATTN_FAULT_SOURCE = "flash_attention_sm90.cu"
 ATTN_FAULTS = (
     ("causal_off_by_one", "(p.causal && kj > qi)",
      "(p.causal && kj > qi + 1)"),
-    ("kv_head_interleaved", "const int hk = h / p.group;",
-     "const int hk = h % (gridDim.y / p.group);"),
+    ("kv_head_interleaved", "const int hk = it.h / p.group;",
+     "const int hk = it.h % (p.heads / p.group);"),
 )
 #: decode against prefill in bf16, as a share of the largest |logit|: 28
 #: layers of bf16 (2**-8 per rounding) through two paths that round at
@@ -976,6 +1254,7 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
 
     import repro_torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as lm
     from repro_torch.models import build_model
@@ -1013,16 +1292,23 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
         counts = ops.counts()
         for name, (n, _) in counts.items():
             launches[name] += n
-        fa, plain = counts["flash_attention"]
-        check(fa == cfg.n_layers,
-              f"lm_serve {what}: flash_attention launched {fa} times in one "
-              f"prefill, the model has {cfg.n_layers} layers")
+        n_fa, plain = counts["flash_attention"]
+        sm90 = fa.flash_attention.launches_sm90
+        launches[SM90] += sm90
+        check(n_fa == cfg.n_layers,
+              f"lm_serve {what}: flash_attention launched {n_fa} times in "
+              f"one prefill, the model has {cfg.n_layers} layers")
+        check(sm90 == n_fa,
+              f"lm_serve {what}: {n_fa - sm90} of {n_fa} bf16 D="
+              f"{cfg.d_model // cfg.n_heads} flash_attention launches missed "
+              f"the Hopper route")
         check(all(p == 0 for _, p in counts.values()),
               f"lm_serve {what}: plain versions served calls: {counts}")
         step_ms = out["decode_s"] / max(gen_len - 1, 1) * 1e3
         log(f"lm_serve {what}: prefill_ms={out['prefill_s'] * 1e3:.3f} "
             f"decode_ms_per_step={step_ms:.3f} tok_per_s="
-            f"{out['tok_per_s']:.1f} flash_attention launches={fa} "
+            f"{out['tok_per_s']:.1f} flash_attention launches={n_fa} "
+            f"(sm90 route {sm90}) "
             f"tokens[0][:8]={out['tokens'][0][:8].tolist()}")
         check(tuple(out["tokens"].shape) == (b, gen_len)
               and bool(torch.isfinite(out["logits"]).all()),
@@ -1124,10 +1410,12 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
     on_card = lm.serve(small, batch=cb, prompt_len=cprompt, gen_len=cgen,
                        seed=seed, verbose=False, params=cpu_params)
     torch.cuda.synchronize()
-    fa, plain = ops.counts()["flash_attention"]
-    launches["flash_attention"] += fa
-    check(fa == layers and plain == 0,
-          f"lm_serve f32 on the card: flash_attention {fa} launches, "
+    n_fa, plain = ops.counts()["flash_attention"]
+    launches["flash_attention"] += n_fa
+    check(n_fa == layers and plain == 0
+          and fa.flash_attention.launches_sm90 == 0,
+          f"lm_serve f32 on the card: flash_attention {n_fa} launches "
+          f"({fa.flash_attention.launches_sm90} on the Hopper route), "
           f"{plain} plain calls")
     err = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
     scale = float(on_cpu["logits"].abs().max())
@@ -1283,8 +1571,14 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     peak = torch.cuda.max_memory_allocated()
     counts = ops.counts()
     backward = fa.flash_attention.backward_calls
+    sm90 = fa.flash_attention.launches_sm90
     for name, (n, _) in counts.items():
         launches[name] += n
+    launches[SM90] += sm90
+    check(sm90 == counts["flash_attention"][0],
+          f"lm_train: {counts['flash_attention'][0] - sm90} of "
+          f"{counts['flash_attention'][0]} bf16 flash_attention launches "
+          f"missed the Hopper route")
     check(all(np.isfinite(x) for x in out["losses"] + out["gnorms"])
           and all(x > 0 for x in out["gnorms"]),
           f"lm_train: losses {out['losses']}, gnorms {out['gnorms']}")
@@ -1310,7 +1604,8 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
         f"utilisation {flops / (best * 1e-3) / 989e12:.4f} ({flops:.4e} "
         f"FLOPs a step over 989 TFLOP/s bf16 dense); launches a step: "
         f"fused_adamw {counts['fused_adamw'][0] // steps}, flash_attention "
-        f"{counts['flash_attention'][0] // steps}, attention backward "
+        f"{counts['flash_attention'][0] // steps} (sm90 route "
+        f"{sm90 // steps}), attention backward "
         f"{backward // steps}; peak memory {peak / 1e9:.3f} GB; wall "
         f"{wall:.3f} s")
 
@@ -1395,8 +1690,10 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     for name, (n, _) in counts.items():
         launches[name] += n
     check(counts["fused_adamw"] == (2 * csteps * len(weights), 0)
-          and counts["flash_attention"][1] == 0,
-          f"lm_train f32 on the card: counts {counts}")
+          and counts["flash_attention"][1] == 0
+          and fa.flash_attention.launches_sm90 == 0,
+          f"lm_train f32 on the card: counts {counts}, "
+          f"{fa.flash_attention.launches_sm90} on the Hopper route")
     (p1, o1, l1), (p2, o2, l2) = card
     check(l1 == l2 and all(torch.equal(p1[k], p2[k])
                            and torch.equal(o1["m"][k], o2["m"][k])
@@ -1640,6 +1937,8 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
         # the line reports the f64 case (the dtype the main path ran);
         # the other dtypes are on the lines above and in --out
         main = next(r for r in per_dtype if r["dtype"] == "float64")
+        if name == "segment_sum":
+            main["windows"] = _hold_segment_windows(torch, gen, dev)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1651,6 +1950,41 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             "dtype": "float64", "per_dtype": per_dtype,
         })
     return rows
+
+
+#: the gate's 20,000-key join build: its value sums past MAX_K keys
+GATE_BUILD_KEYS = 20_000
+
+
+def _hold_segment_windows(torch, gen, dev) -> dict:
+    """segment_sum past MAX_K keys (the kernel's windows), at the gate's
+    join build shape (20,000 rows, 20,000 keys, f64), against its plain
+    version: within _tolerance, bitwise the same twice, no plain call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr
+
+    k = n = GATE_BUILD_KEYS
+    seg = torch.randint(0, k, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vals = _random(torch, gen, (n,), torch.float64, dev)
+    plain_before = sr.segment_sum.plain_calls
+    first, second = sr.segment_sum(seg, vals, k), sr.segment_sum(seg, vals, k)
+    want = ref.segment_sum(seg, vals, k)
+    torch.cuda.synchronize()
+    check(sr.segment_sum.plain_calls == plain_before,
+          "segment_sum past MAX_K served its plain version")
+    check(torch.equal(first, second),
+          "segment_sum past MAX_K: two runs differ bitwise")
+    err = float((first - want).abs().max())
+    tol = _tolerance(torch, want, torch.float64)
+    check(err <= tol, f"segment_sum past MAX_K: max |kernel - plain| {err} "
+                      f"exceeds {tol}")
+    ms = time_ms(torch, lambda: sr.segment_sum(seg, vals, k), 10)
+    log(f"kernel segment_sum[float64] K={k} n={n} windows={sr.windows(k)} "
+        f"kernel_ms={ms:.4f} max_abs_err={err:.3e} (tol {tol:.3e}) "
+        f"bitwise_repeat=ok")
+    return {"k": k, "n": n, "windows": sr.windows(k), "ms": ms,
+            "max_abs_err": err}
 
 
 def _exact_err(torch, got, want) -> float:
@@ -2061,15 +2395,15 @@ def _attention_pairs(sq: int, skv: int, causal: bool) -> int:
 
 def _start_fault_builds(tmp: Path) -> list:
     """One ``nvcc`` per planted fault, all started together: a copy of
-    csrc/flash_attention.cu with the fault, built with the library's
+    csrc/flash_attention_sm90.cu with the fault, built with the library's
     flags into ``tmp``.  Returns [(name, .so path, process)]."""
     from repro_torch.kernels import _build
 
-    text = (_build.CSRC / "flash_attention.cu").read_text()
+    text = (_build.CSRC / ATTN_FAULT_SOURCE).read_text()
     builds = []
     for name, old, new in ATTN_FAULTS:
         check(old in text, f"planted fault {name}: {old!r} is not in "
-                           f"flash_attention.cu")
+                           f"{ATTN_FAULT_SOURCE}")
         src, so = tmp / f"{name}.cu", tmp / f"{name}.so"
         src.write_text(text.replace(old, new))
         builds.append((name, so, subprocess.Popen(
@@ -2079,9 +2413,39 @@ def _start_fault_builds(tmp: Path) -> list:
     return builds
 
 
+def _v1_attention(torch, q, k, v, causal: bool, group: int):
+    """A call of v1 (``csrc/flash_attention.cu``) on the operands of a
+    Hopper-route call, straight through the library: the two kernels
+    timed side by side on the same bf16 operands.  Uncounted."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    bsz, h, sq, d = q.shape
+    skv = k.shape[2]
+    q, k, v = (t if fa._aligned(t) else t.contiguous() for t in (q, k, v))
+    out = torch.empty((bsz, sq, h, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *fa._strides(q), *fa._strides(k), *fa._strides(v),
+        *out.stride()[:3])
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def call():
+        rc = lib.weld_flash_attention(
+            fa.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), strides, bsz, h, group, sq, skv,
+            d, int(causal), float(d ** -0.5), stream)
+        _build.check(rc, "flash_attention kernel launch (v1)")
+        return out
+    return call
+
+
 def _with_fault(name: str, so: Path, proc, fn):
     """``fn()`` with the flash_attention wrapper launching the faulty
-    build instead of the library's kernel."""
+    build of the Hopper route instead of the library's kernel."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -2089,9 +2453,9 @@ def _with_fault(name: str, so: Path, proc, fn):
     out, _ = proc.communicate()
     check(proc.returncode == 0, f"planted fault {name}: nvcc failed:\n{out}")
     lib = ctypes.CDLL(str(so))
-    lib.weld_flash_attention.argtypes = list(
-        _build._C_SIGNATURES["weld_flash_attention"])
-    lib.weld_flash_attention.restype = ctypes.c_int
+    lib.weld_flash_attention_sm90.argtypes = list(
+        _build._C_SIGNATURES["weld_flash_attention_sm90"])
+    lib.weld_flash_attention_sm90.restype = ctypes.c_int
     orig = _build.library
     _build.library = lambda: lib
     try:
@@ -2151,10 +2515,11 @@ def _planted_faults(torch, builds, kern, q, k, v, group: int) -> dict:
 def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                           dev="cuda") -> list:
     """flash_attention against its plain version on the card: at the
-    serving prefill's shape (timed, with SDPA as the library yardstick),
-    a ragged S, Sq < Skv, and f32; each case twice, bitwise equal.  At the
-    prefill's shape the bf16 limit must also reject each planted fault
-    (``ATTN_FAULTS``)."""
+    serving prefill's shape and the train micro-batch's (both timed on the
+    Hopper route beside v1 on the same operands and SDPA as the library
+    yardstick), a ragged S, Sq < Skv, and f32 (v1); each case twice,
+    bitwise equal.  At the prefill's shape the bf16 limit must also reject
+    each planted fault (``ATTN_FAULTS``)."""
     import tempfile
 
     import torch.nn.functional as F
@@ -2167,24 +2532,27 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
     gen.manual_seed(seed + 20)
     bsz, h, hk, s, d = sizes.attn_shape
     group = h // hk
-    cases = [  # (case, dtype, Sq, Skv, causal, timed)
-        ("prefill", torch.bfloat16, s, s, True, True),
-        ("ragged", torch.bfloat16, sizes.attn_ragged, sizes.attn_ragged,
-         True, False),
-        ("sq_lt_skv", torch.bfloat16, sizes.attn_sq, s, True, False),
-        ("f32", torch.float32, s, s, True, True),
+    cases = [  # (case, dtype, B, Sq, Skv, causal, timed)
+        ("prefill", torch.bfloat16, bsz, s, s, True, True),
+        ("train", torch.bfloat16, sizes.train_batch // sizes.train_accum,
+         s, s, True, True),
+        ("ragged", torch.bfloat16, bsz, sizes.attn_ragged,
+         sizes.attn_ragged, True, False),
+        ("sq_lt_skv", torch.bfloat16, bsz, sizes.attn_sq, s, True, False),
+        ("f32", torch.float32, bsz, s, s, True, True),
     ]
     per_case = []
     tmp = tempfile.TemporaryDirectory(prefix="weld-faults-")
     builds = _start_fault_builds(Path(tmp.name))
     try:
-        for case, dt, sq, skv, causal, timed in cases:
+        for case, dt, nb, sq, skv, causal, timed in cases:
             def draw(heads, n, mul):
-                x = torch.randn((bsz, n, heads, d), generator=gen,
+                x = torch.randn((nb, n, heads, d), generator=gen,
                                 device=dev)
                 return (x * mul).to(dt).transpose(1, 2)  # (B, H, S, D)
 
             q, k, v = draw(h, sq, 0.5), draw(hk, skv, 0.5), draw(hk, skv, 1.)
+            route = fa.route(dt, d)
 
             def kern():
                 return fa.flash_attention(q, k, v, causal=causal, group=group)
@@ -2193,21 +2561,27 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                 return ref.chunked_attention(q, k, v, causal=causal,
                                              group=group)
 
+            fa.flash_attention.launches_sm90 = 0
             first, second = kern(), kern()
             torch.cuda.synchronize()
             check(torch.equal(first, second),
                   f"flash_attention[{case}]: two runs differ bitwise")
+            check(fa.flash_attention.launches_sm90
+                  == (2 if route == "sm90" else 0),
+                  f"flash_attention[{case}]: {route} route expected, "
+                  f"{fa.flash_attention.launches_sm90} Hopper launches")
             err, share, late, _, _ = _attention_held(torch, first, q, k, v,
                                                      causal, group)
             check(share <= 1.0, f"flash_attention[{case}]: |kernel - "
                                 f"ref.attention| {err}, {share} x its limit")
-            row = dict(case=case, dtype=str(dt).replace("torch.", ""),
-                       shape=[bsz, h, hk, sq, skv, d], max_abs_err=err,
+            row = dict(case=case, route=route,
+                       dtype=str(dt).replace("torch.", ""),
+                       shape=[nb, h, hk, sq, skv, d], max_abs_err=err,
                        max_limit_share=share, late_rows_limit_share=late)
-            log(f"kernel flash_attention[{case}] {row['dtype']} B={bsz} "
-                f"H={h}/{hk} Sq={sq} Skv={skv} D={d} max_abs_err={err:.3e} "
-                f"({share:.4f} x the limit, {late:.4f} x over the later "
-                f"half of the rows) bitwise_repeat=ok")
+            log(f"kernel flash_attention[{case}] {row['dtype']} route={route}"
+                f" B={nb} H={h}/{hk} Sq={sq} Skv={skv} D={d} max_abs_err="
+                f"{err:.3e} ({share:.4f} x the limit, {late:.4f} x over the "
+                f"later half of the rows) bitwise_repeat=ok")
             if case == "prefill":
                 want = ref.attention(q[0], k[0], v[0], group=group)
                 limit = fa.tolerance(q[0], k[0], v[0], want, group=group)
@@ -2228,18 +2602,29 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                     return F.scaled_dot_product_attention(
                         qc, kc, vc, is_causal=causal, enable_gqa=True)
 
-                nbytes = ((2 * bsz * h * sq + 2 * bsz * hk * skv) * d
+                nbytes = ((2 * nb * h * sq + 2 * nb * hk * skv) * d
                           * q.element_size())
                 peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
                 row.update(_timed_row(
                     torch, kern, plain, library, sizes.timing_reps, nbytes,
-                    4 * bsz * h * d * _attention_pairs(sq, skv, causal),
+                    4 * nb * h * d * _attention_pairs(sq, skv, causal),
                     peak))
-                log(f"kernel flash_attention[{case}] kernel_ms="
-                    f"{row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
-                    f"{row['ms_runs'][1]:.4f}) plain_ms="
-                    f"{row['plain_ms']:.4f} sdpa_ms={row['library_ms']:.4f} "
-                    f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+                if route == "sm90":
+                    # v1 on the same operands, between two kernel timings
+                    row["v1_ms"] = time_ms(
+                        torch, _v1_attention(torch, q, k, v, causal, group),
+                        sizes.timing_reps)
+                    again = time_ms(torch, kern, sizes.timing_reps)
+                    row["ms_runs"].append(again)
+                    row["ms"] = min(row["ms_runs"])
+                log(f"kernel flash_attention[{case}] route={route} kernel_ms="
+                    f"{row['ms']:.4f} (runs "
+                    f"{', '.join(f'{x:.4f}' for x in row['ms_runs'])}) "
+                    + (f"v1_ms={row['v1_ms']:.4f} " if "v1_ms" in row else "")
+                    + f"plain_ms={row['plain_ms']:.4f} sdpa_ms="
+                    f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                    f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} "
+                    f"of it)")
                 del qc, kc, vc
             per_case.append(row)
             del q, k, v, first, second
@@ -2251,19 +2636,26 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
             proc.wait()
             proc.stdout.close()
         tmp.cleanup()
-    main = per_case[0]
+    main, train = per_case[0], per_case[1]
+    v1_launches = launches["flash_attention"] - launches[SM90]
+    check(v1_launches > 0, "flash_attention: v1 (f32) never launched on the "
+                           "main path")
     return [{
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/" + ATTN_FAULT_SOURCE,
         "replaces": "src/repro/kernels/flash_attention.py:74",
-        "launches": launches["flash_attention"],
+        "launches": launches[SM90],
         "max_abs_err": max(r["max_abs_err"] for r in per_case),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
-        "dtype": "bfloat16", "per_dtype": per_case,
-        "planted_faults": faults,
+        "dtype": "bfloat16", "v1_ms": main["v1_ms"],
+        "train": {k: train[k] for k in ("ms", "v1_ms", "plain_ms",
+                                        "library_ms", "bound_ms")},
+        "v1": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "launches": v1_launches},
+        "per_dtype": per_case, "planted_faults": faults,
     }]
 
 
@@ -2431,6 +2823,7 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     phase_groupby(mp)
     phase_pagerank(mp)
     phase_quickstart(mp)
+    phase_gate(mp)
     phase_join_mn(mp)
     phase_recovery(mp)
     phase_blackscholes(mp)
@@ -2449,10 +2842,15 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies)
     kernels += hold_attention_kernel(torch, sizes, seed, mp.launches)
     kernels += hold_fused_adamw(torch, sizes, seed, mp.launches)
-    check(sorted(r["name"] for r in kernels) == sorted(mp.launches),
+    check(sorted(r["name"] for r in kernels)
+          == sorted(k for k in mp.launches if k != SM90),
           f"the kernels line lists {sorted(r['name'] for r in kernels)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "lm_train": lm_train, "total_s": time.perf_counter() - t_all}
+            "lm_train": lm_train, "gate": gate,
+            "total_s": time.perf_counter() - t_all}
 
 
 def main(argv=None) -> int:

@@ -987,6 +987,7 @@ def _call_meta(kc: ir.KernelCall, dense: Shapes,
         )
         meta["cols"] = len(kc.args)
         meta["n_aggs"] = params.get("n_aggs", 1)
+        meta["has_pred"] = bool(params.get("has_pred", True))
         meta["ops"] = sum(_compute_ops(f.body) for f in kc.fns) or 1
         meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
     elif kc.kernel == "vecmerger_segment_sum":
@@ -995,7 +996,6 @@ def _call_meta(kc: ir.KernelCall, dense: Shapes,
         )
         meta["k"] = _len_of(kc.args[0], dense)
         meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
-        meta["max_k"] = spec.max_segments if spec else None
     elif kc.kernel == "dict_group_sum":
         meta["n"] = next(
             (v for v in (_len_of(a, dense) for a in kc.args) if v), None
@@ -1020,6 +1020,10 @@ def _call_meta(kc: ir.KernelCall, dense: Shapes,
         # fused probes carry every output column through ONE launch; the
         # cost model prices the shared membership tile against them all
         meta["cols"] = max(len(params.get("cols", ())), 1)
+        # build-side columns gathered at the found positions
+        meta["gathers"] = (
+            sum(kind != "expr" for kind, _ in params["cols"])
+            if "cols" in params else int(bool(params.get("gather"))))
         meta["elem_bytes"] = _elem_bytes(kc.ret_ty)
     elif kc.kernel == "group_build":
         meta["n"] = next(

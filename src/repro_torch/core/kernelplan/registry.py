@@ -719,8 +719,7 @@ register(KernelSpec(
     elem_kinds=("f32", "f64"),
     description="scatter-add into a dense base vector as atomic-free "
                 "segment sums (PageRank's edge scan)",
-    max_segments=_sr.MAX_K,  # beyond this, kops serves the plain scatter:
-                             # the cost gate prices that route as a loss
+    max_segments=_sr.MAX_K,  # the reference's match rule (its tile bound)
     execute=_exec_vecmerger_segment_sum,
     cost=_cost.cost_vecmerger,
     footprint=_fp_vecmerger,

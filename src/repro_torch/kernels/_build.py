@@ -52,9 +52,10 @@ _C_SIGNATURES = {
     "weld_filter_reduce_sum": (
         ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
         ctypes.c_int, _P, _P),
-    # (dtype, seg, vals, n, k, d, warps, nblocks, partials, out, stream)
+    # (dtype, seg, vals, n, k, window, d, warps, nblocks, partials, out,
+    #  stream)
     "weld_segment_sum": (
-        ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P),
     # (dtype, cols, k, lo, hi, val, n, partials, nblocks, out, stream)
     "weld_filter_reduce_q6": (
@@ -81,6 +82,12 @@ _C_SIGNATURES = {
         ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, _P),
+    # (q, k, v, o, strides[12], batch, heads, group, sq, skv, d, causal,
+    #  scale, stream)
+    "weld_flash_attention_sm90": (
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, _P),
     # (p_dtype, g_dtype, p, g, m, v, n, lr, b1, 1 - b1, b2, 1 - b2, eps, wd,
     #  c1, c2, stream)
     "weld_fused_adamw": (

@@ -1,5 +1,7 @@
 // Segment sum of rows: out[k][c] = sum(vals[r][c] for rows r with seg[r] == k),
 // for k < K and c < D; rows whose id lies outside [0, K) are dropped.
+// K is unbounded: the keys are taken a window of at most `window` at a
+// time, one pass over the rows each (see "Windows" below).
 //
 // Replaces the TPU kernels of repro/kernels/segment_reduce.py:
 //   segment_sum          (_kernel :34, pallas_call :65)         -> D = 1
@@ -30,6 +32,13 @@
 // warps hide the memory latency.  Each warp therefore loads kUnroll
 // tiles' ids and values before it reduces the first of them, keeping
 // kUnroll loads per column in flight.
+//
+// Windows.  The accumulator bounds the keys one pass can hold, so K past
+// the caller's window (the wrapper's MAX_K = 4096) is summed in windows
+// [k0, k0 + window): each pass reads every row, keeps the rows whose id
+// falls in its window and writes that window's slice of `out`.  A pass
+// over one window is the single-pass kernel shifted by k0, so K <= window
+// runs exactly as before, and every sum keeps its fixed order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,8 +79,8 @@ __device__ __forceinline__ void add_tile(T* mine, int s, const T (&v)[D],
 
 template <typename T, int D>
 __global__ void seg_partial(const int* __restrict__ seg,
-                            const T* __restrict__ vals, int64_t n, int k,
-                            T* __restrict__ partials) {
+                            const T* __restrict__ vals, int64_t n, int base,
+                            int k, T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* acc = reinterpret_cast<T*>(smem_raw);  // [warps][k * D]
   const int warps = blockDim.x >> 5;
@@ -98,7 +107,8 @@ __global__ void seg_partial(const int* __restrict__ seg,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int su = (s[u] >= 0 && s[u] < k) ? s[u] : -1;
+      const int r = s[u] - base;  // rows past n hold -1: dropped
+      const int su = (s[u] >= base && r < k) ? r : -1;
       add_tile<T, D>(mine, su, v[u], lane);
     }
   }
@@ -126,33 +136,38 @@ seg_combine(const T* __restrict__ partials, int nblocks, int kd,
 
 template <typename T, int D>
 cudaError_t launch(const void* seg, const void* vals, int64_t n, int k,
-                   int warps, int nblocks, void* partials, void* out,
-                   cudaStream_t s) {
-  const int64_t smem = static_cast<int64_t>(warps) * k * D * sizeof(T);
+                   int window, int warps, int nblocks, void* partials,
+                   void* out, cudaStream_t s) {
+  const int64_t smem = static_cast<int64_t>(warps) * window * D * sizeof(T);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       seg_partial<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  seg_partial<T, D><<<nblocks, warps * 32, static_cast<size_t>(smem), s>>>(
-      static_cast<const int*>(seg), static_cast<const T*>(vals), n, k,
-      static_cast<T*>(partials));
-  const int kd = k * D;
-  seg_combine<T><<<(kd + kCombineThreads - 1) / kCombineThreads,
-                   kCombineThreads, 0, s>>>(
-      static_cast<const T*>(partials), nblocks, kd, static_cast<T*>(out));
+  for (int k0 = 0; k0 < k; k0 += window) {
+    const int kw = k - k0 < window ? k - k0 : window;
+    const int64_t wsmem = static_cast<int64_t>(warps) * kw * D * sizeof(T);
+    seg_partial<T, D><<<nblocks, warps * 32, static_cast<size_t>(wsmem), s>>>(
+        static_cast<const int*>(seg), static_cast<const T*>(vals), n, k0, kw,
+        static_cast<T*>(partials));
+    const int kd = kw * D;
+    seg_combine<T><<<(kd + kCombineThreads - 1) / kCombineThreads,
+                     kCombineThreads, 0, s>>>(
+        static_cast<const T*>(partials), nblocks, kd,
+        static_cast<T*>(out) + static_cast<int64_t>(k0) * D);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int d, const void* seg, const void* vals, int64_t n,
-                     int k, int warps, int nblocks, void* partials, void* out,
-                     cudaStream_t s) {
+                     int k, int window, int warps, int nblocks,
+                     void* partials, void* out, cudaStream_t s) {
   switch (d) {
-    case 1: return launch<T, 1>(seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 2: return launch<T, 2>(seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 3: return launch<T, 3>(seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 4: return launch<T, 4>(seg, vals, n, k, warps, nblocks, partials, out, s);
+    case 1: return launch<T, 1>(seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 2: return launch<T, 2>(seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 3: return launch<T, 3>(seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 4: return launch<T, 4>(seg, vals, n, k, window, warps, nblocks, partials, out, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -160,23 +175,24 @@ cudaError_t dispatch(int d, const void* seg, const void* vals, int64_t n,
 }  // namespace
 
 // dtype: 0 = f32, 1 = f64, 2 = i32, 3 = i64.  seg (n,) int32, vals (n, d)
-// row-major with 1 <= d <= 4, partials (nblocks, k, d), out (k, d).
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// the CUDA error of the launches (0 = success).
+// row-major with 1 <= d <= 4, partials (nblocks, window, d), out (k, d);
+// the keys are summed `window` at a time (1 <= window <= k).  Launches on
+// `stream`, allocates nothing, does not synchronise; returns the CUDA
+// error of the launches (0 = success).
 extern "C" int weld_segment_sum(int dtype, const void* seg, const void* vals,
-                                long long n, int k, int d, int warps,
-                                int nblocks, void* partials, void* out,
-                                void* stream) {
-  if (n <= 0 || k <= 0 || d < 1 || d > kMaxD || warps < 1 || warps > 32 ||
-      nblocks <= 0) {
+                                long long n, int k, int window, int d,
+                                int warps, int nblocks, void* partials,
+                                void* out, void* stream) {
+  if (n <= 0 || k <= 0 || window < 1 || window > k || d < 1 || d > kMaxD ||
+      warps < 1 || warps > 32 || nblocks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch<float>(d, seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 1: return dispatch<double>(d, seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 2: return dispatch<int>(d, seg, vals, n, k, warps, nblocks, partials, out, s);
-    case 3: return dispatch<long long>(d, seg, vals, n, k, warps, nblocks, partials, out, s);
+    case 0: return dispatch<float>(d, seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 1: return dispatch<double>(d, seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 2: return dispatch<int>(d, seg, vals, n, k, window, warps, nblocks, partials, out, s);
+    case 3: return dispatch<long long>(d, seg, vals, n, k, window, warps, nblocks, partials, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,11 +1,22 @@
-"""Online-softmax attention with grouped-query heads, on the CUDA kernel
-in ``csrc/flash_attention.cu`` (the port of the TPU kernel
-``flash_attention``, repro/kernels/flash_attention.py:74).
+"""Online-softmax attention with grouped-query heads, on two CUDA kernels,
+both ports of the TPU kernel ``flash_attention``
+(repro/kernels/flash_attention.py:74).
 
-A CUDA tensor launches the kernel — or raises; a CPU tensor takes the
-plain version, ``ref.chunked_attention`` (what the reference's ``ops``
-runs off the TPU).  The wrapper counts its kernel launches in
-``.launches`` and its plain-version calls in ``.plain_calls``.
+Which kernel is an explicit choice by dtype and head dimension
+(:func:`route`), never a reaction to a failure:
+
+* ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16 with D in {64, 128}.
+  Hopper's wgmma and TMA in a warp-specialised pipeline, 128 q rows x 128
+  kv rows a tile.
+* ``"v1"``, ``csrc/flash_attention.cu``: f32 (CUDA cores), and bf16 with
+  any other head dimension (``mma.sync``).
+
+A CUDA tensor launches its route's kernel — or raises: a build or launch
+error is not caught.  A CPU tensor takes the plain version,
+``ref.chunked_attention`` (what the reference's ``ops`` runs off the TPU).
+The wrapper counts every kernel launch in ``.launches``, the launches of
+the ``"sm90"`` route among them also in ``.launches_sm90``, and its
+plain-version calls in ``.plain_calls``.
 
 Gradients: on a CPU tensor autograd runs through the plain version.  On
 a CUDA tensor that needs a gradient the launch goes through
@@ -17,12 +28,13 @@ backward of its own (its gradient is XLA's through
 ``.backward_calls``, not in ``.plain_calls``: the forward still ran the
 kernel.  A backward kernel written by hand is later work.
 
-The kernel takes bf16 (tensor cores, p rounded to bf16 before the PV
+The kernels take bf16 (tensor cores, p rounded to bf16 before the PV
 product as the TPU kernel does) or f32 (CUDA cores, full f32), a head
 dimension that is a multiple of 8 up to 256, and ``Sq <= Skv``; anything
-else raises.  It reads q, k and v through their strides, so the
+else raises (:func:`plan`).  They read q, k and v through their strides
+(the ``"sm90"`` route through TMA tensor maps built from them), so the
 (B, T, H, D) activations of a layer go in as (B, H, T, D) views without a
-copy, and it writes its output in (B, Sq, H, D) storage, returned as a
+copy, and they write the output in (B, Sq, H, D) storage, returned as a
 (B, H, Sq, D) view.
 """
 from __future__ import annotations
@@ -37,6 +49,11 @@ from .ref import chunked_attention as attention_plain
 
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_D = 256
+#: the head dimensions of the ``"sm90"`` route (bf16 only)
+SM90_DIMS = (64, 128)
+#: flash_attention_sm90.cu's code for a failed cuTensorMapEncodeTiled
+#: (plus its CUresult; alone: the driver has no such entry point)
+TMA_ERROR = 1 << 20
 
 #: f32: |kernel - ref.attention| <= F32_ATOL + F32_RTOL |plain| (the JAX
 #: package's own kernel test)
@@ -49,10 +66,57 @@ BF16_WEIGHT_TOL = 2.0 ** -6
 
 def _aligned(t: torch.Tensor) -> bool:
     """16-byte loads: a unit-stride last dimension, the other strides and
-    the base address on 16 bytes."""
+    the base address on 16 bytes (a dimension of size 1 is never
+    stepped, so its stride does not count)."""
     per = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % per == 0 for s in t.stride()[:-1]))
+            and all(s % per == 0 for n, s in zip(t.shape[:-1],
+                                                 t.stride()[:-1]) if n > 1))
+
+
+def _strides(t: torch.Tensor) -> list:
+    """The (batch, head, seq) element strides of a 4-D operand, a
+    dimension of size 1 given the 16-byte stride a tensor map takes."""
+    per = 16 // t.element_size()
+    return [s if n > 1 else per for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call of this dtype and head dimension launches:
+    ``"sm90"`` for bf16 with D in :data:`SM90_DIMS`, else ``"v1"``."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_DIMS else "v1"
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         group: int = 1) -> str:
+    """Check the operands of a kernel launch (dtype, shapes, group, head
+    dimension, ``Sq <= Skv``; not the device) and return their
+    :func:`route`.  Raises ``TypeError`` or ``ValueError`` on what no
+    kernel takes."""
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
+                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.shape != k.shape:
+        raise ValueError(f"flash_attention kernel takes q (B, H, Sq, D) and "
+                         f"k, v (B, H // group, Skv, D) (or no B), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.ndim == 3:
+        q, k = q[None], k[None]
+    bsz, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != bsz or k.shape[3] != d or group < 1 \
+            or h != hk * group:
+        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)} do not match group={group}")
+    if d % 8 or not 8 <= d <= MAX_D:
+        raise ValueError(f"flash_attention kernel takes a head dimension "
+                         f"that is a multiple of 8 up to {MAX_D}, got {d}")
+    if not 1 <= sq <= skv:
+        raise ValueError(f"flash_attention kernel takes 1 <= Sq <= Skv, "
+                         f"got Sq={sq}, Skv={skv}")
+    return route(q.dtype, d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -96,53 +160,50 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
-    """Check the operands and launch the kernel (counted)."""
+    """Check the operands and launch their route's kernel (counted)."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention kernel takes CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
-                        f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.shape != k.shape:
-        raise ValueError(f"flash_attention kernel takes q (B, H, Sq, D) and "
-                         f"k, v (B, H // group, Skv, D) (or no B), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    which = plan(q, k, v, group)
     squeeze = q.ndim == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
     bsz, h, sq, d = q.shape
-    hk, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != bsz or k.shape[3] != d or group < 1 \
-            or h != hk * group:
-        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
-                         f"k {tuple(k.shape)} do not match group={group}")
-    if d % 8 or not 8 <= d <= MAX_D:
-        raise ValueError(f"flash_attention kernel takes a head dimension "
-                         f"that is a multiple of 8 up to {MAX_D}, got {d}")
-    if not 1 <= sq <= skv:
-        raise ValueError(f"flash_attention kernel takes 1 <= Sq <= Skv, "
-                         f"got Sq={sq}, Skv={skv}")
+    skv = k.shape[2]
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     out = torch.empty((bsz, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     scale = float(scale if scale is not None else d ** -0.5)
     strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+        *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3])
     lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.weld_flash_attention(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), strides, bsz, h, group, sq, skv, d, int(causal),
-            scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_attention kernel launch")
+        if which == "sm90":
+            rc = lib.weld_flash_attention_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, bsz, h, group, sq, skv, d, int(causal), scale,
+                stream)
+        else:
+            rc = lib.weld_flash_attention(
+                DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), strides, bsz, h, group, sq,
+                skv, d, int(causal), scale, stream)
+    if rc >= TMA_ERROR:
+        raise RuntimeError(
+            "flash_attention kernel launch: cuTensorMapEncodeTiled "
+            + (f"returned CUresult {rc - TMA_ERROR}" if rc > TMA_ERROR
+               else "is not in the driver"))
+    _build.check(rc, f"flash_attention kernel launch ({which})")
     flash_attention.launches += 1
+    if which == "sm90":
+        flash_attention.launches_sm90 += 1
     return out[0] if squeeze else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_sm90 = 0
 flash_attention.plain_calls = 0
 flash_attention.backward_calls = 0
 

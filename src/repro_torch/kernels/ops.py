@@ -61,11 +61,12 @@ def counts() -> dict:
 
 def reset_counts() -> None:
     """Zero every wrapper's counters (flash_attention's
-    ``backward_calls`` too)."""
+    ``backward_calls`` and ``launches_sm90`` too)."""
     for f in WRAPPERS.values():
         f.launches = 0
         f.plain_calls = 0
     _fa.flash_attention.backward_calls = 0
+    _fa.flash_attention.launches_sm90 = 0
 
 
 def filter_reduce_sum(x, pred, impl: Optional[str] = None):

@@ -3,10 +3,12 @@
 Wrappers over the CUDA kernel in ``csrc/segment_reduce.cu`` (the port of
 the TPU kernels ``segment_sum`` and ``segment_sum_vectors``).  A CUDA
 tensor launches the kernel — or raises; a CPU tensor takes the plain
-version in ``ref``, and so does K > ``MAX_K``, the reference's own size
-rule (its kernel's accumulator tile bound), kept so both packages route
-the same calls.  Each wrapper counts its kernel launches in
-``.launches`` and its plain-version calls in ``.plain_calls``.
+version in ``ref``.  Any K runs on the kernel: it sums the keys
+``MAX_K`` at a time (:func:`windows` passes over the rows), where the
+reference's kernel stops at its accumulator tile.  The planner keeps the
+reference's match rule (``max_segments``) for the routes that it has.
+Each wrapper counts its kernel launches in ``.launches`` and its
+plain-version calls in ``.plain_calls``.
 
 Results keep the value dtype and are bitwise the same from run to run.
 """
@@ -22,6 +24,7 @@ from .filter_reduce import DTYPE_CODES
 from .ref import segment_sum as segment_sum_plain
 from .ref import segment_sum_vectors as segment_sum_vectors_plain
 
+#: keys one pass of the kernel accumulates (the reference's tile bound)
 MAX_K = 4096
 #: widest row the kernel takes (csrc kMaxD); the main path uses D <= 2
 MAX_D = 4
@@ -55,6 +58,11 @@ def launch_config(n: int, k: int, d: int, itemsize: int) -> Tuple[int, int]:
     return warps, blocks
 
 
+def windows(k: int) -> int:
+    """Passes of the kernel over the rows for K keys: one a MAX_K keys."""
+    return max(1, math.ceil(k / MAX_K))
+
+
 def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
     n, d = vals.shape
     if seg.device != vals.device or vals.device.type != "cuda":
@@ -71,15 +79,17 @@ def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((k, d), dtype=vals.dtype, device=vals.device)
     if n == 0:
         return out.zero_()
-    warps, blocks = launch_config(n, k, d, vals.element_size())
-    partials = torch.empty((blocks, k, d), dtype=vals.dtype,
+    window = min(k, MAX_K)
+    warps, blocks = launch_config(n, window, d, vals.element_size())
+    partials = torch.empty((blocks, window, d), dtype=vals.dtype,
                            device=vals.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):
         rc = lib.weld_segment_sum(
-            DTYPE_CODES[vals.dtype], seg.data_ptr(), vals.data_ptr(), n, k, d,
-            warps, blocks, partials.data_ptr(), out.data_ptr(), stream)
+            DTYPE_CODES[vals.dtype], seg.data_ptr(), vals.data_ptr(), n, k,
+            window, d, warps, blocks, partials.data_ptr(), out.data_ptr(),
+            stream)
     _build.check(rc, "segment_sum kernel launch")
     return out
 
@@ -87,7 +97,7 @@ def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
 def segment_sum(seg_ids: torch.Tensor, vals: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """out[s] = sum(vals[seg_ids == s]): seg_ids (n,) int32, vals (n,)."""
-    if seg_ids.device.type == "cpu" or num_segments > MAX_K:
+    if seg_ids.device.type == "cpu":
         segment_sum.plain_calls += 1
         return segment_sum_plain(seg_ids, vals, num_segments)
     if vals.ndim != 1:
@@ -104,7 +114,7 @@ segment_sum.plain_calls = 0
 def segment_sum_vectors(seg_ids: torch.Tensor, vals: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """vals (n, D) rows summed into (K, D) by segment id."""
-    if seg_ids.device.type == "cpu" or num_segments > MAX_K:
+    if seg_ids.device.type == "cpu":
         segment_sum_vectors.plain_calls += 1
         return segment_sum_vectors_plain(seg_ids, vals, num_segments)
     if vals.ndim != 2:

@@ -1,8 +1,11 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
-shapes and ``filter_reduce_q6`` on exact data, each against its plain
+shapes, ``filter_reduce_q6`` on exact data and ``segment_sum`` past
+MAX_K keys (its windows), each against its plain
 version on the same CUDA tensors; the LM's ``flash_attention`` against
-``ref.attention``; and the training path: ``fused_adamw`` against
+``ref.attention`` on both of its routes (every bf16 call with D in
+{64, 128} counted on the Hopper route, ``.launches_sm90``, the rest on
+v1); and the training path: ``fused_adamw`` against
 ``ref.adamw_update`` for every p/g dtype pair, the attention's gradient
 through ``FlashAttention`` against plain autograd, and two ``train``
 steps of a smoke config on the card against the same on the CPU.
@@ -225,6 +228,40 @@ def test_tiled_matmul_refuses_a_non_contiguous_operand(card):
     assert t_tm.tiled_matmul.launches == before
 
 
+@pytest.mark.parametrize("k,d,n", [(4096, 1, 300_000), (4097, 1, 20_000),
+                                   (20_000, 1, 20_000), (50_000, 2, 100_003)])
+@pytest.mark.parametrize("dtype", (torch.float64, torch.int64))
+def test_segment_sum_takes_any_k_in_windows(k, d, n, dtype, gpu):
+    """K past MAX_K runs on the kernel, a window of MAX_K keys a pass: the
+    same sums as the plain version (f64 rtol 1e-12 of the largest sum,
+    integers exactly), bitwise the same twice, and no plain call."""
+    from repro_torch.kernels import segment_reduce as t_sr
+
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(k + n)
+    seg = torch.randint(-1, k + 1, (n,), generator=gen, device=gpu,
+                        dtype=torch.int32)  # ids outside [0, K) drop
+    vals = torch.randint(-1000, 1000, (n, d), generator=gen, device=gpu)
+    vals = vals.to(dtype) / (8 if dtype.is_floating_point else 1)
+    before = t_sr.segment_sum_vectors.plain_calls
+    got = t_sr.segment_sum_vectors(seg, vals, k)
+    again = t_sr.segment_sum_vectors(seg, vals, k)
+    want = t_ref.segment_sum_vectors(seg.cpu(), vals.cpu(), k)
+    assert t_sr.segment_sum_vectors.plain_calls == before
+    assert torch.equal(got, again), "two runs differ bitwise"
+    got = got.cpu()
+    if dtype.is_floating_point:
+        tol = 1e-12 * max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) <= tol
+    else:
+        assert torch.equal(got, want)
+    col = t_sr.segment_sum(seg, vals[:, 0].contiguous(), k).cpu()
+    if dtype.is_floating_point:
+        assert float((col - want[:, 0]).abs().max()) <= tol
+    else:
+        assert torch.equal(col, want[:, 0])
+
+
 @pytest.mark.parametrize("k,n", [(1, 1), (3, 3001), (3, 1_000_003), (8, 777)])
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 def test_filter_reduce_q6_matches_the_plain_version(k, n, dtype, card):
@@ -264,11 +301,14 @@ def _qkv(dev, dtype, b, h, group, sq, skv, d, seed):
 
 def _hold_attention(q, k, v, causal, group):
     t_fa.flash_attention.launches = 0
+    t_fa.flash_attention.launches_sm90 = 0
     got = t_fa.flash_attention(q, k, v, causal=causal, group=group)
     again = t_fa.flash_attention(q, k, v, causal=causal, group=group)
     want = t_ref.attention(q, k, v, causal=causal, group=group)
     torch.cuda.synchronize()
     assert t_fa.flash_attention.launches == 2
+    sm90 = t_fa.route(q.dtype, q.shape[-1]) == "sm90"
+    assert t_fa.flash_attention.launches_sm90 == (2 if sm90 else 0)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert torch.equal(got, again), "two runs differ bitwise"
     limit = t_fa.tolerance(q, k, v, want, causal=causal, group=group)
@@ -322,6 +362,45 @@ def test_flash_attention_reads_strided_views(gpu):
     assert one.shape == (12, 200, 64) and torch.equal(one, want[1])
 
 
+@pytest.mark.parametrize("sq,skv,d,group,causal", [
+    (333, 333, 128, 3, True),    # neither length a multiple of 128
+    (333, 333, 64, 4, False),
+    (77, 300, 128, 3, True),     # Sq < Skv, one q tile
+    (77, 300, 64, 1, False),
+    (129, 257, 128, 4, True),    # one row past a tile on both sides
+    (1, 517, 64, 3, True),       # one query row against a long kv
+    (640, 2000, 128, 3, True),   # several q tiles, a ragged kv end
+])
+def test_flash_attention_sm90_on_ragged_shapes(sq, skv, d, group, causal,
+                                               gpu):
+    """The Hopper route (bf16, D in {64, 128}) where TMA zero-fills the
+    rows past Sq or Skv and the store masks rows past Sq."""
+    q, k, v = _qkv(gpu, torch.bfloat16, 2, 2 * group, group, sq, skv, d,
+                   seed=sq * 7 + skv + d)
+    assert t_fa.route(q.dtype, d) == "sm90"
+    _hold_attention(q, k, v, causal, group)
+
+
+def test_flash_attention_sm90_reads_the_train_micro_batch_as_views(gpu):
+    """B = 2, the train micro-batch of the Llama 3.2 3B config (24/8 heads,
+    D = 128, S = 2048): the layer's (B, T, H, D) activations go in as
+    (B, H, T, D) views, read through the tensor maps' strides; the result
+    equals the contiguous call's bitwise."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(17)
+
+    def draw(heads, mul):
+        x = torch.randn((2, 2048, heads, 128), generator=gen, device=gpu)
+        return (x * mul).to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v = draw(24, 0.5), draw(8, 0.5), draw(8, 1.0)
+    _hold_attention(q, k, v, True, 3)
+    got = t_fa.flash_attention(q, k, v, group=3)
+    want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), group=3)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype,d,sq,skv,what", [
     (torch.float16, 64, 8, 8, TypeError),
     (torch.float64, 64, 8, 8, TypeError),
@@ -334,9 +413,11 @@ def test_flash_attention_refuses_what_it_does_not_take(dtype, d, sq, skv,
     q = torch.zeros((1, 2, sq, d), dtype=dtype, device=gpu)
     k = torch.zeros((1, 2, skv, d), dtype=dtype, device=gpu)
     t_fa.flash_attention.launches = 0
+    t_fa.flash_attention.launches_sm90 = 0
     with pytest.raises(what):
         t_fa.flash_attention(q, k, k)
     assert t_fa.flash_attention.launches == 0
+    assert t_fa.flash_attention.launches_sm90 == 0
 
 
 # -- fused_adamw -------------------------------------------------------------

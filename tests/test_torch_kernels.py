@@ -164,8 +164,9 @@ def test_impl_must_match_the_device():
 
 
 def test_segment_wrapper_keeps_the_reference_size_rule():
-    """K > MAX_K takes the plain version (the reference's own dispatch),
-    whatever the device; the count says so."""
+    """A CPU tensor takes the plain version at any K, K > MAX_K included;
+    the count says so.  On the card K > MAX_K runs on the kernel, a window
+    of MAX_K keys a pass (tests/test_torch_cuda.py)."""
     ops.reset_counts()
     k = t_sr.MAX_K + 1
     seg = torch.tensor([0, k - 1], dtype=torch.int32)
@@ -188,6 +189,14 @@ def test_segment_launch_shape(k, d, itemsize, warps):
         t_sr.launch_config(10, 4096, 4, 16)
     with pytest.raises(ValueError, match="rows of 1 to"):
         t_sr.launch_config(10, 8, t_sr.MAX_D + 1, 8)
+
+
+@pytest.mark.parametrize("k,passes", [(1, 1), (4096, 1), (4097, 2),
+                                      (20_000, 5), (50_000, 13)])
+def test_segment_kernel_takes_any_k_in_windows(k, passes):
+    assert t_sr.windows(k) == passes
+    # each window's launch shape fits the accumulator at the widest row
+    assert t_sr.launch_config(10, min(k, t_sr.MAX_K), 2, 8)[0] >= 1
 
 
 def test_filter_reduce_grid_depends_only_on_n():

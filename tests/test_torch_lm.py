@@ -179,6 +179,70 @@ def test_bf16_limit_rejects_planted_faults(fault):
         assert bool((share[:, s // 2:] > 1).any()) is rejected
 
 
+# -- which kernel a CUDA call takes, checked before any launch ---------------
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 8, "v1"), (torch.bfloat16, 72, "v1"),
+    (torch.bfloat16, 256, "v1"), (torch.float32, 64, "v1"),
+    (torch.float32, 128, "v1"),
+])
+def test_kernel_route_is_chosen_by_dtype_and_head_dimension(dtype, d, want):
+    """bf16 with D in {64, 128} goes to the Hopper kernel, the rest to
+    v1, batched or not, whatever the sequence lengths."""
+    assert t_fa.route(dtype, d) == want
+    for sq, skv in ((1, 1), (77, 300), (333, 333)):
+        q = torch.zeros((2, 6, sq, d), dtype=dtype)
+        k = torch.zeros((2, 2, skv, d), dtype=dtype)
+        assert t_fa.plan(q, k, k, group=3) == want
+        assert t_fa.plan(q[0], k[0], k[0], group=3) == want
+
+
+@pytest.mark.parametrize("what,q,k,v,group,err", [
+    ("f16", (1, 2, 8, 64, "f16"), (1, 2, 8, 64, "f16"), None, 1, TypeError),
+    ("f64", (1, 2, 8, 64, "f64"), (1, 2, 8, 64, "f64"), None, 1, TypeError),
+    ("mixed dtypes", (1, 2, 8, 64, "bf16"), (1, 2, 8, 64, "f32"), None, 1,
+     TypeError),
+    ("D not a multiple of 8", (1, 2, 8, 12, "bf16"), (1, 2, 8, 12, "bf16"),
+     None, 1, ValueError),
+    ("D past 256", (1, 2, 8, 264, "bf16"), (1, 2, 8, 264, "bf16"), None, 1,
+     ValueError),
+    ("Sq > Skv", (1, 2, 9, 64, "bf16"), (1, 2, 8, 64, "bf16"), None, 1,
+     ValueError),
+    ("heads not group x kv heads", (1, 6, 8, 64, "bf16"),
+     (1, 2, 8, 64, "bf16"), None, 2, ValueError),
+    ("v shaped unlike k", (1, 2, 8, 64, "bf16"), (1, 2, 8, 64, "bf16"),
+     (1, 2, 9, 64, "bf16"), 1, ValueError),
+    ("2-D", (8, 64, "bf16"), (8, 64, "bf16"), None, 1, ValueError),
+])
+def test_kernel_plan_refuses_what_no_kernel_takes(what, q, k, v, group, err):
+    """What the kernels do not take raises before a launch, on either
+    route; a CPU call never reaches the check."""
+    dtypes = {"bf16": torch.bfloat16, "f16": torch.float16,
+              "f32": torch.float32, "f64": torch.float64}
+
+    def make(spec):
+        return torch.zeros(spec[:-1], dtype=dtypes[spec[-1]])
+
+    qt, kt = make(q), make(k)
+    vt = kt if v is None else make(v)
+    with pytest.raises(err):
+        t_fa.plan(qt, kt, vt, group=group)
+
+
+def test_cpu_calls_count_no_launch_on_either_route():
+    """A CPU tensor takes the plain version: counted in ``.plain_calls``,
+    never in ``.launches`` or ``.launches_sm90``, which
+    ``ops.reset_counts`` zeroes with the rest."""
+    t_fa.flash_attention.launches_sm90 = 5
+    ops.reset_counts()
+    q, k, v = _bf16(*_attn_inputs(2, 4, 16, 16, 64, 2))
+    t_fa.flash_attention(q, k, v, group=2)
+    assert (t_fa.flash_attention.launches, t_fa.flash_attention.launches_sm90,
+            t_fa.flash_attention.plain_calls) == (0, 0, 1)
+
+
 # -- the dense LM against the reference --------------------------------------
 
 
