@@ -61,7 +61,11 @@ kernels/csrc`` and then
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
    compacted slots to the plain version's) and times kernel, plain
-   version and a one-call PyTorch yardstick with CUDA events;
+   version and a one-call PyTorch yardstick host-free (``window_ms``: the
+   calls queued behind a ``torch.cuda._sleep`` and bracketed by CUDA
+   events, beside the plain CUDA-event time of the kernel and the
+   yardstick, ``event_ms``); segment_sum_vectors also on skewed keys
+   (half of the rows on one key; Zipf s = 1.1);
 3. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -1515,8 +1519,8 @@ def _attention_backward_ms(torch, cfg, batch: int, seq: int, reps: int,
         q.grad = k.grad = v.grad = None
 
     with torch.no_grad():
-        t_fwd = time_ms(torch, fwd, reps)
-    return time_ms(torch, both, reps) - t_fwd
+        t_fwd = event_ms(torch, fwd, reps)
+    return event_ms(torch, both, reps) - t_fwd
 
 
 def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
@@ -1640,8 +1644,8 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     # accum > 1), and one layer's attention backward at a micro-batch
     grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
              for k, p in params.items()}
-    opt_ms = time_ms(torch, lambda: adamw_update_tree(params, grads, opt,
-                                                      0.0), 3)
+    opt_ms = event_ms(torch, lambda: adamw_update_tree(params, grads, opt,
+                                                       0.0), 3)
     del grads, params, opt
     torch.cuda.empty_cache()
     # p read and written, an f32 grad read, m and v read and written
@@ -1788,7 +1792,10 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, reps: int) -> float:
+def event_ms(torch, fn, reps: int) -> float:
+    """CUDA events around ``reps`` back-to-back calls, per call: for a
+    small kernel this window holds the host's launch path (the wrapper's
+    checks, allocations, ``ctypes``), since the card waits on it."""
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -1801,23 +1808,65 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(torch, fn, reps: int):
-    """Device time per call, summed over the CUDA activities (kernels and
-    memsets) of `reps` calls in a profiler trace — what the card spent,
-    without the host's launch path, which CUDA events around a tiny
-    kernel mostly measure.  None when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
+#: the card's clock as ``torch.cuda._sleep`` counts it (cycles a ms),
+#: measured once a process
+_SLEEP_CYCLES_PER_MS: list = []
 
+
+def _sleep_cycles_per_ms(torch) -> float:
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        stop.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(stop))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def window_ms(torch, fn, reps: int):
+    """Device ms per call with the host's launch path out of the window:
+    a ``torch.cuda._sleep`` kernel, longer than the host takes to enqueue
+    ``reps`` calls, holds the stream while they queue behind it, and CUDA
+    events bracket them, so the card runs them back to back.  Returns
+    (ms, covered): ``covered`` is False when, as a call was enqueued, the
+    card had already finished everything before it (it may have waited on
+    the host); the sleep is then lengthened once.  A call that synchronises
+    with the card (a data-dependent output size: ``torch.unique``,
+    ``torch.bincount``) stays uncovered, and its window holds host time."""
+    fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(min(2.0 * reps * host_ms + 0.5, 1000.0)
+                 * _sleep_cycles_per_ms(torch))
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        before, covered = start, True
         for _ in range(reps):
             fn()
+            covered = covered and not before.query()
+            before = torch.cuda.Event()
+            before.record()
+        stop.record()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages())
-    return us / 1e3 / reps if us else None
+        if covered:
+            break
+        cycles *= 4
+    return start.elapsed_time(stop) / reps, covered
+
+
+#: the H100's L2: a row whose bytes fit may be served from it when the
+#: calls run back to back, and then reads below its HBM bound
+L2_BYTES = 50e6
 
 
 def _random(torch, gen, shape, dtype, dev):
@@ -1909,29 +1958,17 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             tol = _tolerance(torch, want, dt)
             check(err <= tol, f"{name}[{dt}]: max |kernel - plain| {err} "
                               f"exceeds {tol}")
-            reps = sizes.timing_reps
-            t_kernel = time_ms(torch, lambda: kern(*args), reps)
-            t_plain = time_ms(torch, lambda: plain(*args), reps)
-            t_lib = time_ms(torch, library, reps)
-            t_kernel2 = time_ms(torch, lambda: kern(*args), reps)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[str(dt).split(".")[-1]] * 1e3
-            row = {
-                "dtype": str(dt).split(".")[-1], "max_abs_err": err,
-                "tolerance": tol, "ms": min(t_kernel, t_kernel2),
-                "ms_runs": [t_kernel, t_kernel2], "plain_ms": t_plain,
-                "library_ms": t_lib, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "ops": ops,
-            }
-            per_dtype.append(row)
             shape = tuple(args[0 if name.startswith("filter") else 1].shape)
-            log(f"kernel {name}[{row['dtype']}] shape={shape} "
-                f"kernel_ms={row['ms']:.4f} (runs {t_kernel:.4f}, "
-                f"{t_kernel2:.4f}) plain_ms={t_plain:.4f} "
-                f"library_ms={t_lib:.4f} ({lib_name}) "
-                f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-                f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
+            row = _timed_row(
+                torch, f"{name}[{dt}]", lambda: kern(*args),
+                lambda: plain(*args), library, sizes.timing_reps, nbytes,
+                ops, PEAK_OPS[str(dt).split(".")[-1]],
+                dtype=str(dt).split(".")[-1], max_abs_err=err, tolerance=tol,
+                shape=list(shape))
+            per_dtype.append(row)
+            log(f"kernel {name}[{row['dtype']}] shape={shape} {_times(row)} "
+                f"({lib_name}) max_abs_err={err:.3e} (tol {tol:.3e}) "
+                f"bitwise_repeat=ok")
             del args, first, second, want
             torch.cuda.empty_cache()
         # the line reports the f64 case (the dtype the main path ran);
@@ -1939,6 +1976,9 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
         main = next(r for r in per_dtype if r["dtype"] == "float64")
         if name == "segment_sum":
             main["windows"] = _hold_segment_windows(torch, gen, dev)
+        if name == "segment_sum_vectors":
+            main["skewed"] = _hold_segment_skew(torch, gen, dev, n_sv, k,
+                                                sizes.timing_reps)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1979,12 +2019,60 @@ def _hold_segment_windows(torch, gen, dev) -> dict:
     tol = _tolerance(torch, want, torch.float64)
     check(err <= tol, f"segment_sum past MAX_K: max |kernel - plain| {err} "
                       f"exceeds {tol}")
-    ms = time_ms(torch, lambda: sr.segment_sum(seg, vals, k), 10)
+    ms, covered = window_ms(torch, lambda: sr.segment_sum(seg, vals, k), 10)
     log(f"kernel segment_sum[float64] K={k} n={n} windows={sr.windows(k)} "
-        f"kernel_ms={ms:.4f} max_abs_err={err:.3e} (tol {tol:.3e}) "
-        f"bitwise_repeat=ok")
+        f"kernel_ms={ms:.4f}{'' if covered else ' (uncovered)'} "
+        f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
     return {"k": k, "n": n, "windows": sr.windows(k), "ms": ms,
-            "max_abs_err": err}
+            "covered": covered, "max_abs_err": err}
+
+
+def _hold_segment_skew(torch, gen, dev, n: int, k: int, reps: int) -> dict:
+    """segment_sum_vectors (D = 2, f64) at the group-by's shape on skewed
+    keys: half of the rows on one key (the rest uniform), and Zipf s = 1.1
+    over the K keys.  Each is held to its plain version within _tolerance
+    and bitwise across two runs, and timed beside ``index_add_``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr
+
+    zipf = 1.0 / torch.arange(1, k + 1, device=dev, dtype=torch.float64) ** 1.1
+    keys = {
+        "half_one_key": lambda: torch.where(
+            torch.rand(n, generator=gen, device=dev) < 0.5, 0,
+            torch.randint(0, k, (n,), generator=gen, device=dev)),
+        "zipf_1.1": lambda: torch.multinomial(zipf, n, replacement=True,
+                                              generator=gen),
+    }
+    out = {}
+    for case, draw in keys.items():
+        seg = draw().to(torch.int32)
+        vals = _random(torch, gen, (n, 2), torch.float64, dev)
+        acc = torch.zeros((k, 2), dtype=torch.float64, device=dev)
+        first = sr.segment_sum_vectors(seg, vals, k)
+        second = sr.segment_sum_vectors(seg, vals, k)
+        want = ref.segment_sum_vectors(seg, vals, k)
+        torch.cuda.synchronize()
+        check(torch.equal(first, second),
+              f"segment_sum_vectors[{case}]: two runs differ bitwise")
+        err = float((first - want).abs().max())
+        tol = _tolerance(torch, want, torch.float64)
+        check(err <= tol, f"segment_sum_vectors[{case}]: max |kernel - "
+                          f"plain| {err} exceeds {tol}")
+        row = _timed_row(
+            torch, f"segment_sum_vectors[{case}]",
+            lambda: sr.segment_sum_vectors(seg, vals, k),
+            lambda: ref.segment_sum_vectors(seg, vals, k),
+            lambda: acc.index_add_(0, seg, vals), reps, n * 20 + k * 16,
+            2 * n, PEAK_OPS["float64"], max_abs_err=err, tolerance=tol,
+            hottest_share=float(torch.bincount(seg, minlength=k).max()) / n)
+        out[case] = row
+        log(f"kernel segment_sum_vectors[float64,{case}] n={n} K={k} "
+            f"hottest key {row['hottest_share']:.3f} of the rows "
+            f"{_times(row)} (Tensor.index_add_) max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}) bitwise_repeat=ok")
+        del seg, vals, acc, first, second, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def _exact_err(torch, got, want) -> float:
@@ -2081,38 +2169,18 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             what = "bitwise == plain, bitwise_repeat=ok"
         check(err == 0.0, f"{name}: kernel differs from its plain version "
                           f"(max |diff| {err})")
-        reps = sizes.timing_reps
-        t_kernel = time_ms(torch, kern, reps)
-        t_plain = time_ms(torch, plain, reps)
-        t_lib = time_ms(torch, library, reps)
-        t_kernel2 = time_ms(torch, kern, reps)
-        t_device = device_ms(torch, kern, reps)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS[dtype] * 1e3
-        row = {
-            "dtype": dtype, "max_abs_err": err, "tolerance": 0.0,
-            "ms": min(t_kernel, t_kernel2), "ms_runs": [t_kernel, t_kernel2],
-            "device_ms": t_device,
-            "plain_ms": t_plain, "library_ms": t_lib,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops,
-        }
-        dev_txt = "not measured" if t_device is None else f"{t_device:.4f}"
-        log(f"kernel {name}[{dtype}] kernel_ms={row['ms']:.4f} (runs "
-            f"{t_kernel:.4f}, {t_kernel2:.4f}; profiler device_ms {dev_txt}) "
-            f"plain_ms={t_plain:.4f} "
-            f"library_ms={t_lib:.4f} ({lib_name}) "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {what}")
+        row = _timed_row(torch, name, kern, plain, library, sizes.timing_reps,
+                         nbytes, ops, PEAK_OPS[dtype], dtype=dtype,
+                         max_abs_err=err, tolerance=0.0)
+        log(f"kernel {name}[{dtype}] {_times(row)} ({lib_name}) {what}")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": tpu, "launches": launches[name],
-            "max_abs_err": err, "ms": row["ms"], "device_ms": t_device,
-            "plain_ms": t_plain,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": t_lib, "library": lib_name, "dtype": dtype,
-            "per_dtype": [row],
+            "library_ms": row["library_ms"], "library": lib_name,
+            "dtype": dtype, "per_dtype": [row],
         })
         del first, second, want
     return rows
@@ -2142,19 +2210,53 @@ def f32_body():
     return ir.Lambda((i, x), body)
 
 
-def _timed_row(torch, kern, plain, library, reps, nbytes, ops, peak,
+def _timed_row(torch, what, kern, plain, library, reps, nbytes, ops, peak,
                **extra) -> dict:
-    t_kernel = time_ms(torch, kern, reps)
-    t_plain = time_ms(torch, plain, reps)
-    t_lib = time_ms(torch, library, reps) if library is not None else None
-    t_kernel2 = time_ms(torch, kern, reps)
+    """Kernel (twice), plain version and library call timed host-free
+    (``window_ms``), beside the kernel's and the library's CUDA-event
+    times (``event_ms``, the host path included), and the bound: the
+    larger of ``nbytes`` over the HBM rate and ``ops`` over ``peak``.  A
+    host-free reading below the bound fails when ``nbytes`` exceed the
+    L2: it is a fault in the measurement."""
+    t_kernel, c_kernel = window_ms(torch, kern, reps)
+    t_plain, c_plain = window_ms(torch, plain, reps)
+    t_lib, c_lib = (window_ms(torch, library, reps) if library is not None
+                    else (None, True))
+    t_kernel2, c_kernel2 = window_ms(torch, kern, reps)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    return dict(extra, ms=min(t_kernel, t_kernel2),
-                ms_runs=[t_kernel, t_kernel2], plain_ms=t_plain,
-                library_ms=t_lib, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops)
+    row = dict(extra, ms=min(t_kernel, t_kernel2),
+               ms_runs=[t_kernel, t_kernel2], plain_ms=t_plain,
+               library_ms=t_lib, event_ms=event_ms(torch, kern, reps),
+               library_event_ms=(event_ms(torch, library, reps)
+                                 if library is not None else None),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, ops=ops, l2_resident=nbytes <= L2_BYTES,
+               uncovered=[k for k, c in (("kernel", c_kernel and c_kernel2),
+                                         ("plain", c_plain),
+                                         ("library", c_lib)) if not c])
+    if not row["l2_resident"]:
+        for key in ("ms", "plain_ms", "library_ms"):
+            check(row[key] is None or row[key] >= row["bound_ms"],
+                  f"{what}: {key} {row[key]} reads below its bound "
+                  f"{row['bound_ms']} ms ({nbytes} bytes, past the L2): a "
+                  f"fault in the measurement")
+    return row
+
+
+def _times(row: dict) -> str:
+    """The timing part of a kernel line."""
+    lib = ("none" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f}")
+    flags = (" l2_resident" if row["l2_resident"] else "") + (
+        f" uncovered={','.join(row['uncovered'])}" if row["uncovered"]
+        else "")
+    return (f"kernel_ms={row['ms']:.4f} (runs "
+            f"{', '.join(f'{x:.4f}' for x in row['ms_runs'])}; events "
+            f"{row['event_ms']:.4f}) plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}){flags}")
 
 
 def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
@@ -2237,16 +2339,15 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
         # the operations the fused function needs: each distinct
         # subtree once (the generic closure repeats the inlined ones)
         ops = n * mc.source_for(lam).ops
-        row = _timed_row(torch, kern, plain, None, reps, nbytes, ops,
+        row = _timed_row(torch, f"map_elementwise[{label}]", kern, plain,
+                         None, reps, nbytes, ops,
                          PEAK_OPS[name_of(want.dtype)], case=label,
                          dtype=name_of(want.dtype), max_abs_err=err,
                          tolerance=tol, n=n)
         per.append(row)
         log(f"kernel map_elementwise[{label}] n={n} dtype={row['dtype']} "
-            f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
-            f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"max_abs_err={err:.3e} ({kind}) bitwise_repeat=ok")
+            f"{_times(row)} max_abs_err={err:.3e} ({kind}) "
+            f"bitwise_repeat=ok")
         del cols, first, second, want
         torch.cuda.empty_cache()
     for tag, info in mc.build_info().items():
@@ -2309,18 +2410,16 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                           f"{err} exceeds {tol}")
         (m, k), n = ashape, bshape[1]
         e = a.element_size()
-        row = _timed_row(torch, kern, plain, library, reps,
+        row = _timed_row(torch, f"tiled_matmul[{label},{dt}]", kern, plain,
+                         library, reps,
                          (m * k + k * n + m * n) * e, 2 * m * n * k,
                          MATMUL_PEAK[name_of(dt)], case=label,
                          dtype=name_of(dt), shape=[m, k, n],
                          max_abs_err=err, tolerance=tol)
         per.append(row)
         log(f"kernel tiled_matmul[{label},{row['dtype']}] m,k,n={m},{k},{n} "
-            f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
-            f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} (torch.matmul) "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-            f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
+            f"{_times(row)} (torch.matmul) max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}) bitwise_repeat=ok")
         del a, b, first, second, want
         torch.cuda.empty_cache()
     main = per[0]
@@ -2361,15 +2460,14 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     check(err <= tol, f"filter_reduce_q6: |kernel - plain| {err} > {tol}")
     kept = int(torch.all((cols >= lo[:, None]) & (cols < hi[:, None]),
                          dim=0).sum())
-    row = _timed_row(torch, kern, plain, None, reps, n * (3 * 8 + 8) + 56,
+    row = _timed_row(torch, "filter_reduce_q6", kern, plain, None, reps,
+                     n * (3 * 8 + 8) + 56,
                      n * 3 * 2 + kept, PEAK_OPS["float64"], case="sf10",
                      dtype="float64", n=n, kept=kept, max_abs_err=err,
                      tolerance=tol)
     log(f"kernel filter_reduce_q6[float64] n={n} kept={kept} "
-        f"kernel_ms={row['ms']:.4f} (runs {row['ms_runs'][0]:.4f}, "
-        f"{row['ms_runs'][1]:.4f}) plain_ms={row['plain_ms']:.4f} "
-        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-        f"max_abs_err={err:.3e} (tol {tol:.3e}) bitwise_repeat=ok")
+        f"{_times(row)} max_abs_err={err:.3e} (tol {tol:.3e}) "
+        f"bitwise_repeat=ok")
     rows.append({
         "name": "filter_reduce_q6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/filter_reduce.cu",
@@ -2606,25 +2704,22 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                           * q.element_size())
                 peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
                 row.update(_timed_row(
-                    torch, kern, plain, library, sizes.timing_reps, nbytes,
+                    torch, f"flash_attention[{case}]", kern, plain, library,
+                    sizes.timing_reps, nbytes,
                     4 * nb * h * d * _attention_pairs(sq, skv, causal),
                     peak))
                 if route == "sm90":
                     # v1 on the same operands, between two kernel timings
-                    row["v1_ms"] = time_ms(
+                    row["v1_ms"], _ = window_ms(
                         torch, _v1_attention(torch, q, k, v, causal, group),
                         sizes.timing_reps)
-                    again = time_ms(torch, kern, sizes.timing_reps)
+                    again, _ = window_ms(torch, kern, sizes.timing_reps)
                     row["ms_runs"].append(again)
                     row["ms"] = min(row["ms_runs"])
-                log(f"kernel flash_attention[{case}] route={route} kernel_ms="
-                    f"{row['ms']:.4f} (runs "
-                    f"{', '.join(f'{x:.4f}' for x in row['ms_runs'])}) "
+                log(f"kernel flash_attention[{case}] route={route} "
                     + (f"v1_ms={row['v1_ms']:.4f} " if "v1_ms" in row else "")
-                    + f"plain_ms={row['plain_ms']:.4f} sdpa_ms="
-                    f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-                    f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} "
-                    f"of it)")
+                    + f"{_times(row)} (sdpa; {row['bound_ms'] / row['ms']:.3f}"
+                    f" of the bound)")
                 del qc, kc, vc
             per_case.append(row)
             del q, k, v, first, second
@@ -2737,16 +2832,11 @@ def hold_fused_adamw(torch, sizes: Sizes, seed: int, launches: dict,
                 library = lib_opt.step
             nbytes = n * (2 * p.element_size() + g.element_size() + 16)
             row.update(_timed_row(
-                torch, lambda: aw.adamw_update(p, g, m, v, lr, t),
+                torch, name, lambda: aw.adamw_update(p, g, m, v, lr, t),
                 lambda: ref.adamw_update(p, g, m, v, lr, t), library,
                 sizes.timing_reps, nbytes, 20 * n, PEAK_OPS["float32"]))
-            lib = (f"{row['library_ms']:.4f}" if library is not None
-                   else "none")
-            log(f"kernel {name} kernel_ms={row['ms']:.4f} (runs "
-                f"{row['ms_runs'][0]:.4f}, {row['ms_runs'][1]:.4f}) "
-                f"plain_ms={row['plain_ms']:.4f} "
-                f"torch.optim.AdamW(fused)_ms={lib} bound_ms="
-                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            log(f"kernel {name} {_times(row)} (library: "
+                f"torch.optim.AdamW(fused))")
             if library is not None:
                 del leaf, lib_opt, library
         log(f"kernel {name} max |kernel - plain| p, m, v "

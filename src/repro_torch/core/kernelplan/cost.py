@@ -101,10 +101,11 @@ _SEGMENTED = BINCOUNT_LAUNCHES + SEGMENT_REDUCE_LAUNCHES
 FILTER_REDUCE_SHARE = 0.1612 / 0.179
 
 #: segment_reduce.cu's share of the HBM rate by row width D: B4 (D = 1),
-#: bound 0.0601 ms over 0.290 ms; B5 (D = 2), 0.3581 ms over 2.416 ms
-#: (PERF.md kernel table).  The kernel walks 32-row tiles in dependent
-#: steps (segment_reduce.cu), so it streams well below the HBM rate.
-SEGMENT_SHARE = {1: 0.0601 / 0.290, 2: 0.3581 / 2.416}
+#: bound 0.0601 ms over 0.320 ms; B5 (D = 2), 0.3581 ms over 1.257 ms
+#: (PERF.md kernel table, host-free times).  Its owner warps spend about
+#: the same warp-wide work on every 32-row tile whatever D
+#: (segment_reduce.cu), so it streams well below the HBM rate.
+SEGMENT_SHARE = {1: 0.0601 / 0.320, 2: 0.3581 / 1.257}
 
 #: the generic keyed sum (torchgen ``_finalize_keyed``: two stable sorts
 #: and a dozen passes) per row: 40.4 ms at 59,986,052 rows
@@ -192,11 +193,11 @@ def _launches_s(count: int) -> float:
 def _segment_s(n: int, k: int, d: int, e: int) -> float:
     """One segment_sum(_vectors) call: for each window of MAX_K keys, the
     int32 ids and D values of every row streamed once at the kernel's
-    share and each block's window x D partial written and combined (the
-    wrapper's own launch shape), two launches (seg_partial, seg_combine:
-    segment_reduce.cu)."""
+    share, and each block's window x D partial written and combined (the
+    grid of the wrapper's ``launch_config``); two launches a window
+    (seg_partial, seg_combine: segment_reduce.cu)."""
     w = _sr.windows(k)
-    _, blocks = _sr.launch_config(n, min(k, _sr.MAX_K), d, e)
+    blocks = _sr.launch_config(n, min(k, _sr.MAX_K), d, e).blocks
     return (w * _hbm_s(n * (4 + d * e), SEGMENT_SHARE[min(d, 2)])
             + _hbm_s(2 * blocks * k * d * e) + _launches_s(2 * w))
 

@@ -52,11 +52,11 @@ _C_SIGNATURES = {
     "weld_filter_reduce_sum": (
         ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
         ctypes.c_int, _P, _P),
-    # (dtype, seg, vals, n, k, window, d, warps, nblocks, partials, out,
-    #  stream)
+    # (dtype, seg, vals, n, k, window, d, replicas, tiles, nblocks,
+    #  partials, out, stream)
     "weld_segment_sum": (
         ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P),
     # (dtype, cols, k, lo, hi, val, n, partials, nblocks, out, stream)
     "weld_filter_reduce_q6": (
         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P,

@@ -15,7 +15,7 @@ Results keep the value dtype and are bitwise the same from run to run.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple
 
 import torch
 
@@ -28,39 +28,96 @@ from .ref import segment_sum_vectors as segment_sum_vectors_plain
 MAX_K = 4096
 #: widest row the kernel takes (csrc kMaxD); the main path uses D <= 2
 MAX_D = 4
-#: dynamic shared memory a block may use (csrc kSmemLimit)
+#: warps of a block (csrc kWarps): every one owns keys of a replica
+WARPS = 16
+#: 32-row tiles a staged chunk holds, at most (csrc kMaxTiles) and at
+#: least
+MAX_TILES = 32
+MIN_TILES = 16
+#: dynamic shared memory a block may use (csrc kSmemLimit), an SM's shared
+#: memory and what the runtime reserves of it for each block (H100)
 SMEM_LIMIT = 232448
-MAX_WARPS = 8
-#: grid cap: two waves of the H100's 132 SMs at one block per SM
-MAX_BLOCKS = 264
-#: 32-row tiles each warp takes at least before the grid grows
-MIN_TILES_PER_WARP = 16
+SMEM_PER_SM = 233472
+BLOCK_RESERVED = 1024
+SMS = 132
+#: grid cap: one wave of the H100's 132 SMs at two blocks an SM
+MAX_BLOCKS = 2 * SMS
+#: chunks each block takes at least before the grid grows
+MIN_CHUNKS_PER_BLOCK = 4
 
 
-def launch_config(n: int, k: int, d: int, itemsize: int) -> Tuple[int, int]:
-    """(warps per block, blocks) of the partial launch; raises for a
-    shape the kernel does not take.  Every warp holds a private K x D
-    accumulator in shared memory, so K * D * itemsize bounds the warps
-    per block.  The shape depends only on the call's sizes, which fixes
-    the summation order."""
+class Launch(NamedTuple):
+    """The partial launch: blocks of WARPS warps holding ``replicas``
+    accumulators (WARPS // replicas owners each) and staging ``tiles``
+    32-row tiles a chunk; ``per_sm`` blocks resident on an SM,
+    ``blocks`` in the grid."""
+    replicas: int
+    tiles: int
+    per_sm: int
+    blocks: int
+
+    @property
+    def warps_per_sm(self) -> int:
+        return WARPS * self.per_sm
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def smem_bytes(k: int, d: int, itemsize: int, replicas: int,
+               tiles: int) -> int:
+    """Shared memory of one block (csrc ``smem_bytes``): the replicas'
+    K x D accumulators (each owner's keys padded to a whole share) and
+    their election tags (4 bytes a slot), two chunk buffers of ids and
+    values, and the owner masks."""
+    owners = WARPS // replicas
+    slots = replicas * owners * -(-k // owners)
+    return (_align16(slots * d * itemsize) + _align16(slots * 4)
+            + 2 * tiles * 32 * (4 + d * itemsize) + tiles * owners * 4)
+
+
+def launch_config(n: int, k: int, d: int, itemsize: int) -> Launch:
+    """The partial launch for one window of K keys; raises for a shape the
+    kernel does not take.  Two blocks an SM where they fit, else one.  A
+    block keeps as many replicas of the K x D accumulator as fit beside
+    chunks of MAX_TILES tiles (16 at small K: every warp its own replica,
+    owning every key); where not even one does, one replica and the
+    largest chunk that fits, of at least MIN_TILES tiles.  The shape
+    depends only on the call's sizes, which fixes the summation order."""
     if not 1 <= d <= MAX_D:
         raise ValueError(f"segment_sum kernel takes rows of 1 to {MAX_D} "
                          f"values, got D={d}")
-    per_warp = k * d * itemsize
-    if per_warp > SMEM_LIMIT:
-        raise ValueError(
-            f"segment_sum kernel keeps a K x D accumulator per warp in shared "
-            f"memory: K={k} D={d} x {itemsize} B exceeds {SMEM_LIMIT} B")
-    warps = min(MAX_WARPS, SMEM_LIMIT // per_warp)
-    tiles = math.ceil(n / 32)
-    blocks = max(1, min(MAX_BLOCKS,
-                        math.ceil(tiles / (warps * MIN_TILES_PER_WARP))))
-    return warps, blocks
+    for per_sm in (2, 1):
+        budget = min(SMEM_LIMIT, SMEM_PER_SM // per_sm - BLOCK_RESERVED)
+        shape = next(((r, MAX_TILES) for r in (16, 8, 4, 2, 1)
+                      if smem_bytes(k, d, itemsize, r, MAX_TILES) <= budget),
+                     None)
+        if shape is None:
+            fits = [t for t in range(MIN_TILES, MAX_TILES)
+                    if smem_bytes(k, d, itemsize, 1, t) <= budget]
+            shape = (1, max(fits)) if fits else None
+        if shape is not None:
+            replicas, tiles = shape
+            chunks = math.ceil(n / (32 * tiles))
+            blocks = max(1, min(SMS * per_sm,
+                                math.ceil(chunks / MIN_CHUNKS_PER_BLOCK)))
+            return Launch(replicas, tiles, per_sm, blocks)
+    raise ValueError(
+        f"segment_sum kernel keeps a K x D accumulator in shared memory: "
+        f"K={k} D={d} x {itemsize} B and its chunk buffers exceed "
+        f"{SMEM_LIMIT} B")
 
 
 def windows(k: int) -> int:
     """Passes of the kernel over the rows for K keys: one a MAX_K keys."""
     return max(1, math.ceil(k / MAX_K))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (a view at an offset): the kernel stages rows with 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
@@ -79,17 +136,18 @@ def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((k, d), dtype=vals.dtype, device=vals.device)
     if n == 0:
         return out.zero_()
+    seg, vals = _aligned(seg), _aligned(vals)
     window = min(k, MAX_K)
-    warps, blocks = launch_config(n, window, d, vals.element_size())
-    partials = torch.empty((blocks, window, d), dtype=vals.dtype,
+    cfg = launch_config(n, window, d, vals.element_size())
+    partials = torch.empty((cfg.blocks, window, d), dtype=vals.dtype,
                            device=vals.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     with torch.cuda.device(vals.device):
         rc = lib.weld_segment_sum(
             DTYPE_CODES[vals.dtype], seg.data_ptr(), vals.data_ptr(), n, k,
-            window, d, warps, blocks, partials.data_ptr(), out.data_ptr(),
-            stream)
+            window, d, cfg.replicas, cfg.tiles, cfg.blocks,
+            partials.data_ptr(), out.data_ptr(), stream)
     _build.check(rc, "segment_sum kernel launch")
     return out
 

@@ -1,7 +1,8 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
-shapes, ``filter_reduce_q6`` on exact data and ``segment_sum`` past
-MAX_K keys (its windows), each against its plain
+shapes, ``filter_reduce_q6`` on exact data and the segment kernel
+(``segment_sum``, ``segment_sum_vectors``) on uniform, one-key and Zipf
+keys, K past MAX_K (its windows), every D and dtype, each against its plain
 version on the same CUDA tensors; the LM's ``flash_attention`` against
 ``ref.attention`` on both of its routes (every bf16 call with D in
 {64, 128} counted on the Hopper route, ``.launches_sm90``, the rest on
@@ -260,6 +261,93 @@ def test_segment_sum_takes_any_k_in_windows(k, d, n, dtype, gpu):
         assert float((col - want[:, 0]).abs().max()) <= tol
     else:
         assert torch.equal(col, want[:, 0])
+
+
+#: the segment kernel's cases: (keys, K, n).  4095 keys split unevenly
+#: over a replica's 16 owners; 9,000 keys take three windows; 31 rows are
+#: fewer than a tile; 3 * 800 + 17 rows end in a ragged chunk
+SEGMENT_CASES = [
+    ("uniform", 4096, 1_000_003), ("one_key", 4096, 300_001),
+    ("zipf", 4096, 1_000_003), ("uniform", 1, 70_001),
+    ("uniform", 4095, 100_000), ("uniform", 3, 5_000),
+    ("uniform", 9_000, 200_003), ("out_of_range", 4096, 100_003),
+    ("uniform", 100, 31), ("uniform", 4096, 3 * 800 + 17),
+]
+
+
+def _segment_ids(keys, k, n, gen, dev):
+    if keys == "one_key":
+        return torch.full((n,), k // 2, dtype=torch.int32, device=dev)
+    if keys == "zipf":  # Zipf s = 1.1 over the K keys
+        w = 1.0 / torch.arange(1, k + 1, device=dev,
+                               dtype=torch.float64) ** 1.1
+        return torch.multinomial(w, n, replacement=True,
+                                 generator=gen).to(torch.int32)
+    lo, hi = (-3, k + 3) if keys == "out_of_range" else (0, k)
+    return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def _held_to_plain(got, again, want, dtype):
+    """Bitwise the same twice; integers exact, floats within f64 rtol
+    1e-10 / f32 1e-5 of the largest |plain| (chip_smoke's _tolerance:
+    the kernel sums in another order than the plain version)."""
+    assert torch.equal(got, again), "two runs differ bitwise"
+    got, want = got.cpu(), want.cpu()
+    if not dtype.is_floating_point:
+        assert torch.equal(got, want)
+        return
+    rtol = 1e-5 if dtype == torch.float32 else 1e-10
+    tol = rtol * max(float(want.abs().max()), 1.0)
+    assert float((got.double() - want.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64,
+                                   torch.int32, torch.int64))
+@pytest.mark.parametrize("keys,k,n", SEGMENT_CASES)
+def test_segment_kernel_matches_the_plain_version(keys, k, n, dtype, d, gpu):
+    """B5 (segment_sum_vectors) and, at D = 1, B4 (segment_sum) against
+    their plain versions on the same CUDA tensors: uniform, one-key and
+    Zipf keys, K of 1, uneven over the owners and past one window, ids
+    out of range, ragged n; no plain call.  Values are multiples of 1/8
+    below 125 in size, so every float sum here is exact in any order."""
+    from repro_torch.kernels import segment_reduce as t_sr
+
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(k * 7 + n + d)
+    seg = _segment_ids(keys, k, n, gen, gpu)
+    vals = torch.randint(-1000, 1000, (n, d), generator=gen, device=gpu)
+    vals = vals.to(dtype) / 8 if dtype.is_floating_point else vals.to(dtype)
+    before = (t_sr.segment_sum_vectors.plain_calls,
+              t_sr.segment_sum.plain_calls)
+    got = t_sr.segment_sum_vectors(seg, vals, k)
+    again = t_sr.segment_sum_vectors(seg, vals, k)
+    _held_to_plain(got, again, t_ref.segment_sum_vectors(seg, vals, k),
+                   dtype)
+    if d == 1:
+        col = vals[:, 0].contiguous()
+        _held_to_plain(t_sr.segment_sum(seg, col, k),
+                       t_sr.segment_sum(seg, col, k),
+                       t_ref.segment_sum(seg, col, k), dtype)
+    assert (t_sr.segment_sum_vectors.plain_calls,
+            t_sr.segment_sum.plain_calls) == before
+
+
+@pytest.mark.parametrize("keys", ["uniform", "one_key", "zipf"])
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_segment_kernel_on_continuous_values(keys, dtype, gpu):
+    """Values in [0, 1): sums that round, held within the tolerance."""
+    from repro_torch.kernels import segment_reduce as t_sr
+
+    k, n = 4096, 200_003 if keys != "one_key" else 20_003
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(n)
+    seg = _segment_ids(keys, k, n, gen, gpu)
+    vals = torch.rand((n, 2), generator=gen, device=gpu, dtype=dtype)
+    _held_to_plain(t_sr.segment_sum_vectors(seg, vals, k),
+                   t_sr.segment_sum_vectors(seg, vals, k),
+                   t_ref.segment_sum_vectors(seg, vals, k), dtype)
 
 
 @pytest.mark.parametrize("k,n", [(1, 1), (3, 3001), (3, 1_000_003), (8, 777)])

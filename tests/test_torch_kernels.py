@@ -176,27 +176,42 @@ def test_segment_wrapper_keeps_the_reference_size_rule():
     ops.reset_counts()
 
 
-@pytest.mark.parametrize("k,d,itemsize,warps", [
-    (4096, 2, 8, 3), (4096, 1, 8, 7), (4096, 1, 4, 8), (64, 2, 8, 8),
+@pytest.mark.parametrize("k,d,itemsize,replicas,tiles,per_sm", [
+    (4096, 2, 8, 1, 25, 2), (4096, 1, 8, 1, 32, 2), (4096, 1, 4, 2, 32, 2),
+    (64, 2, 8, 16, 32, 2), (4096, 4, 8, 1, 32, 1),
 ])
-def test_segment_launch_shape(k, d, itemsize, warps):
-    w, blocks = t_sr.launch_config(59_986_052, k, d, itemsize)
-    assert w == warps
-    assert w * k * d * itemsize <= t_sr.SMEM_LIMIT
-    assert blocks == t_sr.MAX_BLOCKS
-    assert t_sr.launch_config(100, k, d, itemsize)[1] == 1
+def test_segment_launch_shape(k, d, itemsize, replicas, tiles, per_sm):
+    cfg = t_sr.launch_config(59_986_052, k, d, itemsize)
+    assert (cfg.replicas, cfg.tiles, cfg.per_sm) == (replicas, tiles, per_sm)
+    smem = t_sr.smem_bytes(k, d, itemsize, cfg.replicas, cfg.tiles)
+    assert smem <= t_sr.SMEM_LIMIT
+    assert per_sm * (smem + t_sr.BLOCK_RESERVED) <= t_sr.SMEM_PER_SM
+    assert cfg.blocks == t_sr.SMS * per_sm
+    assert t_sr.launch_config(100, k, d, itemsize).blocks == 1
     with pytest.raises(ValueError, match="accumulator"):
         t_sr.launch_config(10, 4096, 4, 16)
     with pytest.raises(ValueError, match="rows of 1 to"):
         t_sr.launch_config(10, 8, t_sr.MAX_D + 1, 8)
 
 
+def test_segment_launch_holds_16_warps_an_sm_at_the_groupby_shape():
+    """K = 4096, D = 2, f64 (B5): the warps an SM holds no longer shrink
+    with K x D x itemsize (the first version held 3)."""
+    cfg = t_sr.launch_config(59_986_052, 4096, 2, 8)
+    assert cfg.warps_per_sm >= 16
+    assert t_sr.WARPS % cfg.replicas == 0
+
+
 @pytest.mark.parametrize("k,passes", [(1, 1), (4096, 1), (4097, 2),
                                       (20_000, 5), (50_000, 13)])
 def test_segment_kernel_takes_any_k_in_windows(k, passes):
     assert t_sr.windows(k) == passes
-    # each window's launch shape fits the accumulator at the widest row
-    assert t_sr.launch_config(10, min(k, t_sr.MAX_K), 2, 8)[0] >= 1
+    # each window's launch shape fits shared memory at the widest row
+    for d, itemsize in ((2, 8), (t_sr.MAX_D, 8)):
+        cfg = t_sr.launch_config(10, min(k, t_sr.MAX_K), d, itemsize)
+        assert cfg.tiles >= t_sr.MIN_TILES and cfg.tiles % cfg.replicas == 0
+        assert t_sr.smem_bytes(min(k, t_sr.MAX_K), d, itemsize, cfg.replicas,
+                               cfg.tiles) <= t_sr.SMEM_LIMIT
 
 
 def test_filter_reduce_grid_depends_only_on_n():
