@@ -30,10 +30,12 @@ kernels/csrc`` and then
    capacity, regrown until they fit; every other phase must not have
    climbed the ladder), Black-Scholes over 33,554,432 options as a
    price vector and as a sum, logistic-regression scoring through
-   ``weldflow`` (4,194,304 x 64, sessions native, xla and weld) and a
-   ``weldnp`` 4096 x 4096 matmul — each checked against numpy computed
-   here — and LM serving (``repro_torch.launch.serve``: Llama 3.2 3B at
-   full width and depth in bf16 on random weights, 4 prompts of 2,048
+   ``weldflow`` (4,194,304 x 64, sessions native, xla and weld) and
+   ``weldnp`` 4096 x 4096 matmuls in f64 and in f32 (the f32 product also
+   under "auto"; each f32 element within its rounding bound) — each
+   checked against numpy computed here — and LM serving
+   (``repro_torch.launch.serve``: Llama 3.2 3B at full width and depth
+   in bf16 on random weights, 4 prompts of 2,048
    tokens and 32 generated; each layer's prefill attention against
    ``ref.attention``, teacher-forced decode against prefill, runs bitwise
    equal, and a 2-layer f32 copy on the card against the CPU; every bf16
@@ -51,7 +53,8 @@ kernels/csrc`` and then
    on the card at the phases' shapes, for every dtype its planner spec
    takes (segment_sum also past 4,096 keys, at the gate's 20,000-key
    join build, which its kernel sums in windows; the map chain on the Black-Scholes and logreg bodies the
-   phases routed and on an f32 body; flash_attention at the prefill's
+   phases routed and on an f32 body; group_probe also against 4,096 and
+   65,536 keys; flash_attention at the prefill's
    and the train micro-batch's shapes (timed beside v1 on the same
    operands and SDPA), a ragged S, Sq < Skv and in f32, each element
    within a limit tied to its own size, which two planted faults built
@@ -178,6 +181,9 @@ class MainPath:
         self.seed = seed
         self.launches = {name: 0 for name in ops.WRAPPERS}
         self.launches[SM90] = 0
+        #: the launches of each phase, by wrapper (a kernel row that
+        #: times one shape of a wrapper reports its phase's count)
+        self.by_phase = {}
         self.phase_ms = {}
         #: map-chain bodies (IR lambdas) the phases routed, by phase
         self.bodies = {}
@@ -199,8 +205,10 @@ class MainPath:
         wall = (time.perf_counter() - t0) * 1e3
         counts = self.ops.counts()
         self.last_counts = counts
+        mine = self.by_phase.setdefault(phase, {})
         for name, (launches, _) in counts.items():
             self.launches[name] += launches
+            mine[name] = mine.get(name, 0) + launches
         routed = {k[len("kernelize."):]: v for k, v in stats.items()
                   if k.startswith("kernelize.") and k != "kernelize.matched"}
         key = f"{phase}[{mode}]"
@@ -1149,8 +1157,14 @@ def phase_logreg(mp: MainPath) -> None:
 
 
 def phase_matmul(mp: MainPath) -> None:
-    """A weldnp dot of two square f64 matrices: the tiled kernel under
-    "always", torch.matmul under "off"."""
+    """weldnp dots of two square matrices: f64 (the tiled kernel under
+    "always", torch.matmul under "off"), then the same matrices rounded to
+    f32 (``matmul.f32``: the kernel under "always" twice, bitwise equal;
+    torch.matmul under "off"; "auto" takes the route the gate prices
+    cheaper), each f32 result held element by element to the rounding
+    bound of a k-term f32 dot product, gamma_k (|A| |B|), gamma_k =
+    k u / (1 - k u) and u = 2**-24, around numpy's f64 product of the
+    same f32 inputs."""
     from repro_torch.core.lazy import Evaluate
     from repro_torch.frames import weldnp
 
@@ -1159,17 +1173,49 @@ def phase_matmul(mp: MainPath) -> None:
     a, b = rng.rand(side, side), rng.rand(side, side)
     want = a @ b
 
-    def product(mode, stats):
-        return Evaluate(weldnp.array(a).dot(weldnp.array(b)).obj,
-                        kernelize=mode, collect_stats=stats).value
+    def product(x, y):
+        def run(mode, stats):
+            return Evaluate(weldnp.array(x).dot(weldnp.array(y)).obj,
+                            kernelize=mode, collect_stats=stats).value
+        return run
 
     for mode in ("always", "always", "off"):
-        got, _ = mp.run("matmul", mode, product,
+        got, _ = mp.run("matmul", mode, product(a, b),
                         expect=[("matmul", "tiled_matmul")])
         got = np.asarray(got)
         check(got.shape == want.shape, f"matmul[{mode}]: shape {got.shape}")
         err = float(np.abs(got - want).max() / np.abs(want).max())
         check(err <= 1e-10, f"matmul[{mode}]: relative error {err}")
+
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    del a, b, want
+    exact = a32.astype(np.float64) @ b32.astype(np.float64)
+    ku = side * 2.0 ** -24
+    # the inputs are nonnegative, so |A| |B| is the product itself
+    bound = ku / (1.0 - ku) * exact
+    runs = []
+    for mode in ("always", "always", "off", "auto"):
+        got, stats = mp.run("matmul.f32", mode, product(a32, b32),
+                            expect=[("matmul", "tiled_matmul")])
+        got = np.asarray(got)
+        check(got.dtype == np.float32 and got.shape == exact.shape,
+              f"matmul.f32[{mode}]: {got.dtype} {got.shape}")
+        worst = float((np.abs(got - exact) / bound).max())
+        check(worst <= 1.0, f"matmul.f32[{mode}]: an element {worst} times "
+                            f"its rounding bound from the exact product")
+        routed = stats.get("kernelize.matmul", 0) > 0
+        launched = mp.last_counts["tiled_matmul"][0]
+        check(launched == (1 if routed else 0),
+              f"matmul.f32[{mode}]: routed={routed}, {launched} launches")
+        if mode == "off":
+            check(not routed, "matmul.f32[off]: the kernel route was taken")
+        log(f"  matmul.f32[{mode}]: route "
+            f"{'tiled_matmul' if routed else 'torch.matmul'}, largest "
+            f"|error| / bound {worst:.4f}")
+        if mode == "always":
+            runs.append(got)
+    check(np.array_equal(runs[0].view(np.uint32), runs[1].view(np.uint32)),
+          "matmul.f32[always]: two runs differ bitwise")
 
 
 # -- the LM serving path ---------------------------------------------------------
@@ -2082,12 +2128,64 @@ def _exact_err(torch, got, want) -> float:
                if g.numel() else 0.0 for g, w in zip(got, want))
 
 
+#: group_probe's other tables: the whole key column in one bucket-indexed
+#: block of splitters (4,096 keys), and MAX_CAP (65,536 keys)
+PROBE_TABLES = (4096, 65_536)
+
+
+def _hold_group_probe_tables(torch, gen, dev, n: int, reps: int) -> list:
+    """group_probe at each of PROBE_TABLES: sorted distinct keys drawn from
+    [0, 2K), CSR offsets of 4 rows a group, n queries drawn from [0, 2K)
+    (about half of them hit), each result equal to the plain version's and
+    bitwise the same twice; timed beside torch.searchsorted."""
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ref
+
+    rows = []
+    for k in PROBE_TABLES:
+        keys = torch.sort(torch.randperm(2 * k, generator=gen, device=dev)
+                          [:k]).values.to(torch.int64)
+        offsets = torch.arange(0, 4 * k + 1, 4, dtype=torch.int32,
+                               device=dev)
+        count = torch.tensor(k, device=dev)
+        queries = torch.randint(0, 2 * k, (n,), generator=gen, device=dev)
+
+        def kern(keys=keys, offsets=offsets, count=count, queries=queries):
+            return hp.group_probe(keys, offsets, count, queries)
+
+        def plain(keys=keys, offsets=offsets, count=count, queries=queries):
+            return ref.group_probe(keys, offsets, count, queries)
+
+        first, second, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"group_probe[{k} keys]: two runs differ bitwise")
+        err = _exact_err(torch, first, want)
+        check(err == 0.0, f"group_probe[{k} keys]: kernel differs from its "
+                          f"plain version (max |diff| {err})")
+        row = _timed_row(
+            torch, f"group_probe[{k} keys]", kern, plain,
+            lambda keys=keys, queries=queries: torch.searchsorted(keys,
+                                                                  queries),
+            reps, n * (8 + 4 + 1 + 4) + k * 8 + (k + 1) * 4 + 8,
+            n * max(int(np.ceil(np.log2(k))), 1), PEAK_OPS["int64"],
+            dtype="int64", case=f"{k} keys", keys=k, n=n, max_abs_err=err,
+            tolerance=0.0, hits=int(first[1].sum()))
+        log(f"kernel group_probe[int64, {k} keys] n={n} hits={row['hits']} "
+            f"{_times(row)} (torch.searchsorted) bitwise == plain, "
+            f"bitwise_repeat=ok")
+        rows.append(row)
+        del keys, offsets, queries, first, second, want
+    return rows
+
+
 def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                       dev="cuda") -> list:
     """The join's four kernels at the join phases' shapes: dict_probe at
     the m:1 probe (59,986,052 order dates against 365 date keys),
     group_probe at the m:n probe (16,777,216 part keys against 50,000
-    groups), hash_to_slot and slot_hist at the m:n build (200,000 rows).
+    groups; also against 4,096 and 65,536 keys), hash_to_slot and
+    slot_hist at the m:n build (200,000 rows).
     The probes and the histogram must equal their plain versions bitwise
     and repeat bitwise; hash_to_slot is held to its contract, and its
     compacted slots to the plain version's, run after run."""
@@ -2173,6 +2271,11 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                          nbytes, ops, PEAK_OPS[dtype], dtype=dtype,
                          max_abs_err=err, tolerance=0.0)
         log(f"kernel {name}[{dtype}] {_times(row)} ({lib_name}) {what}")
+        per_dtype = [row]
+        if name == "group_probe":
+            row["case"] = f"{parts} keys"
+            per_dtype += _hold_group_probe_tables(
+                torch, gen, dev, n_mn, sizes.timing_reps)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -2180,7 +2283,7 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": lib_name,
-            "dtype": dtype, "per_dtype": [row],
+            "dtype": dtype, "per_dtype": per_dtype,
         })
         del first, second, want
     return rows
@@ -2260,11 +2363,14 @@ def _times(row: dict) -> str:
 
 
 def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
-                       bodies: dict, dev="cuda") -> list:
+                       bodies: dict, by_phase: dict, dev="cuda") -> list:
     """The array path's three kernels at the phases' shapes:
     map_elementwise on the Black-Scholes body (33,554,432 options), the
     logreg body (4,194,304 logits) and an f32 body; tiled_matmul at 4096^3
-    in f64 and f32 and at the logreg matvec (4,194,304 x 64); and
+    in f64 and f32 and at the logreg matvec (4,194,304 x 64) in f64 and
+    f32, each case with the launches of the phase that runs it
+    (``by_phase``: matmul, matmul.f32, logreg.weld; no phase runs an f32
+    matvec); and
     filter_reduce_q6 in f64 at SF10.  Each runs twice (bitwise equal) and
     is held against its plain version: bitwise where the arithmetic is
     IEEE-exact on both sides, else to the stated tolerance."""
@@ -2384,11 +2490,14 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
 
     # -- B10: tiled_matmul --------------------------------------------------
     side = sizes.matmul
-    cases = [("square", torch.float64, (side, side), (side, side)),
-             ("square", torch.float32, (side, side), (side, side)),
-             ("matvec", torch.float64, (n_lr, d_lr), (d_lr, 1))]
+    cases = [("square", torch.float64, (side, side), (side, side), "matmul"),
+             ("square", torch.float32, (side, side), (side, side),
+              "matmul.f32"),
+             ("matvec", torch.float64, (n_lr, d_lr), (d_lr, 1),
+              "logreg.weld"),
+             ("matvec", torch.float32, (n_lr, d_lr), (d_lr, 1), None)]
     per = []
-    for label, dt, ashape, bshape in cases:
+    for label, dt, ashape, bshape, phase in cases:
         a, b = uni(ashape, 0, 1, dt), uni(bshape, 0, 1, dt)
 
         def kern(a=a, b=b):
@@ -2415,11 +2524,14 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                          (m * k + k * n + m * n) * e, 2 * m * n * k,
                          MATMUL_PEAK[name_of(dt)], case=label,
                          dtype=name_of(dt), shape=[m, k, n],
-                         max_abs_err=err, tolerance=tol)
+                         max_abs_err=err, tolerance=tol,
+                         launches=by_phase.get(phase, {}).get(
+                             "tiled_matmul", 0), phase=phase)
         per.append(row)
         log(f"kernel tiled_matmul[{label},{row['dtype']}] m,k,n={m},{k},{n} "
             f"{_times(row)} (torch.matmul) max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}) bitwise_repeat=ok")
+            f"(tol {tol:.3e}) bitwise_repeat=ok launches={row['launches']} "
+            f"({phase})")
         del a, b, first, second, want
         torch.cuda.empty_cache()
     main = per[0]
@@ -2929,7 +3041,8 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
-    kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies)
+    kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies,
+                                  mp.by_phase)
     kernels += hold_attention_kernel(torch, sizes, seed, mp.launches)
     kernels += hold_fused_adamw(torch, sizes, seed, mp.launches)
     check(sorted(r["name"] for r in kernels)

@@ -134,13 +134,41 @@ RANDOM_RMW_BYTES = 64.0
 #: tiled_matmul.cu's and torch.matmul's shares of their peaks at 4096^3
 #: and at the 4,194,304 x 64 matvec (PERF.md kernel table, B10): f64 on
 #: DMMA, bound 2.0513 ms over 2.784 (kernel) and 2.452 ms (library); f32
-#: on the CUDA cores over 5.773 and 2.657 ms; the matvec's byte bound
-#: 0.6511 ms over 0.770 and 0.730 ms
+#: on the CUDA cores (the SGEMM) over 3.2128 and 2.6578 ms; the matvec's
+#: byte bound 0.6511 ms over 0.770 and 0.730 ms
 MATMUL_SHARE = {
     ("kernel", 8): 2.0513 / 2.784, ("library", 8): 2.0513 / 2.452,
-    ("kernel", 4): 2.0513 / 5.773, ("library", 4): 2.0513 / 2.657,
+    ("kernel", 4): 2.0513 / 3.2128, ("library", 4): 2.0513 / 2.6578,
 }
 MATVEC_SHARE = {"kernel": 0.6511 / 0.770, "library": 0.6511 / 0.730}
+
+#: group_probe's kernel (hash_probe.cu ``group_search``) per query: its
+#: 8 B key read, 9 B of outputs written and, on a hit, its group's two
+#: offsets (8 B); past GROUP_PROBE_STAGED keys a block stages every S-th
+#: key and a query also reads a key between two splitters (a 32 B
+#: sector).  Each block stages the key column (8 B a key) and the offsets
+#: are read once (4 B a key).
+GROUP_PROBE_QUERY_BYTES = 8 + 9 + 8
+GROUP_PROBE_WINDOW_BYTES = 32
+GROUP_PROBE_STAGED = 54_000
+
+#: group_probe's host-free ms at 16,777,216 queries by key count (PERF.md
+#: kernel table, B9): the column staged whole and staged every 2nd key
+GROUP_PROBE_MS = {50_000: 0.1628, 65_536: 0.3520}
+
+
+def _group_probe_bytes(n: int, k: int) -> float:
+    window = GROUP_PROBE_WINDOW_BYTES if k > GROUP_PROBE_STAGED else 0
+    return n * (GROUP_PROBE_QUERY_BYTES + window) + k * 12.0
+
+
+#: group_probe's share of the HBM rate on those bytes, by whether a query
+#: reads the table (k > GROUP_PROBE_STAGED)
+GROUP_PROBE_SHARE = {
+    k > GROUP_PROBE_STAGED:
+        _group_probe_bytes(16_777_216, k) / HW_H100["hbm_bw"] / (ms * 1e-3)
+    for k, ms in GROUP_PROBE_MS.items()
+}
 
 #: a vectorized binary search (the generic dict-probe lowering) issues
 #: log2(K) dependent random loads per row; each achieves this many
@@ -388,10 +416,17 @@ def cost_group_build(meta: dict) -> CostEstimate:
     return _decide(kernel_s, jnp_s, f"n={n} K={k} keys={nk}")
 
 
+def _group_probe_s(n: int, k: int) -> float:
+    """One group_probe launch: its bytes (:func:`_group_probe_bytes`) at
+    the share of the HBM rate the kernel reached on the card."""
+    return _hbm_s(_group_probe_bytes(n, k),
+                  GROUP_PROBE_SHARE[k > GROUP_PROBE_STAGED])
+
+
 def cost_group_probe(meta: dict) -> CostEstimate:
-    """m:n fan-out probe: the fused binary-search membership +
-    match-count kernel (priced as :func:`cost_hash_probe`'s search, plus
-    the 4 B size per query) vs. the generic vectorized binary search.
+    """m:n fan-out probe: the fused membership + match-count kernel
+    (:func:`_group_probe_s`: its traffic at its measured share of the HBM
+    rate) vs. the generic vectorized binary search.
     BOTH routes then pay the shared two-phase expansion (exclusive scan
     + repeat/gather into the static expansion buffer), priced by the
     expansion factor ``out``/``n`` the planner lifts off the vecbuilder
@@ -407,8 +442,8 @@ def cost_group_probe(meta: dict) -> CostEstimate:
     lgk = _search_loads(k)
     # scan + out-row binary search + per-column repeated/gathered output
     expand_bytes = n * 8.0 + out * (8 + cols * e)
-    k_bytes = n * (8 + 4 + 1 + 4) + k * 8 + n * 8 * lgk + expand_bytes
-    kernel_s = _hbm_s(k_bytes) + _launches_s(10)
+    kernel_s = (_group_probe_s(n, k) + _hbm_s(expand_bytes)
+                + _launches_s(10))
     jnp_s = (_hbm_s(n * 8 * lgk * BSEARCH_PENALTY + expand_bytes)
              + _launches_s(15))
     return _decide(kernel_s, jnp_s,

@@ -29,9 +29,15 @@
 //    size of 0 (zero fill) and masked on store: no host padding.  The tile
 //    index is a 1-D grid, rasterised in bands of kGroupM tile rows, so
 //    that the blocks in flight share their A and B panels in L2.
-//  * f32 tiles (n > 1) on the FP32 CUDA cores: one 64 x 64 output tile
-//    per block of 256 threads, each holding a 4 x 4 register micro-tile,
-//    A and B staged through shared memory 16 k-columns at a time.
+//  * f32 tiles (n > 1) on the FP32 CUDA cores, a register-blocked
+//    SGEMM: one 128 x 128 output tile per block of 256 threads, each
+//    thread an 8 x 8 micro-tile (64 f32 accumulators), four 128-bit
+//    shared loads a k step for 64 FMAs (the design before it, 64 x 64
+//    tiles and 4 x 4 micro-tiles, issued one scalar shared load for every
+//    two FMAs and was bound by shared-memory issue).  k-slabs of 8 go
+//    through two buffers, B by cp.async, A by register prefetch stored
+//    transposed; 16-byte copies where every row starts on 16 bytes, else
+//    4-byte ones; the same 1-D rasterised grid as the f64 tiles.
 //  * rows (n = 1): a square tile would leave all but one column idle, so
 //    a warp takes a row at a time (grid-stride), its lanes read the row
 //    coalesced, and a fixed shuffle tree sums the 32 lane sums.
@@ -263,78 +269,251 @@ cudaError_t launch_f64_tiles(const void* a, const void* b, void* c,
              : launch_dmma<false>(pa, pb, pc, m, n, k, s);
 }
 
-// -- f32 on the CUDA cores --------------------------------------------------
+// -- f32 on the FP32 CUDA cores ---------------------------------------------
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
-constexpr int kTileThreads = (kBM / kTM) * (kBN / kTN);  // 256
-constexpr int kSide = kBN / kTN;                          // 16
+// A register-blocked SGEMM: one 128 x 128 output tile per block of 8 warps
+// (4 x 2), each warp a 32 x 64 tile, each thread an 8 x 8 micro-tile of
+// f32 accumulators split 2 x (4 x 4): rows lr*4 .. +3 and 16 + lr*4 .. +3
+// of its warp's tile, columns lc*4 .. +3 and 32 + lc*4 .. +3 (lane =
+// 8 lr + lc).  A k step reads four float4 from shared memory (LDS.128) for
+// 64 FMAs: a warp's A reads cover 4 distinct float4 (64 bytes) and its B
+// reads 8 (128 bytes), each one wavefront.  A's k-slab is stored
+// transposed (k-major, rows padded to 132 floats, so that the transposing
+// stores of a warp hit 32 distinct banks); B's row-major.  Slabs of 8 k go
+// through two buffers: while the warps multiply one, B's next slab comes
+// in by cp.async and A's next by 16-byte register loads, stored
+// transposed after the multiply; one __syncthreads a slab.
+constexpr int kSBM = 128;
+constexpr int kSBN = 128;
+constexpr int kSBK = 8;
+constexpr int kSThreads = 256;
+constexpr int kSWarpsN = 2;                               // 4 x 2 warps
+constexpr int kSWM = kSBM / (kSThreads / 32 / kSWarpsN);  // 32 rows a warp
+constexpr int kSWN = kSBN / kSWarpsN;                     // 64 columns a warp
+constexpr int kLanesN = kSWN / 8;  // lanes along a warp's columns
+static_assert((32 / kLanesN) * 8 == kSWM, "8 x 8 per lane fills the warp");
+constexpr int kSAStride = kSBM + 4;  // floats per k row of the A slab
+constexpr int kSBStride = kSBN;      // floats per k row of the B slab
+constexpr int kSAStage = kSBK * kSAStride;
+constexpr int kSBStage = kSBK * kSBStride;
+constexpr int kSAPer = kSBM * kSBK / 4 / kSThreads;  // float4 of A a thread
+constexpr int kSBPer = kSBK * kSBN / 4 / kSThreads;  // float4 of B a thread
+static_assert(kSAPer * 4 * kSThreads == kSBM * kSBK, "A slab in float4");
+static_assert(kSBPer * 4 * kSThreads == kSBK * kSBN, "B slab in float4");
 
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-mm_tiles(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-         int64_t m, int64_t n, int64_t k) {
-  __shared__ T as[kBK][kBM + 1];  // as[kk][row]: the A tile, transposed
-  __shared__ T bs[kBK][kBN];
-  const int tx = threadIdx.x % kSide;
-  const int ty = threadIdx.x / kSide;
-  const int64_t tiles_m = (m + kBM - 1) / kBM;
-  const int64_t row0 = (static_cast<int64_t>(blockIdx.x) % tiles_m) * kBM;
-  const int64_t col0 = (static_cast<int64_t>(blockIdx.x) / tiles_m) * kBN;
-  T acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = T(0);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool in) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(gmem), "r"(in ? 4 : 0));
+}
+
+// The thread's float4 `q` of A's slab at k0: row (tid + q * kSThreads) /
+// (kSBK / 4) of the tile, 4 k columns; zero where out of range.  kVec: k
+// is a multiple of 4 and A starts on 16 bytes, so the 4 move as one float4.
+template <bool kVec>
+__device__ __forceinline__ float4 fetch_a(const float* __restrict__ a,
+                                          int64_t m, int64_t k, int64_t gr,
+                                          int64_t gc) {
+  if (kVec) {
+    return gr < m && gc < k
+               ? __ldg(reinterpret_cast<const float4*>(a + gr * k + gc))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int64_t k0 = 0; k0 < k; k0 += kBK) {
+  float v[4];
 #pragma unroll
-    for (int q = 0; q < (kBM * kBK) / kTileThreads; ++q) {
-      const int idx = threadIdx.x + q * kTileThreads;
-      const int r = idx / kBK;
-      const int cc = idx % kBK;
-      const int64_t gr = row0 + r;
-      const int64_t gc = k0 + cc;
-      as[cc][r] = (gr < m && gc < k) ? a[gr * k + gc] : T(0);
-    }
+  for (int i = 0; i < 4; ++i) {
+    v[i] = (gr < m && gc + i < k) ? __ldg(a + gr * k + gc + i) : 0.f;
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 4 floats of B's slab (k row r, columns c .. +3) by cp.async, zero-filled
+// out of range.  kVec: n is a multiple of 4 and B starts on 16 bytes: one
+// 16-byte copy.
+template <bool kVec>
+__device__ __forceinline__ void copy_b(float* bs, const float* __restrict__ b,
+                                       int64_t n, int64_t k, int r, int c,
+                                       int64_t gr, int64_t gc) {
+  if (kVec) {
+    const bool in = gr < k && gc < n;
+    cp_async(bs + r * kSBStride + c, in ? b + gr * n + gc : b, in, 16);
+  } else {
 #pragma unroll
-    for (int q = 0; q < (kBK * kBN) / kTileThreads; ++q) {
-      const int idx = threadIdx.x + q * kTileThreads;
-      const int r = idx / kBN;
-      const int cc = idx % kBN;
-      const int64_t gr = k0 + r;
-      const int64_t gc = col0 + cc;
-      bs[r][cc] = (gr < k && gc < n) ? b[gr * n + gc] : T(0);
+    for (int i = 0; i < 4; ++i) {
+      const bool in = gr < k && gc + i < n;
+      cp_async4(bs + r * kSBStride + c + i, in ? b + gr * n + gc + i : b, in);
     }
+  }
+}
+
+// float4 `q` of A's slab at k0 (row idx / (kSBK / 4) of the tile, k
+// columns (idx % (kSBK / 4)) * 4 .. +3, idx = tid + q * kSThreads)
+template <bool kVec>
+__device__ __forceinline__ float4 fetch_a_part(const float* __restrict__ a,
+                                               int64_t m, int64_t k,
+                                               int64_t row0, int64_t k0,
+                                               int q) {
+  const int idx = threadIdx.x + q * kSThreads;
+  return fetch_a<kVec>(a, m, k, row0 + idx / (kSBK / 4),
+                       k0 + (idx % (kSBK / 4)) * 4);
+}
+
+// float4 `q` of A's slab from registers into `as`, transposed (k-major)
+__device__ __forceinline__ void store_a_part(float* as, float4 v, int q) {
+  const int idx = threadIdx.x + q * kSThreads;
+  const int r = idx / (kSBK / 4);
+  const int c = (idx % (kSBK / 4)) * 4;
+  as[(c + 0) * kSAStride + r] = v.x;
+  as[(c + 1) * kSAStride + r] = v.y;
+  as[(c + 2) * kSAStride + r] = v.z;
+  as[(c + 3) * kSAStride + r] = v.w;
+}
+
+// B's slab at k0 into `bs` by cp.async
+template <bool kVec>
+__device__ __forceinline__ void copy_b_slab(float* bs,
+                                            const float* __restrict__ b,
+                                            int64_t n, int64_t k,
+                                            int64_t col0, int64_t k0) {
+#pragma unroll
+  for (int q = 0; q < kSBPer; ++q) {
+    const int idx = threadIdx.x + q * kSThreads;
+    const int r = idx / (kSBN / 4);
+    const int c = (idx % (kSBN / 4)) * 4;
+    copy_b<kVec>(bs, b, n, k, r, c, k0 + r, col0 + c);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kSThreads, 2)
+mm_sgemm(const float* __restrict__ a, const float* __restrict__ b,
+         float* __restrict__ c, int64_t m, int64_t n, int64_t k) {
+  __shared__ __align__(16) float as[2][kSAStage];
+  __shared__ __align__(16) float bs[2][kSBStage];
+
+  // rasterise as mm_dmma: bands of kGroupM tile rows, column by column
+  const int64_t tiles_m = (m + kSBM - 1) / kSBM;
+  const int64_t tiles_n = (n + kSBN - 1) / kSBN;
+  const int64_t t = blockIdx.x;
+  const int64_t band = t / (kGroupM * tiles_n);
+  const int64_t first = band * kGroupM;
+  const int64_t rows = tiles_m - first < kGroupM ? tiles_m - first : kGroupM;
+  const int64_t in_band = t - band * kGroupM * tiles_n;
+  const int64_t row0 = (first + in_band % rows) * kSBM;
+  const int64_t col0 = (in_band / rows) * kSBN;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // the thread's first A slab row and B slab column
+  const int ar = (warp / kSWarpsN) * kSWM + (lane / kLanesN) * 4;
+  const int bc = (warp % kSWarpsN) * kSWN + (lane % kLanesN) * 4;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  const int64_t slabs = (k + kSBK - 1) / kSBK;
+  copy_b_slab<kVec>(bs[0], b, n, k, col0, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < kSAPer; ++q) {
+    store_a_part(as[0], fetch_a_part<kVec>(a, m, k, row0, 0, q), q);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The multiply of a slab runs in kSAPer parts (one at 8 k a slab);
+  // before each, one float4 of A's next slab is fetched into registers,
+  // and after it stored into the other buffer (last read before the
+  // barrier that ended slab kt - 1).  One float4 of prefetch live at a
+  // time: with two (a 16-deep slab in one part) the thread spills past
+  // 128 registers.
+  constexpr int kPart = kSBK / kSAPer;  // k steps a part
+  for (int64_t kt = 0; kt < slabs; ++kt) {
+    const int cur = static_cast<int>(kt & 1);
+    const bool more = kt + 1 < slabs;
+    const int64_t k0 = (kt + 1) * kSBK;
+    if (more) copy_b_slab<kVec>(bs[cur ^ 1], b, n, k, col0, k0);
+    cp_async_commit();
+    const float* sa = as[cur] + ar;
+    const float* sb = bs[cur] + bc;
+#pragma unroll
+    for (int q = 0; q < kSAPer; ++q) {
+      float4 next = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (more) next = fetch_a_part<kVec>(a, m, k, row0, k0, q);
+#pragma unroll
+      for (int kk = q * kPart; kk < (q + 1) * kPart; ++kk) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(sa + kk * kSAStride);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(sa + kk * kSAStride + kSWM / 2);
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(sb + kk * kSBStride);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(sb + kk * kSBStride + kSWN / 2);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+        }
+      }
+      if (more) store_a_part(as[cur ^ 1], next, q);
+    }
+    cp_async_wait<0>();
     __syncthreads();
+  }
+
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      T av[kTM];
-      T bv[kTN];
+  for (int i = 0; i < 8; ++i) {
+    const int64_t gr = row0 + ar + (i < 4 ? i : kSWM / 2 - 4 + i);
+    if (gr >= m) continue;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty + kSide * i];
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gc = col0 + bc + kSWN / 2 * h;
+      float* out = c + gr * n + gc;
+      if (kVec) {
+        if (gc < n) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        }
+      } else {
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx + kSide * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] += av[i] * bv[j];
+        for (int j = 0; j < 4; ++j) {
+          if (gc + j < n) out[j] = acc[i][4 * h + j];
+        }
       }
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t gr = row0 + ty + kSide * i;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int64_t gc = col0 + tx + kSide * j;
-      if (gr < m && gc < n) c[gr * n + gc] = acc[i][j];
-    }
+}
+
+cudaError_t launch_f32_tiles(const void* a, const void* b, void* c,
+                             int64_t m, int64_t n, int64_t k,
+                             cudaStream_t s) {
+  const int64_t tiles = ((m + kSBM - 1) / kSBM) * ((n + kSBN - 1) / kSBN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const float* pa = static_cast<const float*>(a);
+  const float* pb = static_cast<const float*>(b);
+  float* pc = static_cast<float*>(c);
+  const bool vec = k % 4 == 0 && n % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b) |
+                    reinterpret_cast<uintptr_t>(c)) % 16 == 0;
+  const unsigned grid = static_cast<unsigned>(tiles);
+  if (vec) {
+    mm_sgemm<true><<<grid, kSThreads, 0, s>>>(pa, pb, pc, m, n, k);
+  } else {
+    mm_sgemm<false><<<grid, kSThreads, 0, s>>>(pa, pb, pc, m, n, k);
   }
+  return cudaGetLastError();
 }
 
 // -- n = 1: a warp a row ----------------------------------------------------
@@ -377,12 +556,7 @@ cudaError_t launch(const void* a, const void* b, void* c, int64_t m,
   if constexpr (sizeof(T) == 8) {
     return launch_f64_tiles(a, b, c, m, n, k, s);
   } else {
-    const int64_t tiles = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
-    if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-    mm_tiles<T><<<static_cast<unsigned>(tiles), kTileThreads, 0, s>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<T*>(c), m, n, k);
-    return cudaGetLastError();
+    return launch_f32_tiles(a, b, c, m, n, k, s);
   }
 }
 

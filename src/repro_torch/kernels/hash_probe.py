@@ -4,9 +4,12 @@ Given a dict in the backend's sorted, front-packed key layout (keys
 ascending for the first ``count`` slots), find each query key's slot and
 whether it is there.  Wrappers over the CUDA kernels in
 ``csrc/hash_probe.cu`` (the port of the TPU kernels ``dict_probe`` and
-``group_probe``): one binary search per query.  The value gathers happen
-outside the kernel (``vals[pos]``), so one launch serves every output
-column of a fused join probe (``kernelplan.registry``).
+``group_probe``): ``dict_probe`` runs one binary search per query;
+``group_probe`` a persistent grid whose blocks each stage the key column
+(or every S-th key) and a bucket table over its range in shared memory,
+so that a query searches only its bucket's keys.  The value gathers
+happen outside the kernel (``vals[pos]``), so one launch serves every
+output column of a fused join probe (``kernelplan.registry``).
 
 ``group_probe`` is the m:n variant: the same search also reads each
 matching group's size off the CSR ``offsets``, so membership, positions

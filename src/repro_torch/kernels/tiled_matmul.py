@@ -7,10 +7,11 @@ plain version in ``ref``.  The wrapper counts its kernel launches in
 ``.launches`` and its plain-version calls in ``.plain_calls``.  The
 product is accumulated in the operands' dtype (f32 or f64, no TF32), in
 one fixed order: bitwise the same from run to run.  f64 runs on the
-FP64 tensor cores (DMMA), f32 on the CUDA cores; a (k, 1) right-hand
-side takes the kernel's row launch shape (a warp per row of A).  The
-tile launches index their tiles on a 1-D grid, so n has no limit of its
-own.
+FP64 tensor cores (DMMA), f32 on the FP32 CUDA cores (a register-blocked
+SGEMM: 128 x 128 tiles, an 8 x 8 micro-tile a thread); a (k, 1)
+right-hand side takes the kernel's row launch shape (a warp per row of
+A).  The tile launches index their tiles on a 1-D grid, so n has no
+limit of its own.
 """
 from __future__ import annotations
 

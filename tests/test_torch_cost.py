@@ -26,7 +26,11 @@ estimate routes at 16 M and 59,986,052 rows; ``filter_reduce_sum`` at
 59,986,052 rows routes with a predicted gain near the 2.8x the card
 measured; the f64 4096^3 product is priced on the FP64 tensor cores
 (above the CUDA-core rate's time) and goes to ``torch.matmul``, which the
-card measured faster.
+card measured faster; the f32 product takes whichever of the SGEMM and
+``torch.matmul`` the card measured faster (within the margin); and
+``group_probe``'s kernel term at the m:n join's 16,777,216 queries is the
+time the card measured for the kernel, staged (50,000 keys) and windowed
+(65,536).
 """
 from __future__ import annotations
 
@@ -420,3 +424,34 @@ def test_f64_matmul_is_priced_on_the_fp64_tensor_cores():
     assert dmma < est.kernel_s < cuda_cores
     # torch.matmul measured faster on the card (2.452 against 2.784 ms)
     assert est.jnp_s < est.kernel_s and not est.routed
+
+
+def test_f32_matmul_takes_the_route_the_card_measured_faster():
+    """The f32 4096^3 product priced at the shares of the FP32 peak that
+    tiled_matmul.cu's SGEMM and torch.matmul reached on the card
+    (PERF.md, B10 f32): the gate takes the kernel only within
+    ROUTE_MARGIN of the library's time."""
+    spec = t_kp.get("matmul")
+    est = t_cost.estimate(spec, {"kernel": "matmul", "elem_bytes": 4,
+                                 "dims": (4096, 4096, 4096)})
+    flops = 2.0 * 4096 ** 3
+    peak = t_cost.HW_H100["peak_flops_f32"]
+    kernel_ms = flops / (peak * t_cost.MATMUL_SHARE["kernel", 4]) * 1e3
+    library_ms = flops / (peak * t_cost.MATMUL_SHARE["library", 4]) * 1e3
+    assert est.kernel_s == pytest.approx(kernel_ms * 1e-3 + t_cost.LAUNCH_S)
+    assert est.routed == (kernel_ms <= library_ms * (1 + t_cost.ROUTE_MARGIN))
+
+
+@pytest.mark.parametrize("k", sorted(t_cost.GROUP_PROBE_MS))
+def test_group_probe_is_priced_at_its_measured_time(k):
+    """The kernel term of the m:n probe at join_mn's 16,777,216 queries
+    is the time the card measured for group_probe (the key column staged
+    whole at 50,000 keys, every 2nd key at 65,536), and the route is
+    taken there."""
+    n = 16_777_216
+    assert t_cost._group_probe_s(n, k) == pytest.approx(
+        t_cost.GROUP_PROBE_MS[k] * 1e-3)
+    est = t_cost.estimate(t_kp.get("group_probe"),
+                          {"kernel": "group_probe", "n": n, "k": k,
+                           "out": 2 * n, "cols": 2, "elem_bytes": 8})
+    assert est.routed and est.kernel_s < est.jnp_s, est

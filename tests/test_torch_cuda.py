@@ -1,6 +1,8 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
-shapes, ``filter_reduce_q6`` on exact data and the segment kernel
+shapes (f32 also on rows that start on 4 bytes and at 4096^3), the join's
+probes (``group_probe``, ``dict_probe``) at every count around the
+splitter strides, ``filter_reduce_q6`` on exact data and the segment kernel
 (``segment_sum``, ``segment_sum_vectors``) on uniform, one-key and Zipf
 keys, K past MAX_K (its windows), every D and dtype, each against its plain
 version on the same CUDA tensors; the LM's ``flash_attention`` against
@@ -25,7 +27,12 @@ bits), integers and bools exactly; products f64 rtol 1e-12 and f32 rtol
 1e-5 of the largest magnitude (another summation order); the f64 tile
 launch on DMMA over edge shapes, 8-byte-aligned rows and more than
 65,535 x 64 columns within 1e-10 of the largest element (the limit
-``chip_smoke.py`` holds it to), and bitwise equal across runs.  Attention:
+``chip_smoke.py`` holds it to), and bitwise equal across runs; the f32
+tile launch bitwise equal across runs and each element within the
+rounding bound of a k-term f32 dot product with fused multiply-adds,
+gamma_k (|A| |B|), gamma_k = k u / (1 - k u), u = 2**-24, of the exact
+(f64) product of the same inputs.  The probes: equal to the plain
+version exactly.  Attention:
 the per-element limit of ``flash_attention.tolerance`` — f32 rtol 2e-4,
 atol 2e-5 (the JAX package's own kernel test); bf16 2**-7 |plain| (both
 sides round their f32 result to bf16: one bf16 step apart at most) plus
@@ -227,6 +234,144 @@ def test_tiled_matmul_refuses_a_non_contiguous_operand(card):
     with pytest.raises(ValueError, match="contiguous"):
         t_tm.tiled_matmul(a, b.t())
     assert t_tm.tiled_matmul.launches == before
+
+
+def _held_f32(got, again, a, b):
+    """Bitwise repeatable, and each element within the f32 rounding bound
+    of a k-term dot product with fused multiply-adds, gamma_k (|A| |B|),
+    gamma_k = k u / (1 - k u), u = 2**-24, of the exact product (the f64
+    product of the same f32 inputs)."""
+    assert torch.equal(got, again)
+    assert got.dtype == torch.float32 and got.shape == (a.shape[0],
+                                                        b.shape[1])
+    k = a.shape[1]
+    ku = k * 2.0 ** -24
+    exact = a.double() @ b.double()
+    bound = ku / (1 - ku) * (a.double().abs() @ b.double().abs())
+    assert bool(((got.double() - exact).abs() <= bound).all()), \
+        float(((got.double() - exact).abs() / bound.clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("m", EDGES)
+def test_tiled_matmul_f32_edges(m, card):
+    """The f32 tile launch over the edge sizes: ragged 128 x 128 tiles, k
+    not a multiple of the 8-deep slab, k or n not a multiple of 4 (rows
+    that start on 4 bytes: the 4-byte copies), within the rounding bound
+    of the exact product."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m + 1)
+    for n in EDGES[1:]:  # n = 1 is the row launch
+        for k in EDGES:
+            a = torch.randn((m, k), generator=gen, device=card)
+            b = torch.randn((k, n), generator=gen, device=card)
+            got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
+            _held_f32(got, again, a, b)
+
+
+@pytest.mark.parametrize("m,k,n", [(131, 13, 257), (255, 1001, 130),
+                                   (1000, 999, 1003), (4099, 517, 4101),
+                                   (2, 4096, 3)])
+@pytest.mark.parametrize("offset", (0, 1, 2, 3))
+def test_tiled_matmul_f32_on_ragged_and_4_byte_aligned_rows(m, k, n, offset,
+                                                            card):
+    """Ragged m, n, k (no multiple of 128, 16 or 4) and views 1-3 floats
+    into their storage, whose rows start on 4 bytes."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(m + k + n + offset)
+    a = torch.randn(m * k + offset, generator=gen,
+                    device=card)[offset:].view(m, k)
+    b = torch.randn(k * n + offset, generator=gen,
+                    device=card)[offset:].view(k, n)
+    got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
+    _held_f32(got, again, a, b)
+
+
+def test_tiled_matmul_f32_square_is_bitwise_repeatable(card):
+    """4096^3 in f32, three runs bitwise equal and within the rounding
+    bound; the plain version (torch.matmul, full f32) within it too."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(13)
+    a = torch.rand((4096, 4096), generator=gen, device=card)
+    b = torch.rand((4096, 4096), generator=gen, device=card)
+    before = t_tm.tiled_matmul.launches
+    runs = [t_tm.tiled_matmul(a, b) for _ in range(3)]
+    assert t_tm.tiled_matmul.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    _held_f32(runs[0], runs[1], a, b)
+    want = t_ref.tiled_matmul(a, b)
+    _held_f32(want, want, a, b)
+
+
+# -- the probes (B7 dict_probe, B9 group_probe) ------------------------------
+
+#: counts around the splitter strides (S = 1 up to 4,096 keys, 2 to
+#: 8,192, ... 16 at 65,536), a poisoned build (negative), an empty one
+PROBE_COUNTS = (-3, 0, 1, 2, 15, 16, 17, 4095, 4096, 4097, 8191, 8192, 8193,
+                50_000, 65_535, 65_536)
+
+
+def _probe_inputs(count, dev, cap=65_536):
+    """A cap-key table (sorted distinct keys, multiples of 3 below zero and
+    above, then a stale unsorted tail past count), offsets with empty and
+    large groups, and queries equal to, between, below and above every
+    valid key, the int64 extremes and random keys."""
+    rng = np.random.RandomState(count + 7)
+    keys = np.sort(rng.choice(np.arange(-200_000, 200_000), cap,
+                              replace=False)).astype(np.int64) * 3
+    c = min(max(count, 0), cap)
+    keys[c:] = rng.randint(-10**9, 10**9, cap - c)
+    sizes = rng.choice([0, 1, 2, 5, 40], cap, p=[0.2, 0.4, 0.2, 0.15, 0.05])
+    sizes[rng.randint(0, cap, 8)] = 5_000_000
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    valid = keys[:c]
+    lo, hi = (valid[0], valid[-1]) if c else (0, 0)
+    queries = np.concatenate([
+        valid, valid + 1, valid - 1, [lo - 5, hi + 5, lo - 3, hi + 3],
+        [np.iinfo(np.int64).min, np.iinfo(np.int64).max],
+        rng.randint(-700_000, 700_000, 300_001)]).astype(np.int64)
+    rng.shuffle(queries)
+    count = np.asarray(count, dtype=np.int64)
+    return tuple(torch.from_numpy(x).to(dev) for x in
+                 (keys, offsets, count, queries))
+
+
+@pytest.mark.parametrize("count", PROBE_COUNTS)
+@pytest.mark.parametrize("probe", ("group_probe", "dict_probe"))
+def test_probe_kernel_equals_the_plain_version(probe, count, card):
+    """Exactly the plain version's (pos, found[, sizes]), bitwise the same
+    twice, launched twice, at every count around the splitter strides."""
+    from repro_torch.kernels import hash_probe as t_hp
+
+    keys, offsets, cnt, queries = _probe_inputs(count, card)
+    fn = getattr(t_hp, probe)
+    args = ((keys, offsets, cnt, queries) if probe == "group_probe"
+            else (keys, cnt, queries))
+    before = (fn.launches, fn.plain_calls)
+    got, again = fn(*args), fn(*args)
+    want = getattr(t_ref, probe)(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.plain_calls) == (before[0] + 2, before[1])
+    for g, r, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, r)
+        assert torch.equal(g, w)
+    if 0 < count:
+        assert int(got[1].sum()) >= min(count, 65_536)  # every key found
+
+
+@pytest.mark.parametrize("cap,count", [(1, 1), (5, 3), (4097, 4097),
+                                       (16, 16), (70_000, 70_000)])
+def test_group_probe_on_small_and_odd_tables(cap, count, card):
+    """Tables that are not MAX_CAP long: one key, a stale tail, one key
+    past a stride, a count past 65,536 (S = 32)."""
+    from repro_torch.kernels import hash_probe as t_hp
+
+    keys, offsets, cnt, queries = _probe_inputs(count, card, cap=cap)
+    got = t_hp.group_probe(keys, offsets, cnt, queries)
+    again = t_hp.group_probe(keys, offsets, cnt, queries)
+    want = t_ref.group_probe(keys, offsets, cnt, queries)
+    for g, r, w in zip(got, again, want):
+        assert torch.equal(g, r) and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("k,d,n", [(4096, 1, 300_000), (4097, 1, 20_000),
