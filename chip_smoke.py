@@ -2368,9 +2368,10 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     map_elementwise on the Black-Scholes body (33,554,432 options), the
     logreg body (4,194,304 logits) and an f32 body; tiled_matmul at 4096^3
     in f64 and f32 and at the logreg matvec (4,194,304 x 64) in f64 and
-    f32, each case with the launches of the phase that runs it
-    (``by_phase``: matmul, matmul.f32, logreg.weld; no phase runs an f32
-    matvec); and
+    f32, on an aligned A (the bulk row launch) and on one a element off
+    16 bytes (a warp a row), each case with the launches of the phase
+    that runs it (``by_phase``: matmul, matmul.f32, logreg.weld; no phase
+    runs an f32 matvec or an unaligned one); and
     filter_reduce_q6 in f64 at SF10.  Each runs twice (bitwise equal) and
     is held against its plain version: bitwise where the arithmetic is
     IEEE-exact on both sides, else to the stated tolerance."""
@@ -2490,15 +2491,30 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
 
     # -- B10: tiled_matmul --------------------------------------------------
     side = sizes.matmul
-    cases = [("square", torch.float64, (side, side), (side, side), "matmul"),
-             ("square", torch.float32, (side, side), (side, side),
+    # (label, dtype, A, B, A's offset in elements, phase): "matvec_offset"
+    # starts A one element past a 16-byte boundary, which the bulk copy
+    # cannot read, so it takes the warp-a-row launch
+    cases = [("square", torch.float64, (side, side), (side, side), 0,
+              "matmul"),
+             ("square", torch.float32, (side, side), (side, side), 0,
               "matmul.f32"),
-             ("matvec", torch.float64, (n_lr, d_lr), (d_lr, 1),
+             ("matvec", torch.float64, (n_lr, d_lr), (d_lr, 1), 0,
               "logreg.weld"),
-             ("matvec", torch.float32, (n_lr, d_lr), (d_lr, 1), None)]
+             ("matvec", torch.float32, (n_lr, d_lr), (d_lr, 1), 0, None),
+             ("matvec_offset", torch.float64, (n_lr, d_lr), (d_lr, 1), 1,
+              None),
+             ("matvec_offset", torch.float32, (n_lr, d_lr), (d_lr, 1), 1,
+              None)]
+    expected_launch = {"square": "tiles", "matvec": "rows_bulk",
+                       "matvec_offset": "rows_warp"}
     per = []
-    for label, dt, ashape, bshape, phase in cases:
-        a, b = uni(ashape, 0, 1, dt), uni(bshape, 0, 1, dt)
+    for label, dt, ashape, bshape, offset, phase in cases:
+        a = uni((ashape[0] * ashape[1] + offset,), 0, 1, dt)[offset:] \
+            .view(ashape)
+        b = uni(bshape, 0, 1, dt)
+        check(tm.plan(a, b) == expected_launch[label],
+              f"tiled_matmul[{label},{dt}]: plan chose {tm.plan(a, b)}, "
+              f"expected {expected_launch[label]}")
 
         def kern(a=a, b=b):
             return tm.tiled_matmul(a, b)
@@ -2524,11 +2540,13 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                          (m * k + k * n + m * n) * e, 2 * m * n * k,
                          MATMUL_PEAK[name_of(dt)], case=label,
                          dtype=name_of(dt), shape=[m, k, n],
-                         max_abs_err=err, tolerance=tol,
+                         launch=tm.plan(a, b), max_abs_err=err,
+                         tolerance=tol,
                          launches=by_phase.get(phase, {}).get(
                              "tiled_matmul", 0), phase=phase)
         per.append(row)
         log(f"kernel tiled_matmul[{label},{row['dtype']}] m,k,n={m},{k},{n} "
+            f"launch={row['launch']} "
             f"{_times(row)} (torch.matmul) max_abs_err={err:.3e} "
             f"(tol {tol:.3e}) bitwise_repeat=ok launches={row['launches']} "
             f"({phase})")
@@ -2784,14 +2802,15 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                                                      causal, group)
             check(share <= 1.0, f"flash_attention[{case}]: |kernel - "
                                 f"ref.attention| {err}, {share} x its limit")
-            row = dict(case=case, route=route,
+            row = dict(case=case, route=route, kernel=fa.kernel(dt, d),
                        dtype=str(dt).replace("torch.", ""),
                        shape=[nb, h, hk, sq, skv, d], max_abs_err=err,
                        max_limit_share=share, late_rows_limit_share=late)
             log(f"kernel flash_attention[{case}] {row['dtype']} route={route}"
-                f" B={nb} H={h}/{hk} Sq={sq} Skv={skv} D={d} max_abs_err="
-                f"{err:.3e} ({share:.4f} x the limit, {late:.4f} x over the "
-                f"later half of the rows) bitwise_repeat=ok")
+                f" kernel={row['kernel']} B={nb} H={h}/{hk} Sq={sq} "
+                f"Skv={skv} D={d} max_abs_err={err:.3e} ({share:.4f} x the "
+                f"limit, {late:.4f} x over the later half of the rows) "
+                f"bitwise_repeat=ok")
             if case == "prefill":
                 want = ref.attention(q[0], k[0], v[0], group=group)
                 limit = fa.tolerance(q[0], k[0], v[0], want, group=group)
@@ -3001,7 +3020,8 @@ def build_kernels() -> None:
         f"{time.perf_counter() - t0:.3f} s -> {info['path']}")
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line.lower() \
-                or "error" in line.lower() or line.startswith("=="):
+                or "error" in line.lower() or line.startswith("==") \
+                or "Compiling entry function" in line:
             log(f"  {line.strip()}")
 
 

@@ -132,15 +132,22 @@ RADIX_SORT_BYTES = 8 * 32.0
 RANDOM_RMW_BYTES = 64.0
 
 #: tiled_matmul.cu's and torch.matmul's shares of their peaks at 4096^3
-#: and at the 4,194,304 x 64 matvec (PERF.md kernel table, B10): f64 on
-#: DMMA, bound 2.0513 ms over 2.784 (kernel) and 2.452 ms (library); f32
-#: on the CUDA cores (the SGEMM) over 3.2128 and 2.6578 ms; the matvec's
-#: byte bound 0.6511 ms over 0.770 and 0.730 ms
+#: (PERF.md kernel table, B10): f64 on DMMA, bound 2.0513 ms over 2.784
+#: (kernel) and 2.452 ms (library); f32 on the CUDA cores (the SGEMM) over
+#: 3.2128 and 2.6578 ms
 MATMUL_SHARE = {
     ("kernel", 8): 2.0513 / 2.784, ("library", 8): 2.0513 / 2.452,
     ("kernel", 4): 2.0513 / 3.2128, ("library", 4): 2.0513 / 2.6578,
 }
-MATVEC_SHARE = {"kernel": 0.6511 / 0.770, "library": 0.6511 / 0.730}
+#: the same for the matvec at 4,194,304 x 64 (logreg's scoring), by
+#: element size, as shares of the HBM rate: the byte bound, 0.6511 ms in
+#: f64 and 0.3255 ms in f32, over the bulk row launch's 0.7365 and 0.3903
+#: ms and torch.matmul's 0.7649 and 0.6114 ms (PERF.md kernel table, B10
+#: matvec rows)
+MATVEC_SHARE = {
+    ("kernel", 8): 0.6511 / 0.7365, ("library", 8): 0.6511 / 0.7649,
+    ("kernel", 4): 0.3255 / 0.3903, ("library", 4): 0.3255 / 0.6114,
+}
 
 #: group_probe's kernel (hash_probe.cu ``group_search``) per query: its
 #: 8 B key read, 9 B of outputs written and, on a hit, its group's two
@@ -454,7 +461,8 @@ def cost_matmul(meta: dict) -> CostEstimate:
     """tiled_matmul.cu against one ``torch.matmul``, each at the share of
     its peak it reached on the card: f64 on the FP64 tensor cores (DMMA)
     on both routes, f32 on the CUDA cores; a matvec (n = 1) is bound by
-    bytes on both.  One launch on either route.  The f64 4096^3 product
+    bytes on both, priced at the shares of the HBM rate its element size
+    reached.  One launch on either route.  The f64 4096^3 product
     prices the library ahead, as the card measured it."""
     dims = meta.get("dims")
     if not dims or any(d is None for d in dims):
@@ -462,13 +470,13 @@ def cost_matmul(meta: dict) -> CostEstimate:
     m, k, n = dims
     e = meta.get("elem_bytes", 8)
     nbytes = (m * k + k * n + m * n) * e
+    kind = 8 if e >= 8 else 4
     if n == 1:
-        kernel_s = _hbm_s(nbytes, MATVEC_SHARE["kernel"]) + LAUNCH_S
-        jnp_s = _hbm_s(nbytes, MATVEC_SHARE["library"]) + LAUNCH_S
+        kernel_s = _hbm_s(nbytes, MATVEC_SHARE["kernel", kind]) + LAUNCH_S
+        jnp_s = _hbm_s(nbytes, MATVEC_SHARE["library", kind]) + LAUNCH_S
         return _decide(kernel_s, jnp_s, f"dims={m}x{k}x{n}")
     flops = 2.0 * m * k * n
     peak = HW_H100["peak_flops_f64_tc" if e >= 8 else "peak_flops_f32"]
-    kind = 8 if e >= 8 else 4
 
     def at(route):
         return max(_hbm_s(nbytes), flops / (peak * MATMUL_SHARE[route, kind]))

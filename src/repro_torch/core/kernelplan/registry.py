@@ -821,7 +821,7 @@ register(KernelSpec(
     builder="-",
     elem_kinds=("f32", "f64"),
     description="matrix-vector product through the tiled matmul kernel "
-                "(its warp-per-row launch shape)",
+                "(its row launches)",
     execute=_exec_matvec,
     cost=_cost.cost_matmul,
     footprint=_fp_matmul,

@@ -61,10 +61,10 @@ _C_SIGNATURES = {
     "weld_filter_reduce_q6": (
         ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong, _P,
         ctypes.c_int, _P, _P),
-    # (dtype, a, b, c, m, n, k, stream)
+    # (dtype, launch, a, b, c, m, n, k, stream)
     "weld_tiled_matmul": (
-        ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, _P),
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, _P),
     # (keys, n, cap_table, slots, table, used, stream)
     "weld_hash_to_slot": (
         _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P, _P),

@@ -35,12 +35,18 @@
 //    p.astype(v.dtype).
 //    Scores are taken in the log2 domain (exp2 of scale * log2(e) * qk):
 //    the same softmax.
-//  * f32: the CUDA cores in full f32 (no TF32), 32 q rows x 32 kv rows a
-//    tile, 4 threads per q row, expf as the reference's exp.
+//  * f32: the CUDA cores in full f32 (no TF32, which the 67 TFLOP/s FP32
+//    bound of this route does not reckon with), expf as the reference's
+//    exp.  A register-blocked kernel: 8 warps, 64 q rows x 64 kv rows a
+//    tile, each thread a 4 x 4 micro-tile of S and a 4 x (DP / 16) one of
+//    O, 128-bit shared loads on XOR-swizzled tiles, K and V by cp.async
+//    overlapped with the arithmetic (flash_f32 below).  Bound by
+//    operations: 4 D FLOP a pair, about 1.0e11 at the prefill shape over
+//    67 TFLOP/s = 1.54 ms.
 // The head dimension is padded with zeros to 64, 128 or 256 in shared
 // memory (the padded columns add exact zeros); D must be a multiple of 8
-// (16-byte loads) up to 256, and Sq <= Skv.  wgmma, TMA and a
-// warp-specialised pipeline are later work.
+// (16-byte loads) up to 256, and Sq <= Skv.  The bf16 route with D 64 or
+// 128 has a Hopper kernel of its own (flash_attention_sm90.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -343,118 +349,223 @@ flash_bf16(const Params p) {
 // f32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ32 = 32;
-constexpr int kBK32 = 32;
-constexpr int kThreads32 = 128;  // 4 threads a q row
+// A register-blocked flash attention in full f32 (no TF32).  A block of
+// 8 warps owns 64 q rows and walks kv tiles of 64 rows.  Thread (rg, cg)
+// = (tid / 16, tid % 16) holds the scores of q rows 4 rg .. 4 rg + 3
+// against kv columns cg + 16 j (j < 4), and the output of the same 4 rows
+// at columns 4 cg + 64 h .. + 3 (h < DP / 64): a 4 x 8 micro-tile of O at
+// DP = 128.  Every row's 16 threads lie in one half-warp, so the row max
+// and sum are __shfl_xor_sync butterflies (offsets 1, 2, 4, 8: the same
+// two partial sums meet at each level, so every lane ends with the same
+// bits).  S = Q K^T reads, for 4 columns of d, one LDS.128 of each of its
+// 4 q rows and 4 kv rows for 64 FFMAs; O += P V one LDS.128 of P (stored
+// transposed, kv-major) and DP / 64 of V for 4 DP / 16 FFMAs.  Q, K and V
+// are 64 x DP tiles whose 16-byte chunk c of row r sits at chunk c ^ (r &
+// 7), so that the reads of a warp (rows 4 apart for Q, consecutive kv
+// rows for K, one row for V, 16 kv rows for P's stores) spread over the
+// banks without padding.  K and V come by 16-byte cp.async in FA2's
+// order, one buffer each: V(j) loads while S(j) is computed, K(j + 1)
+// while PV(j) is; two __syncthreads a tile.  At DP = 128 the tiles take
+// 112 KB, so two blocks share an SM.
+constexpr int kBQ32 = 64;
+constexpr int kBK32 = 64;
+constexpr int kThreads32 = 256;
 
-// rows [r0, r0 + 32) of a (seq, D) slab into smem rows of `ld` floats
+// the chunk that holds 16-byte chunk c of tile row r
+__device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
+
+// rows [r0, r0 + 64) of a (seq, D) f32 slab into a 64 x DP tile by
+// asynchronous 16-byte copies (chunk c of row r at chunk swz(r, c)),
+// zero-filled past `rows` and past column d.  A thread copies one column
+// chunk of every kStep-th row, walking one source pointer (an unrolled
+// loop would keep each copy's 64-bit address in registers across the kv
+// loop).
 template <int DP>
-__device__ __forceinline__ void load_tile32(float* dst, int ld,
-                                            const float* src, int64_t ss,
-                                            int r0, int rows, int d) {
-  for (int idx = threadIdx.x; idx < 32 * DP; idx += kThreads32) {
-    const int r = idx / DP;
-    const int c = idx % DP;
-    dst[r * ld + c] = (r0 + r < rows && c < d) ? src[(r0 + r) * ss + c] : 0.f;
+__device__ __forceinline__ void load_tile32(float* dst, const float* src,
+                                            int64_t ss, int r0, int rows,
+                                            int d) {
+  constexpr int kChunks = DP / 4;
+  constexpr int kStep = kThreads32 / kChunks;  // rows a pass of the block
+  const int c = threadIdx.x % kChunks;
+  const bool col_in = c * 4 < d;
+  int r = threadIdx.x / kChunks;
+  const float* from = src + (r0 + r) * ss + c * 4;
+#pragma unroll 1
+  for (; r < 64; r += kStep, from += kStep * ss) {
+    const bool in = col_in && r0 + r < rows;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst + r * DP + swz(r, c) * 4)),
+                 "l"(in ? from : src), "r"(in ? 16 : 0));
   }
 }
 
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 template <int DP>
-__global__ void __launch_bounds__(kThreads32)
+__global__ void __launch_bounds__(kThreads32, DP <= 128 ? 2 : 1)
 flash_f32(const Params p) {
-  constexpr int LQ = DP + 1;  // padded: the 8 rows a warp reads differ in bank
-  constexpr int LP = kBK32 + 1;
-  constexpr int CPT = DP / 4;  // output columns a thread
+  constexpr int kChunks = DP / 4;
+  constexpr int kOC = DP / 64;  // O chunks (4 columns) a thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + kBQ32 * LQ;
-  float* vs = ks + kBK32 * LQ;
-  float* ps = vs + kBK32 * DP;
+  float* ks = qs + kBQ32 * DP;
+  float* vs = ks + kBK32 * DP;
+  float* pt = vs + kBK32 * DP;  // P transposed: kv row n, q row r at n, r
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest walks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qt * kBQ32;
-  const int r = threadIdx.x / 4;  // this thread's q row in the tile
-  const int j0 = threadIdx.x % 4;
+  const int rg = threadIdx.x / 16;
+  const int cg = threadIdx.x % 16;
   const int hk = h / p.group;
-  const int qi = q0 + r + (p.skv - p.sq);
+  const int qi0 = q0 + 4 * rg + (p.skv - p.sq);  // causal limit of row 4 rg
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile32<DP>(qs, LQ, qg, p.q_ss, q0, p.sq, p.d);
+  load_tile32<DP>(qs, qg, p.q_ss, q0, p.sq, p.d);
+  load_tile32<DP>(ks, kg, p.k_ss, 0, p.skv, p.d);
+  cp_commit();
 
-  float acc[CPT];
+  // this thread's 4 q rows and 4 kv rows in the tiles, and the chunk
+  // swizzles of each (the q rows' are 4 (rg & 1) + i, the kv rows' cg & 7)
+  const float* qrow = qs + 4 * rg * DP;
+  const float* krow = ks + cg * DP;
+  const int qx = 4 * (rg & 1);
+  const int kx = cg & 7;
+
+  float o[4][4 * kOC];
 #pragma unroll
-  for (int i = 0; i < CPT; ++i) acc[i] = 0.f;
-  float m = kMask, l = 0.f;
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4 * kOC; ++e) o[i][e] = 0.f;
+  }
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMask;
+    l[i] = 0.f;
+  }
 
   const int ntiles = kv_tiles(p, q0, kBQ32, kBK32);
   for (int j = 0; j < ntiles; ++j) {
     const int kv0 = j * kBK32;
-    __syncthreads();
-    load_tile32<DP>(ks, LQ, kg, p.k_ss, kv0, p.skv, p.d);
-    load_tile32<DP>(vs, DP, vg, p.v_ss, kv0, p.skv, p.d);
-    __syncthreads();
+    cp_wait<0>();
+    __syncthreads();  // K(j) has landed; V(j - 1) and P(j - 1) are consumed
+    load_tile32<DP>(vs, vg, p.v_ss, kv0, p.skv, p.d);
+    cp_commit();
 
-    // scores of row r at kv columns j0, j0 + 4, ..., j0 + 28
-    float s[kBK32 / 4];
+    float s[4][4];
 #pragma unroll
-    for (int e = 0; e < kBK32 / 4; ++e) s[e] = 0.f;
-    for (int c = 0; c < DP; ++c) {
-      const float qv = qs[r * LQ + c];
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int e = 0; e < kBK32 / 4; ++e) {
-        s[e] = fmaf(qv, ks[(j0 + 4 * e) * LQ + c], s[e]);
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+    }
+    // unrolled by 2 here and by 16 in O += P V: the fastest of the
+    // unrolls tried on the H100 that build without spills at DP = 128
+#pragma unroll 2
+    for (int c = 0; c < kChunks; ++c) {
+      const int kc = (c ^ kx) * 4;
+      float4 kv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) kv[jj] = lds4(krow + jj * 16 * DP + kc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv = lds4(qrow + i * DP + ((c ^ (qx + i)) * 4));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float acc = s[i][jj];
+          acc = fmaf(qv.x, kv[jj].x, acc);
+          acc = fmaf(qv.y, kv[jj].y, acc);
+          acc = fmaf(qv.z, kv[jj].z, acc);
+          acc = fmaf(qv.w, kv[jj].w, acc);
+          s[i][jj] = acc;
+        }
       }
     }
-    float mx = kMask;
-#pragma unroll
-    for (int e = 0; e < kBK32 / 4; ++e) {
-      const int kj = kv0 + j0 + 4 * e;
-      float x = s[e] * p.scale;
-      if (kj >= p.skv || (p.causal && kj > qi)) x = kMask;
-      s[e] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m, mx);
-    const float corr = expf(m - mn);
-    m = mn;
-    float rs = 0.f;
-#pragma unroll
-    for (int e = 0; e < kBK32 / 4; ++e) {
-      const float pe = expf(s[e] - mn);
-      ps[r * LP + j0 + 4 * e] = pe;
-      rs += pe;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * corr + rs;
-    __syncthreads();  // the row's p values are in shared memory
 
+    // scale, mask, the rows' online softmax, and O rescaled to the new
+    // row maxima (the PV product below adds this tile)
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) acc[i] *= corr;
+    for (int i = 0; i < 4; ++i) {
+      float mx = kMask;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int kj = kv0 + cg + 16 * jj;
+        float x = s[i][jj] * p.scale;
+        if (kj >= p.skv || (p.causal && kj > qi0 + i)) x = kMask;
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float mn = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - mn);
+      m[i] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        s[i][jj] = expf(s[i][jj] - mn);
+        rs += s[i][jj];
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      }
+      l[i] = l[i] * corr + rs;
+#pragma unroll
+      for (int e = 0; e < 4 * kOC; ++e) o[i][e] *= corr;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int n = cg + 16 * jj;
+      *reinterpret_cast<float4*>(pt + n * kBQ32 + swz(n, rg) * 4) =
+          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+    }
+    cp_wait<0>();
+    __syncthreads();  // V(j) has landed and P(j) is stored; K(j) is consumed
+    if (j + 1 < ntiles) {
+      load_tile32<DP>(ks, kg, p.k_ss, kv0 + kBK32, p.skv, p.d);
+    }
+    cp_commit();
+
+#pragma unroll 16
     for (int n = 0; n < kBK32; ++n) {
-      const float pn = ps[r * LP + n];
+      const float4 pv = lds4(pt + n * kBQ32 + swz(n, rg) * 4);
+      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        acc[i] = fmaf(pn, vs[n * DP + j0 + 4 * i], acc[i]);
+      for (int hh = 0; hh < kOC; ++hh) {
+        const float4 vv = lds4(vs + n * DP + (16 * hh + (cg ^ (n & 7))) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * hh + 0] = fmaf(pr[i], vv.x, o[i][4 * hh + 0]);
+          o[i][4 * hh + 1] = fmaf(pr[i], vv.y, o[i][4 * hh + 1]);
+          o[i][4 * hh + 2] = fmaf(pr[i], vv.z, o[i][4 * hh + 2]);
+          o[i][4 * hh + 3] = fmaf(pr[i], vv.w, o[i][4 * hh + 3]);
+        }
       }
     }
   }
 
-  const int row = q0 + r;
-  if (row < p.sq) {
-    const float den = fmaxf(l, 1e-30f);
-    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh +
-                row * p.o_ss;
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = j0 + 4 * i;
-      if (c < p.d) og[c] = acc[i] / den;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * rg + i;
+    if (row >= p.sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int hh = 0; hh < kOC; ++hh) {
+      const int c = 4 * cg + 64 * hh;
+      if (c < p.d) {
+        *reinterpret_cast<float4*>(og + row * p.o_ss + c) = make_float4(
+            o[i][4 * hh] / den, o[i][4 * hh + 1] / den,
+            o[i][4 * hh + 2] / den, o[i][4 * hh + 3] / den);
+      }
     }
   }
 }
@@ -479,8 +590,14 @@ cudaError_t run(int dtype, const Params& p, int batch, int heads,
     return launch(flash_bf16<DP>, grid, kThreads16, smem, p, s);
   }
   const dim3 grid((p.sq + kBQ32 - 1) / kBQ32, heads, batch);
-  const size_t smem = sizeof(float) * ((kBQ32 + kBK32) * (DP + 1) +
-                                       kBK32 * DP + kBQ32 * (kBK32 + 1));
+  const size_t smem =
+      sizeof(float) * ((kBQ32 + 2 * kBK32) * DP + kBK32 * kBQ32);
+  // the whole of the SM's unified memory as shared memory: two blocks of
+  // 112 KB at DP = 128
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32<DP>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   return launch(flash_f32<DP>, grid, kThreads32, smem, p, s);
 }
 

@@ -12,7 +12,7 @@
 // regression's 4,194,304 x 64 scoring) does 2 operations per 8 bytes of A
 // read once, so it is bound by bytes: about 2.18 GB over 3.35 TB/s.
 //
-// Three launch shapes behind one entry:
+// Four launch shapes behind one entry:
 //  * f64 tiles (n > 1) on the FP64 tensor cores.  wgmma has no f64 form,
 //    so the products are DMMA through mma.sync.m16n8k4, a form sm_90
 //    added (in a trial on the card the sm_80 form m8n8k4 was much slower
@@ -38,9 +38,10 @@
 //    through two buffers, B by cp.async, A by register prefetch stored
 //    transposed; 16-byte copies where every row starts on 16 bytes, else
 //    4-byte ones; the same 1-D rasterised grid as the f64 tiles.
-//  * rows (n = 1): a square tile would leave all but one column idle, so
-//    a warp takes a row at a time (grid-stride), its lanes read the row
-//    coalesced, and a fixed shuffle tree sums the 32 lane sums.
+//  * two row launches (n = 1), where a square tile would leave all but
+//    one column idle: A streamed through shared memory by 1-D bulk copies
+//    (mv_bulk), or a warp a row (mv_rows) where A does not start on 16
+//    bytes or a row is too long for a stage (see "n = 1" below).
 // Every launch sums each output element in one fixed k order, with no
 // split-K and no atomics: the result is bitwise the same on every run.
 #include <cuda_runtime.h>
@@ -516,11 +517,200 @@ cudaError_t launch_f32_tiles(const void* a, const void* b, void* c,
   return cudaGetLastError();
 }
 
-// -- n = 1: a warp a row ----------------------------------------------------
+// -- n = 1: the rows --------------------------------------------------------
+//
+// A matrix-vector product reads each element of A once and does one FMA
+// with it: it is bound by the bytes of A.  Two row launches, chosen by the
+// wrapper from shape and alignment alone (kernels/tiled_matmul.py, plan)
+// and passed in as `launch`:
+//  * mv_bulk (kLaunchRowsBulk): A streamed through shared memory by
+//    Hopper's 1-D bulk copy.  One persistent block of 256 threads an SM
+//    walks tiles of kTileRows consecutive rows (blockIdx.x, + gridDim.x,
+//    ...).  A tile of a row-major A is one contiguous run of kTileRows * k
+//    elements: one elected thread brings it into a ring of 3-8 stages with
+//    one cp.async.bulk, whose mbarrier reports the bytes' arrival; the
+//    ring keeps up to 192 KB in flight on each SM, and no thread spends a
+//    register on an address.  x is staged once a block.  Four threads take
+//    a row, each a quarter of its columns from shared memory in one fixed
+//    order that starts at a column rotated by lane (lane / 2 mod the
+//    quarter), so that a warp's reads spread over the banks; two
+//    __shfl_xor_sync steps add the quarters, and lanes 0-7 of each warp
+//    store its 8 sums.  A bulk copy takes a 16-byte-aligned source and a
+//    multiple of 16 bytes: A must start on 16 bytes (every full tile then
+//    does, kTileRows being even) and a row may hold at most
+//    kMaxBulkRowBytes (a tile fits a stage of a 3-stage ring).  The
+//    partial last tile is read by the same kernel straight from global
+//    memory.
+//  * mv_rows (kLaunchRowsWarp), for every other A: a warp takes a row at a
+//    time (grid-stride), its lanes read the row coalesced, and a fixed
+//    shuffle tree sums the 32 lane sums.
+
+constexpr int kLaunchTiles = 0;
+constexpr int kLaunchRowsBulk = 1;
+constexpr int kLaunchRowsWarp = 2;
 
 constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kMaxRowBlocks = 8192;
+
+constexpr int kTileRows = 64;
+constexpr int kPartThreads = kRowThreads / kTileRows;  // threads a row
+constexpr int kRingBytes = 192 * 1024;
+constexpr int kMinStages = 3;
+constexpr int kMaxStages = 8;
+constexpr int kMaxBulkRowBytes = kRingBytes / kMinStages / kTileRows;
+constexpr int kBarBytes = 128;  // the stages' mbarriers, padded
+static_assert(kTileRows % 2 == 0 && kPartThreads == 4,
+              "an even tile; 2 shuffle steps add a row's parts");
+static_assert(kBarBytes + kMaxBulkRowBytes + kRingBytes <= 232448,
+              "the ring, x and the barriers in a block's shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global `src` (16-byte aligned) into
+// shared `dst` by one bulk copy that completes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads, 1)
+mv_bulk(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y,
+        int64_t m, int k, int stages) {
+  extern __shared__ __align__(128) unsigned char bulk_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bulk_smem);
+  T* xs = reinterpret_cast<T*>(bulk_smem + kBarBytes);
+  const int x_bytes = (k * static_cast<int>(sizeof(T)) + 127) / 128 * 128;
+  unsigned char* ring = bulk_smem + kBarBytes + x_bytes;
+  const uint32_t stage_bytes = kTileRows * k * sizeof(T);
+  const int64_t full = m / kTileRows;  // tiles the bulk copy brings
+  const int64_t tiles = (m + kTileRows - 1) / kTileRows;
+  const int64_t mine =
+      tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  // the copy of this block's i-th tile into stage i % stages
+  auto issue = [&](int64_t i) {
+    const int64_t t = blockIdx.x + i * gridDim.x;
+    if (t < full) {
+      const int s = static_cast<int>(i % stages);
+      bulk_load(ring + s * stage_bytes, a + t * kTileRows * k, stage_bytes,
+                smem_u32(bars + s));
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_u32(bars + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = threadIdx.x; j < k; j += kRowThreads) xs[j] = x[j];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int64_t i = 0; i < stages && i < mine; ++i) issue(i);
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int r = threadIdx.x / kPartThreads;  // the thread's row in a tile
+  const int part = (k + kPartThreads - 1) / kPartThreads;
+  const int j0 = (threadIdx.x % kPartThreads) * part;
+  const int len = max(0, min(part, k - j0));
+  const int rot = len > 0 ? (lane / 2) % len : 0;
+  const T* xp = xs + j0;
+  for (int64_t i = 0; i < mine; ++i) {
+    const int64_t t = blockIdx.x + i * gridDim.x;
+    const int64_t row0 = t * kTileRows;
+    const T* rows;
+    if (t < full) {
+      const int s = static_cast<int>(i % stages);
+      mbar_wait(smem_u32(bars + s), static_cast<uint32_t>((i / stages) & 1));
+      rows = reinterpret_cast<const T*>(ring + s * stage_bytes);
+    } else {
+      rows = a + row0 * k;  // the partial last tile
+    }
+    T acc = T(0);
+    if (row0 + r < m) {
+      const T* ap = rows + static_cast<int64_t>(r) * k + j0;
+      int j = rot;
+#pragma unroll 4
+      for (int n = 0; n < len; ++n) {
+        acc = fma_t(ap[j], xp[j], acc);
+        j = j + 1 == len ? 0 : j + 1;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    // lane l < 8 stores row 8 * warp + l, which lane 4 l summed
+    const T v = __shfl_sync(0xffffffffu, acc, (lane % 8) * kPartThreads);
+    const int64_t row = row0 + (threadIdx.x / 32) * 8 + lane;
+    if (lane < 8 && row < m) y[row] = v;
+    __syncthreads();  // every thread is done with this tile's stage
+    if (threadIdx.x == 0 && i + stages < mine) issue(i + stages);
+  }
+}
+
+template <typename T>
+cudaError_t launch_rows_bulk(const T* a, const T* x, T* y, int64_t m,
+                             int64_t k, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      k * static_cast<int64_t>(sizeof(T)) > kMaxBulkRowBytes) {
+    return cudaErrorInvalidValue;
+  }
+  const int stage_bytes = kTileRows * static_cast<int>(k * sizeof(T));
+  int stages = kRingBytes / stage_bytes;
+  if (stages > kMaxStages) stages = kMaxStages;
+  const int x_bytes = (static_cast<int>(k * sizeof(T)) + 127) / 128 * 128;
+  const int smem = kBarBytes + x_bytes + stages * stage_bytes;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(mv_bulk<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t tiles = (m + kTileRows - 1) / kTileRows;
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  mv_bulk<T><<<grid, kRowThreads, smem, s>>>(a, x, y, m,
+                                             static_cast<int>(k), stages);
+  return cudaGetLastError();
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
@@ -543,16 +733,24 @@ mv_rows(const T* __restrict__ a, const T* __restrict__ x, T* __restrict__ y,
 }
 
 template <typename T>
-cudaError_t launch(const void* a, const void* b, void* c, int64_t m,
-                   int64_t n, int64_t k, cudaStream_t s) {
-  if (n == 1) {
+cudaError_t launch(int which, const void* a, const void* b, void* c,
+                   int64_t m, int64_t n, int64_t k, cudaStream_t s) {
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
+  T* pc = static_cast<T*>(c);
+  if (which == kLaunchRowsBulk) {
+    if (n != 1) return cudaErrorInvalidValue;
+    return launch_rows_bulk<T>(pa, pb, pc, m, k, s);
+  }
+  if (which == kLaunchRowsWarp) {
+    if (n != 1) return cudaErrorInvalidValue;
     int64_t blocks = (m + kRowWarps - 1) / kRowWarps;
     if (blocks > kMaxRowBlocks) blocks = kMaxRowBlocks;
     mv_rows<T><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<T*>(c), m, k);
+        pa, pb, pc, m, k);
     return cudaGetLastError();
   }
+  if (which != kLaunchTiles) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 8) {
     return launch_f64_tiles(a, b, c, m, n, k, s);
   } else {
@@ -562,20 +760,25 @@ cudaError_t launch(const void* a, const void* b, void* c, int64_t m,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = f64.  a (m, k), b (k, n) and c (m, n) are
-// contiguous row-major on the device; m, n, k >= 1.  Launches on
+// dtype: 0 = f32, 1 = f64.  which: 0 = tiles, 1 = rows by bulk copy
+// (n = 1, `a` on 16 bytes, a row of at most kMaxBulkRowBytes), 2 = rows
+// a warp each (n = 1); a launch whose condition does not hold is refused
+// (cudaErrorInvalidValue), never replaced.  a (m, k), b (k, n) and c (m,
+// n) are contiguous row-major on the device; m, n, k >= 1.  Launches on
 // `stream`, allocates nothing, does not synchronise; returns the CUDA
 // error of the launch (0 = success).
-extern "C" int weld_tiled_matmul(int dtype, const void* a, const void* b,
-                                 void* c, long long m, long long n,
-                                 long long k, void* stream) {
+extern "C" int weld_tiled_matmul(int dtype, int which, const void* a,
+                                 const void* b, void* c, long long m,
+                                 long long n, long long k, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<float>(a, b, c, m, n, k, s));
-    case 1: return static_cast<int>(launch<double>(a, b, c, m, n, k, s));
+    case 0:
+      return static_cast<int>(launch<float>(which, a, b, c, m, n, k, s));
+    case 1:
+      return static_cast<int>(launch<double>(which, a, b, c, m, n, k, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,8 +8,13 @@ Which kernel is an explicit choice by dtype and head dimension
 * ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16 with D in {64, 128}.
   Hopper's wgmma and TMA in a warp-specialised pipeline, 128 q rows x 128
   kv rows a tile.
-* ``"v1"``, ``csrc/flash_attention.cu``: f32 (CUDA cores), and bf16 with
-  any other head dimension (``mma.sync``).
+* ``"v1"``, ``csrc/flash_attention.cu``: f32, and bf16 with any other
+  head dimension (``mma.sync``).  Its f32 kernel runs on the FP32 CUDA
+  cores in full f32: 64 q rows x 64 kv rows a tile, 8 warps, each thread
+  a 4 x 4 micro-tile of the scores and a 4 x (DP / 16) one of the output
+  in registers (DP: D rounded up to 64, 128 or 256), fed by 128-bit
+  shared loads, with K and V brought by ``cp.async`` while the previous
+  product computes.
 
 A CUDA tensor launches its route's kernel — or raises: a build or launch
 error is not caught.  A CPU tensor takes the plain version,
@@ -85,6 +90,18 @@ def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head dimension launches:
     ``"sm90"`` for bf16 with D in :data:`SM90_DIMS`, else ``"v1"``."""
     return "sm90" if dtype == torch.bfloat16 and d in SM90_DIMS else "v1"
+
+
+#: the ``__global__`` function each (route, dtype) runs, and its source
+KERNELS = {("sm90", torch.bfloat16): ("flash_sm90", "flash_attention_sm90.cu"),
+           ("v1", torch.bfloat16): ("flash_bf16", "flash_attention.cu"),
+           ("v1", torch.float32): ("flash_f32", "flash_attention.cu")}
+
+
+def kernel(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel a call of this dtype and head dimension launches
+    (its :func:`route`'s kernel for that dtype)."""
+    return KERNELS[route(dtype, d), dtype][0]
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

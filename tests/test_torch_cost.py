@@ -442,6 +442,38 @@ def test_f32_matmul_takes_the_route_the_card_measured_faster():
     assert est.routed == (kernel_ms <= library_ms * (1 + t_cost.ROUTE_MARGIN))
 
 
+@pytest.mark.parametrize("e", (8, 4))
+def test_matvec_is_priced_at_the_share_of_its_element_size(e):
+    """logreg's matvec (4,194,304 x 64) priced at the shares of the HBM
+    rate that the bulk row launch and torch.matmul reached on the card in
+    its element size (PERF.md, the B10 matvec rows), one launch each; the
+    kernel is priced ahead of the library, as the card measured it, and
+    its route is taken."""
+    m, k = 4_194_304, 64
+    est = t_cost.estimate(t_kp.get("matvec"), {
+        "kernel": "matvec", "elem_bytes": e, "dims": (m, k, 1)})
+    nbytes = (m * k + k + m) * e
+    rate = t_cost.HW_H100["hbm_bw"]
+    for route, got in (("kernel", est.kernel_s), ("library", est.jnp_s)):
+        assert got == pytest.approx(
+            nbytes / (rate * t_cost.MATVEC_SHARE[route, e]) + t_cost.LAUNCH_S)
+    assert est.routed and est.kernel_s < est.jnp_s, est
+
+
+def test_matvec_shares_differ_by_element_size():
+    """f32 and f64 rows stream at their own shares of the HBM rate on
+    both routes, so the gate keeps one per element size."""
+    shares = t_cost.MATVEC_SHARE
+    assert set(shares) == {(r, e) for r in ("kernel", "library")
+                           for e in (4, 8)}
+    assert shares["kernel", 4] != shares["kernel", 8]
+    f32 = t_cost.cost_matmul({"dims": (4_194_304, 64, 1), "elem_bytes": 4})
+    f64 = t_cost.cost_matmul({"dims": (4_194_304, 64, 1), "elem_bytes": 8})
+    launch = t_cost.LAUNCH_S
+    assert (f32.kernel_s - launch) / (f64.kernel_s - launch) == \
+        pytest.approx(0.5 * shares["kernel", 8] / shares["kernel", 4])
+
+
 @pytest.mark.parametrize("k", sorted(t_cost.GROUP_PROBE_MS))
 def test_group_probe_is_priced_at_its_measured_time(k):
     """The kernel term of the m:n probe at join_mn's 16,777,216 queries

@@ -1,6 +1,7 @@
 """The array path's kernels on the card: the generated map chain on every
 generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
-shapes (f32 also on rows that start on 4 bytes and at 4096^3), the join's
+shapes (f32 also on rows that start on 4 bytes and at 4096^3; both row
+launches around their edges and at the logreg width), the join's
 probes (``group_probe``, ``dict_probe``) at every count around the
 splitter strides, ``filter_reduce_q6`` on exact data and the segment kernel
 (``segment_sum``, ``segment_sum_vectors``) on uniform, one-key and Zipf
@@ -284,6 +285,74 @@ def test_tiled_matmul_f32_on_ragged_and_4_byte_aligned_rows(m, k, n, offset,
                     device=card)[offset:].view(k, n)
     got, again = t_tm.tiled_matmul(a, b), t_tm.tiled_matmul(a, b)
     _held_f32(got, again, a, b)
+
+
+#: (m, k, base offset in bytes, the launch plan picks in f32, in f64): m
+#: below, at and just above the 64-row bulk tile, m not a multiple of it,
+#: k odd with m odd (the partial last tile's rows start anywhere), rows
+#: past the 1,024 bytes a bulk stage takes a row, and a base 8 bytes off
+#: 16
+ROW_CASES = [
+    (1, 1, 0, "rows_bulk", "rows_bulk"),
+    (63, 64, 0, "rows_bulk", "rows_bulk"),
+    (64, 64, 0, "rows_bulk", "rows_bulk"),
+    (65, 64, 0, "rows_bulk", "rows_bulk"),
+    (1000, 64, 0, "rows_bulk", "rows_bulk"),
+    (4099, 33, 0, "rows_bulk", "rows_bulk"),
+    (777, 127, 0, "rows_bulk", "rows_bulk"),
+    (200_003, 64, 0, "rows_bulk", "rows_bulk"),
+    (1001, 129, 0, "rows_bulk", "rows_warp"),
+    (300, 300, 0, "rows_warp", "rows_warp"),
+    (1000, 64, 8, "rows_warp", "rows_warp"),
+    (4099, 33, 8, "rows_warp", "rows_warp"),
+]
+
+
+def _row_operands(card, dtype, m, k, offset_bytes, seed):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    skip = offset_bytes // torch.tensor([], dtype=dtype).element_size()
+    a = torch.randn(m * k + skip, generator=gen, device=card,
+                    dtype=dtype)[skip:].view(m, k)
+    x = torch.randn((k, 1), generator=gen, device=card, dtype=dtype)
+    return a, x
+
+
+@pytest.mark.parametrize("m,k,offset,f32_launch,f64_launch", ROW_CASES)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_tiled_matmul_row_launches(m, k, offset, f32_launch, f64_launch,
+                                   dtype, card):
+    """Both row launches (n = 1) at the shapes around their edges: the
+    launch ``plan`` names, bitwise equal twice, f64 within 1e-10 of the
+    largest element and f32 within the rounding bound of the exact
+    product."""
+    a, x = _row_operands(card, dtype, m, k, offset, m + k + offset)
+    want = f32_launch if dtype == torch.float32 else f64_launch
+    assert t_tm.plan(a, x) == want
+    before = t_tm.tiled_matmul.launches
+    got, again = t_tm.tiled_matmul(a, x), t_tm.tiled_matmul(a, x)
+    torch.cuda.synchronize()
+    assert t_tm.tiled_matmul.launches == before + 2
+    if dtype == torch.float64:
+        _held_product(got, again, t_ref.tiled_matmul(a, x))
+    else:
+        _held_f32(got, again, a, x)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_tiled_matmul_rows_at_the_logreg_width_are_bitwise_repeatable(
+        dtype, card):
+    """The logreg matvec (k = 64) at a sixteenth of its 4,194,304 rows on
+    the bulk launch: three runs bitwise equal, within the limit that
+    ``chip_smoke.py`` holds the full shape to."""
+    a, x = _row_operands(card, dtype, 262_144, 64, 0, 21)
+    assert t_tm.plan(a, x) == "rows_bulk"
+    runs = [t_tm.tiled_matmul(a, x) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    want = t_ref.tiled_matmul(a, x)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-10
+    assert float((runs[0] - want).abs().max()) <= \
+        rtol * max(float(want.abs().max()), 1.0)
 
 
 def test_tiled_matmul_f32_square_is_bitwise_repeatable(card):
@@ -574,6 +643,15 @@ def test_flash_attention_ragged_shapes(dtype, sq, skv, d, group, causal, gpu):
     q, k, v = _qkv(gpu, dtype, 2, 2 * group, group, sq, skv, d,
                    seed=sq + skv + d)
     _hold_attention(q, k, v, causal, group)
+
+
+def test_flash_attention_f32_at_the_prefill_shape(gpu):
+    """f32 at one sequence of the serving prefill (H = 24/8, S = 2,048,
+    D = 128, causal): the v1 route, bitwise equal twice, every element
+    within F32_ATOL + F32_RTOL |plain|."""
+    q, k, v = _qkv(gpu, torch.float32, 1, 24, 3, 2048, 2048, 128, seed=41)
+    assert t_fa.route(q.dtype, 128) == "v1"
+    _hold_attention(q, k, v, True, 3)
 
 
 def test_flash_attention_reads_strided_views(gpu):

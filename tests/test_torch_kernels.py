@@ -445,6 +445,66 @@ def test_tiled_matmul_plain(m, k, n, dtype):
     _close(got, j_ref.tiled_matmul(jnp.asarray(a), jnp.asarray(b)), dtype)
 
 
+def _view(dtype, m, k, offset_bytes):
+    """A contiguous (m, k) CPU view ``offset_bytes`` into a buffer that
+    starts on 64 bytes."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    buf = torch.zeros(m * k + 64, dtype=dtype)
+    skip = (-buf.data_ptr() % 64 + offset_bytes) // e
+    return buf[skip:skip + m * k].view(m, k)
+
+
+@pytest.mark.parametrize("dtype,m,k,n,offset,want", [
+    (torch.float64, 4_194_304 // 64, 64, 1, 0, "rows_bulk"),  # logreg
+    (torch.float32, 4_194_304 // 64, 64, 1, 0, "rows_bulk"),
+    (torch.float64, 65, 64, 1, 0, "rows_bulk"),  # a partial last tile
+    (torch.float64, 63, 64, 1, 0, "rows_bulk"),  # no full tile
+    (torch.float64, 7, 33, 1, 0, "rows_bulk"),   # k odd
+    (torch.float64, 10, 128, 1, 0, "rows_bulk"),  # 1,024-byte rows
+    (torch.float64, 10, 129, 1, 0, "rows_warp"),  # past a stage
+    (torch.float32, 10, 256, 1, 0, "rows_bulk"),
+    (torch.float32, 10, 257, 1, 0, "rows_warp"),
+    (torch.float64, 10, 64, 1, 8, "rows_warp"),   # 8 bytes off 16
+    (torch.float32, 10, 64, 1, 4, "rows_warp"),
+    (torch.float32, 10, 64, 1, 16, "rows_bulk"),  # a view on 16 bytes
+    (torch.float64, 10, 64, 2, 0, "tiles"),
+    (torch.float64, 10, 64, 2, 8, "tiles"),
+])
+def test_tiled_matmul_plan_picks_the_launch_by_shape_and_alignment(
+        dtype, m, k, n, offset, want):
+    """The launch a product takes is named before it, from the operands'
+    shape and alignment alone: the bulk row launch for n = 1 where A
+    starts on 16 bytes and a 64-row tile of it fits a stage, the warp
+    row launch for every other n = 1, the tiles for n > 1."""
+    from repro_torch.kernels import tiled_matmul as t_tm
+
+    a = _view(dtype, m, k, offset)
+    b = torch.zeros((k, n), dtype=dtype)
+    assert a.is_contiguous() and a.data_ptr() % 16 == offset % 16
+    assert t_tm.plan(a, b) == want
+
+
+def test_tiled_matmul_plan_reads_the_kernels_own_limits():
+    """:data:`MAX_BULK_ROW_BYTES` is the C ring's ``kMaxBulkRowBytes`` (a
+    64-row tile in one stage of the smallest ring) and ``LAUNCH_CODES`` the
+    C entry's launch codes, both read from the source the library is
+    built from."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tiled_matmul as t_tm
+
+    consts = {}
+    src = (_build.CSRC / "tiled_matmul.cu").read_text()
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    assert consts["kMaxBulkRowBytes"] == t_tm.MAX_BULK_ROW_BYTES
+    assert {"tiles": consts["kLaunchTiles"],
+            "rows_bulk": consts["kLaunchRowsBulk"],
+            "rows_warp": consts["kLaunchRowsWarp"]} == t_tm.LAUNCH_CODES
+
+
 #: (jnp body, torch body) pairs: the same elementwise function written
 #: once per package (a map body with no captured constants, which the
 #: TPU kernel's interpret mode requires)

@@ -199,6 +199,25 @@ def test_kernel_route_is_chosen_by_dtype_and_head_dimension(dtype, d, want):
         assert t_fa.plan(q[0], k[0], k[0], group=3) == want
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "flash_sm90"), (torch.bfloat16, 128, "flash_sm90"),
+    (torch.bfloat16, 72, "flash_bf16"), (torch.float32, 64, "flash_f32"),
+    (torch.float32, 128, "flash_f32"), (torch.float32, 256, "flash_f32"),
+])
+def test_kernel_names_the_cuda_function_its_route_runs(dtype, d, want):
+    """:func:`kernel` names a ``__global__`` function of its route's
+    source."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    assert t_fa.kernel(dtype, d) == want
+    name, source = t_fa.KERNELS[t_fa.route(dtype, d), dtype]
+    src = (_build.CSRC / source).read_text()
+    assert re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?"
+                     rf"{name}\(", src)
+
+
 @pytest.mark.parametrize("what,q,k,v,group,err", [
     ("f16", (1, 2, 8, 64, "f16"), (1, 2, 8, 64, "f16"), None, 1, TypeError),
     ("f64", (1, 2, 8, 64, "f64"), (1, 2, 8, 64, "f64"), None, 1, TypeError),
