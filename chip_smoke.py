@@ -63,12 +63,16 @@ kernels/csrc`` and then
    twice
    (the two results must be bitwise equal; ``hash_to_slot``, whose slot
    numbers may differ between runs, is held to its contract and its
-   compacted slots to the plain version's) and times kernel, plain
+   compacted slots to the plain version's, at the m:n build and at the
+   m:1 build's 365 date keys) and times kernel, plain
    version and a one-call PyTorch yardstick host-free (``window_ms``: the
    calls queued behind a ``torch.cuda._sleep`` and bracketed by CUDA
    events, beside the plain CUDA-event time of the kernel and the
    yardstick, ``event_ms``); segment_sum_vectors also on skewed keys
-   (half of the rows on one key; Zipf s = 1.1);
+   (half of the rows on one key; Zipf s = 1.1); the join's builds
+   (``hash_to_slot``, ``slot_hist``) also beside the floor of one launch
+   (``zero_()`` of one int32, host-free) and with each kernel's device
+   time a launch from a profiler trace;
 3. prints the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
@@ -2179,16 +2183,48 @@ def _hold_group_probe_tables(torch, gen, dev, n: int, reps: int) -> list:
     return rows
 
 
+def _launch_split(torch, fn, reps: int) -> dict:
+    """{kernel: [device us a launch, launches traced]} of the kernels
+    ``reps`` calls of ``fn`` run, from one profiler trace (a trace late in
+    a process may lose some launches: the count is what it kept)."""
+    _, top = _device_profile(torch, lambda: [fn() for _ in range(reps)],
+                             top=8)
+    return {name: [ms * 1e3 / calls, calls] for name, ms, calls in top}
+
+
+def _hold_hash_to_slot(torch, keys, ctab: int, what: str) -> float:
+    """hash_to_slot twice on ``keys``: each result held to the contract,
+    its compacted slots equal to the plain version's bitwise and to each
+    other.  Returns the largest difference (0.0)."""
+    from repro_torch.kernels import hash_table as ht
+    from repro_torch.kernels import ref
+
+    first, second = ht.hash_to_slot(keys, ctab), ht.hash_to_slot(keys, ctab)
+    want = ref.hash_to_slot(keys, ctab)
+    torch.cuda.synchronize()
+    for out in (first, second):
+        ht.check_contract(keys, ctab, *out)
+    got = [ht.compact_slots(o[0], o[1], ctab) for o in (first, second)]
+    check(torch.equal(got[0], got[1]),
+          f"{what}: compacted slots differ between runs")
+    return _exact_err(torch, [got[0], got[1], first[2]],
+                      [want[0], want[0], want[2]])
+
+
 def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                       dev="cuda") -> list:
     """The join's four kernels at the join phases' shapes: dict_probe at
     the m:1 probe (59,986,052 order dates against 365 date keys),
     group_probe at the m:n probe (16,777,216 part keys against 50,000
     groups; also against 4,096 and 65,536 keys), hash_to_slot and
-    slot_hist at the m:n build (200,000 rows).
+    slot_hist at the m:n build (200,000 rows; hash_to_slot also at the
+    m:1 build, 365 date keys in 1,024 slots).
     The probes and the histogram must equal their plain versions bitwise
     and repeat bitwise; hash_to_slot is held to its contract, and its
-    compacted slots to the plain version's, run after run."""
+    compacted slots to the plain version's, run after run.  The builds'
+    rows (one launch a call each) also carry the floor of one launch
+    (``zero_()`` of one int32, host-free) and the device time a launch
+    from a profiler trace."""
     from repro_torch.kernels import group_build as gb
     from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import hash_table as ht
@@ -2244,20 +2280,19 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
          "torch.bincount(minlength=num_slots)", n_b * 4 + (parts + 1) * 4,
          n_b, "group_build.cu", "src/repro/kernels/group_build.py:73"),
     ]
+    one = torch.zeros((1,), dtype=torch.int32, device=dev)
+    floor_ms, _ = window_ms(torch, one.zero_, 100)
+    log(f"kernel floor: one launch (zero_() of one int32) "
+        f"kernel_ms={floor_ms:.4f} host-free")
     rows = []
     for name, kern, plain, library, lib_name, nbytes, ops, src, tpu in cases:
         dtype = "int32" if name == "slot_hist" else "int64"
-        first, second, want = kern(), kern(), plain()
-        torch.cuda.synchronize()
         if name == "hash_to_slot":
-            for out in (first, second):
-                ht.check_contract(pk, ctab, *out)
-            got = [ht.compact_slots(o[0], o[1], ctab) for o in (first, second)]
-            err = _exact_err(torch, [got[0], first[2]], [want[0], want[2]])
-            check(torch.equal(got[0], got[1]),
-                  f"{name}: compacted slots differ between runs")
+            err = _hold_hash_to_slot(torch, pk, ctab, name)
             what = "contract ok, compacted slots == plain"
         else:
+            first, second, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
             first = first if isinstance(first, tuple) else (first,)
             second = second if isinstance(second, tuple) else (second,)
             want = want if isinstance(want, tuple) else (want,)
@@ -2265,6 +2300,7 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                   f"{name}: two runs differ bitwise")
             err = _exact_err(torch, first, want)
             what = "bitwise == plain, bitwise_repeat=ok"
+            del first, second, want
         check(err == 0.0, f"{name}: kernel differs from its plain version "
                           f"(max |diff| {err})")
         row = _timed_row(torch, name, kern, plain, library, sizes.timing_reps,
@@ -2276,6 +2312,18 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             row["case"] = f"{parts} keys"
             per_dtype += _hold_group_probe_tables(
                 torch, gen, dev, n_mn, sizes.timing_reps)
+        build = {}
+        if name in ("hash_to_slot", "slot_hist"):
+            row["case"] = f"{n_b} rows"
+            row["launch_split"] = _launch_split(torch, kern, 50)
+            log(f"  {name}[{row['case']}] device us a launch (profiler, 50 "
+                f"calls: [us, launches traced]): {row['launch_split']}")
+            if name == "hash_to_slot":
+                per_dtype.append(_hold_dict_build(torch, dates,
+                                                  sizes.timing_reps))
+            build = {"floor_ms": floor_ms, "launch_split": row["launch_split"]}
+            log(f"  {name}: one launch a call; the floor of one launch is "
+                f"{floor_ms:.4f} ms of its {row['ms']:.4f}")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -2283,10 +2331,38 @@ def hold_join_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": lib_name,
-            "dtype": dtype, "per_dtype": per_dtype,
+            "dtype": dtype, **build, "per_dtype": per_dtype,
         })
-        del first, second, want
     return rows
+
+
+def _hold_dict_build(torch, dates, reps: int) -> dict:
+    """hash_to_slot at the m:1 dict build's shape (the 365 date keys of
+    1993 in a 1,024-slot table): held as at the m:n build, timed beside
+    its plain version and torch.unique."""
+    from repro_torch.kernels import hash_table as ht
+    from repro_torch.kernels import ref
+
+    n, ctab = dates.shape[0], ht.table_size(dates.shape[0])
+    err = _hold_hash_to_slot(torch, dates, ctab, "hash_to_slot[dates]")
+    check(err == 0.0, f"hash_to_slot[dates]: kernel differs from its plain "
+                      f"version (max |diff| {err})")
+
+    def kern():
+        return ht.hash_to_slot(dates, ctab)
+
+    row = _timed_row(
+        torch, "hash_to_slot[dates]", kern,
+        lambda: ref.hash_to_slot(dates, ctab),
+        lambda: torch.unique(dates, return_inverse=True), reps,
+        n * (8 + 4) + ctab * 8 + 4, n, PEAK_OPS["int64"], dtype="int64",
+        case=f"{n} rows", cap_table=ctab, max_abs_err=err, tolerance=0.0)
+    row["launch_split"] = _launch_split(torch, kern, 50)
+    log(f"kernel hash_to_slot[int64, {n} keys, {ctab} slots] {_times(row)} "
+        f"(torch.unique(return_inverse=True)) contract ok, compacted slots "
+        f"== plain; device us a launch (profiler, 50 calls: [us, launches "
+        f"traced]): {row['launch_split']}")
+    return row
 
 
 #: FP64 tensor-core (DMMA) and FP32 peaks of the H100 SXM data sheet: the

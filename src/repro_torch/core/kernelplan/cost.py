@@ -61,8 +61,9 @@ ROUTE_MARGIN = 0.10
 
 #: one kernel launch's device time beyond its bytes, on either route: a
 #: kernel of csrc/*.cu or one of the kernels an eager PyTorch operator
-#: runs.  B8 slot_hist, 0.0022 ms on the profiler at a 0.0003 ms bound
-#: (PERF.md kernel table)
+#: runs.  The floor of one launch: a trivial kernel (``zero_()`` of one
+#: int32) back to back on the card, 1.78-2.00 us host-free
+#: (``launch/join_build_times.py``; PERF.md kernel table, B6 and B8)
 LAUNCH_S = 1.9e-6
 
 #: kernels that one PyTorch operator runs on the card, where more than
@@ -332,11 +333,10 @@ def cost_hash_build(meta: dict) -> CostEstimate:
     priced as its radix passes, and a dozen passes over the table and
     the rows) and recovers each key column (a masked scatter-max); each
     value column is masked and summed by segment_sum.  That is 40
-    one-kernel operators, the argsort of the table and the kernel's two
-    launches (fill_table, insert_keys: hash_table.cu) at one key and one
-    value column, and four operators more for each further value
-    column.  The generic lowering is the keyed sum at its measured
-    rate."""
+    one-kernel operators, the argsort of the table and the kernel's one
+    launch (hash_table.cu) at one key and one value column, and four
+    operators more for each further value column.  The generic lowering
+    is the keyed sum at its measured rate."""
     n, k = meta.get("n"), meta.get("k")
     if not n or not k:
         return REJECT_UNKNOWN
@@ -348,7 +348,7 @@ def cost_hash_build(meta: dict) -> CostEstimate:
     rows = n * (8 + 4 + RANDOM_RMW_BYTES + 16 + 2 * 20 + 12)
     rows += n * nk * (8 + RANDOM_RMW_BYTES) + n * (nk - 1) * 16
     kernel_s = _hbm_s(table + rows) + _launches_s(
-        40 + sort_launches(t) + 2 + 4 * (nv - 1))
+        40 + sort_launches(t) + 1 + 4 * (nv - 1))
     for _ in range(nv):
         kernel_s += _hbm_s(n * (1 + 2 * e))  # the masked value column
         kernel_s += _segment_s(n, k, 1, e)
@@ -403,7 +403,8 @@ def cost_group_build(meta: dict) -> CostEstimate:
     ordering sort of the rows.  Launches: the kernel route 40 one-kernel
     operators (registry ``_exec_group_build``, group_build.py,
     compact_slots), the table's argsort, a cumsum, the payload's int32
-    argsort and its three kernels (fill_table, insert_keys, slot_hist);
+    argsort and its two kernels (hash_table.cu, group_build.cu: one
+    launch each);
     the generic route 30 operators, two sorts, two cumsums and a
     bincount (``_finalize_keyed`` for a group)."""
     n, k = meta.get("n"), meta.get("k")
@@ -417,7 +418,7 @@ def cost_group_build(meta: dict) -> CostEstimate:
                + 4 * k * 8 + n * (nk - 1) * 8 + n * e)
     kernel_s = (_hbm_s(k_bytes) + n * ARGSORT_S_PER_ROW
                 + _launches_s(40 + sort_launches(_ht.table_size(k))
-                              + CUMSUM_LAUNCHES + sort_launches(n, 4) + 3))
+                              + CUMSUM_LAUNCHES + sort_launches(n, 4) + 2))
     jnp_s = n * KEYED_SUM_S_PER_ROW + _launches_s(
         30 + 2 * sort_launches(n) + 2 * CUMSUM_LAUNCHES + BINCOUNT_LAUNCHES)
     return _decide(kernel_s, jnp_s, f"n={n} K={k} keys={nk}")

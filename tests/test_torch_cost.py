@@ -253,8 +253,8 @@ KERNEL_LAUNCHES = {
     (t_fr, "filter_reduce_sum_multi"): lambda *a: 2,
     (t_sr, "segment_sum"): lambda seg, v, k: 2 * t_sr.windows(k),
     (t_sr, "segment_sum_vectors"): lambda seg, v, k: 2 * t_sr.windows(k),
-    (t_ht, "hash_to_slot"): lambda *a: 2,  # fill_table, insert_keys
-    (t_gb, "hash_to_slot"): lambda *a: 2,
+    (t_ht, "hash_to_slot"): lambda *a: 1,  # build_small or build_table
+    (t_gb, "hash_to_slot"): lambda *a: 1,
     (t_gb, "slot_hist"): lambda *a: 1,
     (t_hp, "dict_probe"): lambda *a: 1,
     (t_hp, "group_probe"): lambda *a: 1,

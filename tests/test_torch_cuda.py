@@ -3,7 +3,10 @@ generator case (``torch_mapchain_cases.py``), ``tiled_matmul`` on ragged
 shapes (f32 also on rows that start on 4 bytes and at 4096^3; both row
 launches around their edges and at the logreg width), the join's
 probes (``group_probe``, ``dict_probe``) at every count around the
-splitter strides, ``filter_reduce_q6`` on exact data and the segment kernel
+splitter strides, the join's builds (``hash_to_slot`` held to
+``hash_table.check_contract`` with its compacted slots equal to the plain
+version's, ``slot_hist`` equal to its plain version, on empty, one-key,
+colliding and overflowing inputs), ``filter_reduce_q6`` on exact data and the segment kernel
 (``segment_sum``, ``segment_sum_vectors``) on uniform, one-key and Zipf
 keys, K past MAX_K (its windows), every D and dtype, each against its plain
 version on the same CUDA tensors; the LM's ``flash_attention`` against
@@ -33,7 +36,7 @@ tile launch bitwise equal across runs and each element within the
 rounding bound of a k-term f32 dot product with fused multiply-adds,
 gamma_k (|A| |B|), gamma_k = k u / (1 - k u), u = 2**-24, of the exact
 (f64) product of the same inputs.  The probes: equal to the plain
-version exactly.  Attention:
+version exactly, and so are the builds.  Attention:
 the per-element limit of ``flash_attention.tolerance`` — f32 rtol 2e-4,
 atol 2e-5 (the JAX package's own kernel test); bf16 2**-7 |plain| (both
 sides round their f32 result to bf16: one bf16 step apart at most) plus
@@ -441,6 +444,163 @@ def test_group_probe_on_small_and_odd_tables(cap, count, card):
     want = t_ref.group_probe(keys, offsets, cnt, queries)
     for g, r, w in zip(got, again, want):
         assert torch.equal(g, r) and torch.equal(g, w)
+
+
+# -- the join's builds (B6 hash_to_slot, B8 slot_hist) -----------------------
+
+_EMPTY = np.iinfo(np.int64).min
+
+
+def _first_probe(keys, cap_table):
+    """The slot each key's linear probe starts at: the high log2(cap_table)
+    bits of uint64(key) * GOLD."""
+    lg = cap_table.bit_length() - 1
+    prod = keys.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    return (prod >> np.uint64(64 - lg)).astype(np.int64)
+
+
+def _colliding_keys(rng):
+    """Keys whose first probes all fall on two adjacent slots of a
+    1,024-slot table, each three times, shuffled: long probe chains."""
+    pool = rng.randint(-10**15, 10**15, 400_000).astype(np.int64)
+    pool = np.unique(pool[np.isin(_first_probe(pool, 1024), (5, 6))])
+    keys = np.repeat(pool, 3)
+    rng.shuffle(keys)
+    return keys, 1024
+
+
+#: name -> rng -> (int64 keys, cap_table)
+HASH_CASES = {
+    "n0": lambda rng: (np.zeros(0, np.int64), 16),
+    "n1": lambda rng: (np.array([42], np.int64), 16),
+    "n257": lambda rng: (rng.randint(-300, 300, 257).astype(np.int64), 1024),
+    "all_empty": lambda rng: (np.full(1000, _EMPTY, np.int64), 64),
+    "one_key_1m": lambda rng: (np.full(1_000_000, -7, np.int64), 16),
+    "partsupp": lambda rng: (np.repeat(np.arange(1, 50_001, dtype=np.int64),
+                                       4), 131_072),
+    "random_2p17": lambda rng: (np.concatenate([
+        rng.randint(_EMPTY + 1, np.iinfo(np.int64).max, 60_000,
+                    dtype=np.int64), [_EMPTY] * 100]), 2**17),
+    "first_probes_collide": _colliding_keys,
+    "full_table": lambda rng: (rng.randint(0, 5_000, 20_000).astype(np.int64),
+                               1024),
+    "cap2": lambda rng: (np.array([9, _EMPTY, 9, -9], np.int64), 2),
+    "cap2_full": lambda rng: (np.array([1, 2, 3, 2, 1, _EMPTY, 4], np.int64),
+                              2),
+    # one block's shared-memory table at its most rows and slots
+    "n512_4096_slots": lambda rng: (rng.randint(0, 400, 512)
+                                    .astype(np.int64), 4096),
+    # more rows than one pass of the grid the card holds at once
+    "rows_past_one_pass": lambda rng: (rng.randint(0, 100_000, 3_000_000)
+                                       .astype(np.int64), 2**18),
+    # the m:1 join's dimension table: yyyymmdd keys of 1993, 1,024 slots
+    "dates_1993": lambda rng: (np.array(
+        [int(d.strftime("%Y%m%d")) for d in
+         (np.datetime64("1993-01-01") + np.arange(365)).astype(object)],
+        np.int64), 1024),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HASH_CASES) + ["view_off_16_bytes"])
+def test_hash_to_slot_kernel_holds_the_contract(case, gpu):
+    """Both kernels (in one block's shared memory up to 512 rows and 4,096
+    slots, else behind a grid barrier) hold ``check_contract`` twice,
+    launched twice;
+    where the distinct keys fit, the compacted slots equal the plain
+    version's bitwise in both runs.  A full table parks the rows it cannot
+    place and counts ``used`` up to ``cap_table``."""
+    from repro_torch.kernels import hash_table as t_ht
+
+    rng = np.random.RandomState(sum(map(ord, case)))
+    if case == "view_off_16_bytes":  # keys start 8 bytes past 16
+        keys, cap = HASH_CASES["partsupp"](rng)
+        base = torch.from_numpy(np.concatenate([[0], keys])).to(gpu)
+        k = base[1:]
+        assert k.data_ptr() % 16 == 8
+    else:
+        keys, cap = HASH_CASES[case](rng)
+        k = torch.from_numpy(keys).to(gpu)
+    before = (t_ht.hash_to_slot.launches, t_ht.hash_to_slot.plain_calls)
+    got, again = t_ht.hash_to_slot(k, cap), t_ht.hash_to_slot(k, cap)
+    want = t_ref.hash_to_slot(k, cap)
+    torch.cuda.synchronize()
+    n = k.shape[0]
+    assert (t_ht.hash_to_slot.launches, t_ht.hash_to_slot.plain_calls) == (
+        before[0] + (2 if n else 0), before[1])
+    distinct = torch.unique(k[k != _EMPTY]).numel()
+    for out in (got, again):
+        t_ht.check_contract(k, cap, *out)
+        if distinct <= cap:
+            assert int(out[2]) == distinct
+            assert torch.equal(t_ht.compact_slots(out[0], out[1], cap),
+                               want[0])
+        else:
+            assert int(out[2]) == cap
+            assert int((out[0] == cap).sum()) > 0
+
+
+#: name -> rng -> (int32 slot ids, num_slots)
+HIST_CASES = {
+    "n0": lambda rng: (np.zeros(0, np.int32), 5),
+    "n1": lambda rng: (np.array([3], np.int32), 5),
+    "n257": lambda rng: (rng.randint(0, 40, 257).astype(np.int32), 41),
+    "outside_the_range": lambda rng: (
+        rng.randint(-70_000, 70_000, 300_001).astype(np.int32), 65_537),
+    "one_id_1m": lambda rng: (np.full(1_000_000, 11, np.int32), 65_537),
+    "partsupp": lambda rng: (np.repeat(np.arange(50_000, dtype=np.int32), 4),
+                             50_001),
+    "random_65537": lambda rng: (rng.randint(0, 65_537, 1_000_003)
+                                 .astype(np.int32), 65_537),
+    "one_slot": lambda rng: (rng.randint(-1, 2, 10_000).astype(np.int32), 1),
+    "rows_past_one_pass": lambda rng: (rng.randint(0, 65_537, 5_000_000)
+                                       .astype(np.int32), 65_537),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HIST_CASES) + ["view_off_16_bytes"])
+def test_slot_hist_kernel_equals_the_plain_version(case, gpu):
+    """Equal to the plain version bitwise, twice, on one block and on a
+    cooperative grid (also past one pass of the rows it reads first); ids
+    below 0 and at or past ``num_slots`` are not counted."""
+    from repro_torch.kernels import group_build as t_gb
+
+    rng = np.random.RandomState(sum(map(ord, case)))
+    if case == "view_off_16_bytes":  # ids start 4 bytes past 16
+        slots, num = HIST_CASES["outside_the_range"](rng)
+        s = torch.from_numpy(np.concatenate([[0], slots]).astype(np.int32)
+                             ).to(gpu)[1:]
+        assert s.data_ptr() % 16 == 4
+    else:
+        slots, num = HIST_CASES[case](rng)
+        s = torch.from_numpy(slots).to(gpu)
+    before = (t_gb.slot_hist.launches, t_gb.slot_hist.plain_calls)
+    got, again = t_gb.slot_hist(s, num), t_gb.slot_hist(s, num)
+    want = t_ref.slot_hist(s, num)
+    torch.cuda.synchronize()
+    assert (t_gb.slot_hist.launches, t_gb.slot_hist.plain_calls) == (
+        before[0] + (2 if s.shape[0] else 0), before[1])
+    assert got.dtype == torch.int32 and got.shape == (num,)
+    assert torch.equal(got, again) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["partsupp", "full_table"])
+def test_group_build_on_the_card_equals_the_plain_version(case, gpu):
+    """The composite (hash_to_slot, compaction, slot_hist, offsets) on the
+    card against ``ref.group_build``; the overflowing build (20,000 rows of
+    up to 5,000 keys at capacity 400) reports its overflow, ``used >
+    capacity``, as the plain version does."""
+    from repro_torch.kernels import group_build as t_gb
+
+    rng = np.random.RandomState(5)
+    keys, _ = HASH_CASES[case](rng)
+    cap = 50_000 if case == "partsupp" else 400
+    k = torch.from_numpy(keys).to(gpu)
+    got, want = t_gb.group_build(k, cap), t_ref.group_build(k, cap)
+    if case == "partsupp":
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        assert int(got[2]) > cap and int(want[2]) > cap
 
 
 @pytest.mark.parametrize("k,d,n", [(4096, 1, 300_000), (4097, 1, 20_000),

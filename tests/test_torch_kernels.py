@@ -421,6 +421,30 @@ def test_group_build_plain_and_composite(n, distinct, cap):
         _eq(got, want)
 
 
+@pytest.mark.parametrize("n,distinct,cap", [(1000, 0, 16), (1, 0, 4),
+                                            (900, 40, 8), (30, 7, 1)])
+def test_join_builds_plain_on_all_empty_and_full_tables(n, distinct, cap):
+    """The build side's plain versions against the JAX oracles where every
+    row is EMPTY (distinct = 0) or the keys overflow the table: the
+    hash_to_slot oracle at table_size(cap), its own minimum table 2 * cap
+    rounded up (full: rows park, ``used`` past the table), the group
+    build, and slot_hist against the oracle's CSR counts."""
+    rng = np.random.RandomState(n + distinct + cap)
+    keys = (_join_keys(rng, n, distinct) if distinct
+            else np.full(n, EMPTY, np.int64))
+    tk, jk = torch.from_numpy(keys), jnp.asarray(keys)
+    for ctab in (t_ht.table_size(cap), max(2, 1 << (2 * cap - 1).bit_length())):
+        got = t_ref.hash_to_slot(tk, ctab)
+        _eq(got, j_ref.hash_to_slot(jk, ctab))
+        t_ht.check_contract(tk, ctab, *got)
+    want = j_ref.group_build(jk, cap)
+    got = t_ref.group_build(tk, cap)
+    _eq(got, want)
+    counts = t_ref.slot_hist(got[0], cap + 1)[:cap]
+    _eq([counts], [np.diff(np.asarray(want[1]))])
+    assert int(got[2]) == np.unique(keys[keys != EMPTY]).size
+
+
 # ---------------------------------------------------------------------------
 # the array path's kernels: tiled_matmul, map_elementwise, filter_reduce_q6
 # ---------------------------------------------------------------------------
