@@ -4,10 +4,13 @@
     python3 chip_smoke.py [--seed N] [--out results.json]
 
 Run from the root of a checkout on a machine with a CUDA card (and
-``nvcc``): it builds the port's CUDA kernels from ``src/repro_torch/
-kernels/csrc`` and then
+``nvcc``): it points the kernel health file and the cost ledger at a
+fresh temporary directory, turns on ``WELD_VERIFY=1`` (every compile
+verifies its IR after each pass and after planning; each phase's line
+prints ``verify.runs``, ``verify.ms`` and ``bounds.ms``), builds the
+port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
 
-1. runs thirteen phases through the entry points a user calls — TPC-H Q6
+1. runs fourteen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -22,7 +25,17 @@ kernels/csrc`` and then
    and launches from a profiler trace, with an operator census), the
    Star Schema Benchmark's Q1.1 join (the SF10
    lineitem as lineorder, 59,986,052 rows, against the 365 date rows of
-   1993: inner with a filter, left, anti), an m:n join on TPC-H
+   1993: inner with a filter, left, anti), the evaluate pipeline's
+   checks and records (``pipeline``: that inner join traced from a cold
+   compile cache, with its ``jit_compile``, ``measure.replay`` and
+   ``kernel.<name>`` spans and one cost-ledger record per routed call,
+   and PageRank's first call traced; the join admitted at
+   ``memory_limit`` = its certified peak, bitwise equal, and rejected a
+   byte below with no launch and no cache entry; the SF10 group-by with
+   ``kernel.dict_group_sum:raise`` raising, quarantined under the
+   card's name, raising at the gate on the next compile and launched
+   again after ``quarantine.clear()``; every phase fails on a
+   quarantine), an m:n join on TPC-H
    partsupp's fan-out (16,777,216 probe rows against 50,000 parts x 4
    suppliers: inner, left), the recovery ladder (that inner join with
    its build capacity under-estimated by the ``join.capacity`` failpoint,
@@ -84,8 +97,11 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -172,6 +188,32 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def health_file() -> dict:
+    """The kernel health file's table (empty when there is none)."""
+    from repro_torch.core.kernelplan import quarantine
+
+    try:
+        return json.loads(Path(quarantine.path()).read_text())
+    except FileNotFoundError:
+        return {}
+
+
+def check_no_quarantine(stats: dict, what: str) -> None:
+    """No kernel was quarantined and none was refused for it: the stats
+    hold no ``recovery.quarantined``, no gate cost says "quarantined",
+    and the quarantine and its health file are empty."""
+    from repro_torch.core.kernelplan import quarantine
+
+    costs = stats.get("kernelplan", {}).get("costs", [])
+    check("recovery.quarantined" not in stats
+          and not any(c.get("why") == "quarantined" for c in costs),
+          f"{what}: a kernel was quarantined: "
+          f"{stats.get('recovery.quarantined')} {costs}")
+    check(not health_file() and not quarantine.entries(),
+          f"{what}: the kernel health file holds {health_file()}, the "
+          f"quarantine {quarantine.entries()}")
+
+
 class MainPath:
     """Runs the phases through the port's frames and keeps the launch
     counts each phase's run produced."""
@@ -198,7 +240,10 @@ class MainPath:
         no wrapper may have served its plain version.  Unless the phase
         ``recovers`` on purpose, the recovery ladder must not have run: a
         kernel that raised a false overflow would otherwise climb it to
-        the generic lowering unseen."""
+        the generic lowering unseen.  No kernel may have been
+        quarantined (the stats' and the gate's record of it, the
+        quarantine and its health file must be empty): a quarantined
+        route is one the card does not run."""
         torch = self.torch
         torch.cuda.synchronize()
         self.ops.reset_counts()
@@ -229,7 +274,15 @@ class MainPath:
                      f"run_ms={stats['run_ms']:.3f}"]
             if stats.get("kernels.prepare_ms") and not stats.get("cache.hit"):
                 parts.append(f"prepare_ms={stats['kernels.prepare_ms']:.3f}")
+        if "verify.runs" in stats:
+            entry.update({k: stats[k] for k in ("verify.runs", "verify.ms")})
+            parts += [f"verify.runs={stats['verify.runs']}",
+                      f"verify.ms={stats['verify.ms']:.3f}"]
+        if "bounds.ms" in stats:
+            entry["bounds.ms"] = stats["bounds.ms"]
+            parts.append(f"bounds.ms={stats['bounds.ms']:.3f}")
         self.phase_ms[key] = entry
+        check_no_quarantine(stats, key)
         if recovers:
             entry["recovery"] = {k[len("recovery."):]: v
                                  for k, v in stats.items()
@@ -247,6 +300,9 @@ class MainPath:
             log(f"  refused routes: {refused}")
         if mode == "auto":
             plan = stats.get("kernelplan", {})
+            if plan.get("midpoint_priced"):
+                log(f"  auto: {plan['midpoint_priced']} candidate(s) priced "
+                    f"at the midpoint of their weldbound row interval")
             for c in plan.get("costs", []):
                 log(f"  auto decision: {c['kernel']} routed={c['routed']} "
                     f"predicted kernel_us={c['kernel_us']} generic_us="
@@ -422,6 +478,21 @@ def _pagerank_iter(rank, src, dst, invdeg, nv, mode, stats):
                                collect_stats=stats).value)
 
 
+def pagerank_case(mp: MainPath, nv: int, ne: int):
+    """A random graph of nv vertices and ne edges, a rank vector, and
+    numpy's next iterate: (rank, src, dst, invdeg, want)."""
+    rng = np.random.RandomState(mp.seed + 2)
+    src = rng.randint(0, nv, ne).astype(np.int64)
+    dst = rng.randint(0, nv, ne).astype(np.int64)
+    deg = np.maximum(np.bincount(src, minlength=nv), 1).astype(np.float64)
+    rank = rng.rand(nv)
+    rank /= rank.sum()
+    invdeg = 1.0 / deg
+    want = 0.15 / nv + 0.85 * np.bincount(
+        dst, weights=rank[src] * invdeg[src], minlength=nv)
+    return rank, src, dst, invdeg, want
+
+
 def phase_pagerank(mp: MainPath) -> None:
     """PageRank's scatter under "always" (the segment kernel) and under
     "auto" (K > MAX_K, which the gate prices as one pass over the edges a
@@ -432,15 +503,7 @@ def phase_pagerank(mp: MainPath) -> None:
     for (nv, ne), mode in ((mp.sizes.pr_always, "always"),
                            (mp.sizes.pr_auto, "auto"),
                            (mp.sizes.pr_auto, "auto")):
-        rng = np.random.RandomState(mp.seed + 2)
-        src = rng.randint(0, nv, ne).astype(np.int64)
-        dst = rng.randint(0, nv, ne).astype(np.int64)
-        deg = np.maximum(np.bincount(src, minlength=nv), 1).astype(np.float64)
-        rank = rng.rand(nv)
-        rank /= rank.sum()
-        invdeg = 1.0 / deg
-        want = 0.15 / nv + 0.85 * np.bincount(
-            dst, weights=rank[src] * invdeg[src], minlength=nv)
+        rank, src, dst, invdeg, want = pagerank_case(mp, nv, ne)
         got, stats = mp.run(
             f"pagerank[{nv}x{ne}]", mode,
             lambda m, st: _pagerank_iter(rank, src, dst, invdeg, nv, m, st),
@@ -812,11 +875,15 @@ def _join_runs(mp: MainPath, phase: str, how: str, fn, want: dict,
         del res, got
 
 
-def phase_join_m1(mp: MainPath, cols: dict) -> None:
-    """SSB Q1.1's join: lineorder (the lineitem columns + orderdate) with
-    the 1993 rows of the date dimension, m:1 on the date key."""
-    from repro_torch.frames import weldrel
+JOIN_M1_EXPECT = [("dict_hash_build", "hash_to_slot"),
+                  ("dict_hash_build", "segment_sum"),
+                  ("hash_probe", "dict_probe")]
 
+
+def join_m1_tables(mp: MainPath, cols: dict):
+    """lineorder (the lineitem columns + orderdate) and the 1993 date
+    rows, with each order date's position in them and whether it is
+    there."""
     n = cols["qty"].shape[0]
     rng = np.random.RandomState(mp.seed + 5)
     probe = dict(cols, orderdate=ssb_dates()[rng.randint(0, SSB_DAYS, n)])
@@ -824,9 +891,30 @@ def phase_join_m1(mp: MainPath, cols: dict) -> None:
     pos = np.clip(np.searchsorted(date["datekey"], probe["orderdate"]),
                   0, 364)
     found = date["datekey"][pos] == probe["orderdate"]
-    expect = [("dict_hash_build", "hash_to_slot"),
-              ("dict_hash_build", "segment_sum"),
-              ("hash_probe", "dict_probe")]
+    return probe, date, pos, found
+
+
+def join_m1_inner(probe: dict, date: dict):
+    """SSB Q1.1's join, inner with the quantity filter, as a function of
+    (mode, stats, **join options)."""
+    from repro_torch.frames import weldrel
+
+    def join(mode, stats, **kw):
+        t = weldrel.Table(probe)
+        return weldrel.Query(t).filter(t.col("qty") < 24.0).join(
+            weldrel.Table(date), on="orderdate", right_on="datekey",
+            how="inner", kernelize=mode, collect_stats=stats, **kw)
+
+    return join
+
+
+def phase_join_m1(mp: MainPath, cols: dict) -> None:
+    """SSB Q1.1's join: lineorder (the lineitem columns + orderdate) with
+    the 1993 rows of the date dimension, m:1 on the date key."""
+    from repro_torch.frames import weldrel
+
+    probe, date, pos, found = join_m1_tables(mp, cols)
+    expect = JOIN_M1_EXPECT
     for how in ("inner", "left", "anti"):
         keep = {"inner": found & (probe["qty"] < 24.0), "left": None,
                 "anti": ~found}[how]
@@ -848,6 +936,224 @@ def phase_join_m1(mp: MainPath, cols: dict) -> None:
 
         _join_runs(mp, "join_m1", how, join, want, expect)
         del want
+
+
+def phase_pipeline(mp: MainPath, cols: dict) -> dict:
+    """The evaluate pipeline's checks and records at full size:
+
+    (a) trace — SSB Q1.1's inner join under "always", traced from a cold
+        compile cache: the ``jit_compile``, ``measure.replay`` and
+        ``kernel.<name>`` spans, and one cost-ledger record per routed
+        call (printed after the holds beside each kernel's
+        ``window_ms``); and PageRank's first "always" call traced, its
+        ``jit_compile`` span beside ``kernels.prepare_ms`` (the generated
+        map-chain body's ``nvcc``);
+    (b) admission — the join with ``memory_limit`` equal to its
+        certified ``bounds.peak_bytes`` admits, bitwise equal to the run
+        without one; one byte less raises ``ResourceError`` with no
+        launch and no cache entry; the peak beside the growth of
+        ``torch.cuda.max_memory_allocated()`` over the admitted run;
+    (c) kernel failure — the SF10 group-by under "always" with
+        ``kernel.dict_group_sum:raise`` (the route of
+        ``segment_sum_vectors``) raises ``KernelCompileError``: on a
+        card the generic lowering does not stand in for a kernel; the
+        health file holds one key, naming the card; the next compile
+        raises ``KernelQuarantinedError`` at the gate with no launch;
+        after ``quarantine.clear()`` the next run launches the kernel
+        again with numpy's sums, with no compile-cache clear between.
+
+    Every other phase fails on a quarantine (``MainPath.run``)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import faults, runtime
+    from repro_torch.core.errors import (KernelCompileError,
+                                         KernelQuarantinedError, ResourceError)
+    from repro_torch.core.kernelplan import quarantine
+    from repro_torch.frames import weldrel, welddf
+
+    out: dict = {}
+    # -- (a) trace ------------------------------------------------------
+    probe, date, pos, found = join_m1_tables(mp, cols)
+    join = join_m1_inner(probe, date)
+    ledger_path = obs.ledger.ledger_path()
+    before = len(obs.ledger.read(ledger_path))
+    runtime.clear_cache()
+    obs.clear()
+    obs.enable()
+    try:
+        res, stats = mp.run("pipeline.trace", "always", join,
+                            expect=JOIN_M1_EXPECT)
+        names = [sp.name for sp in obs.spans()]
+        kspans = [sp for sp in obs.spans() if sp.name.startswith("kernel.")]
+        span_ms = {sp.name: sp.dur_ns / 1e6 for sp in obs.spans()
+                   if sp.name in ("jit_compile", "execute", "measure.replay",
+                                  "decode")}
+    finally:
+        obs.disable()
+        obs.clear()
+    routed = stats["kernelplan"]["routed"]
+    for want in ["jit_compile", "measure.replay"] + [
+            f"kernel.{k}" for k in routed]:
+        check(want in names, f"pipeline.trace: no {want} span in {names}")
+    recs = obs.ledger.read(ledger_path)[before:]
+    check(sorted(r["kernel"] for r in recs)
+          == sorted(k for k, n in routed.items() for _ in range(n)),
+          f"pipeline.trace: ledger records {recs} for routes {routed}")
+    check(all(r["measured_ns"] > 0 for r in recs),
+          f"pipeline.trace: a record without a measured time: {recs}")
+    out["ledger"] = [dict(r, event_ns=sp.tags.get("event_ns"))
+                     for r, sp in zip(recs, kspans)]
+    out["span_ms"] = span_ms
+    log(f"  pipeline.trace spans (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in span_ms.items()))
+    for r in out["ledger"]:
+        log(f"  pipeline.trace ledger: {r['kernel']} n={r['n']} "
+            f"dtype={r['dtype']} predicted_ns={r['predicted_ns']} "
+            f"measured_ns={r['measured_ns']} event_ns={r['event_ns']}")
+    free = {c: np.asarray(weldrel._host(res.cols[c])) for c in res.cols}
+    del res
+    keep = found & (probe["qty"] < 24.0)
+    want = {c: v[keep] for c, v in probe.items()}
+    want["weeknum"] = date["weeknum"][pos[keep]]
+    want["rate"] = date["rate"][pos[keep]]
+    same_table(free, want, "pipeline.trace")
+    del want
+    peak = stats["bounds.peak_bytes"]
+    log(f"  pipeline.trace: bounds.certificate {stats['bounds.certificate']}"
+        f" = {peak} bytes, bounds.out_rows {stats['bounds.out_rows']}, "
+        f"bounds.ms {stats['bounds.ms']}")
+
+    nv, ne = mp.sizes.pr_always
+    rank, src, dst, invdeg, want_pr = pagerank_case(mp, nv, ne)
+    obs.enable()
+    try:
+        got, st = mp.run(
+            f"pipeline.pagerank[{nv}x{ne}]", "always",
+            lambda m, s: _pagerank_iter(rank, src, dst, invdeg, nv, m, s),
+            expect=[("vecmerger_segment_sum", "segment_sum"),
+                    ("map_elementwise", "map_elementwise")])
+        jit = [sp for sp in obs.spans() if sp.name == "jit_compile"]
+    finally:
+        obs.disable()
+        obs.clear()
+    check(float(np.abs(got - want_pr).max())
+          <= 1e-9 * float(np.abs(want_pr).max()),
+          "pipeline.pagerank: wrong result")
+    check(len(jit) == 1, f"pipeline.pagerank: {len(jit)} jit_compile spans")
+    out["pagerank_jit_compile_ms"] = jit[0].dur_ns / 1e6
+    out["pagerank_prepare_ms"] = st.get("kernels.prepare_ms", float("nan"))
+    log(f"  pipeline.pagerank first call: jit_compile "
+        f"{out['pagerank_jit_compile_ms']:.3f} ms, kernels.prepare_ms "
+        f"{out['pagerank_prepare_ms']:.3f}, compile_ms "
+        f"{st['compile_ms']:.3f}")
+    del rank, src, dst, invdeg, want_pr, got
+
+    # -- (b) admission --------------------------------------------------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, st = mp.run("pipeline.admit", "always",
+                     lambda m, s: join(m, s, memory_limit=peak),
+                     expect=JOIN_M1_EXPECT)
+    grew = torch.cuda.max_memory_allocated() - base
+    check(st["bounds.admitted"] is True and st["bounds.peak_bytes"] == peak,
+          f"pipeline.admit: {st.get('bounds.admitted')} at {peak}")
+    got = {c: np.asarray(weldrel._host(res.cols[c])) for c in res.cols}
+    del res
+    same_table(got, free, "pipeline.admit (against the unlimited run)")
+    del got, free
+    out["peak_bytes"] = peak
+    out["max_memory_allocated_growth"] = grew
+    log(f"  pipeline.admit: memory_limit = bounds.peak_bytes {peak} "
+        f"admitted, rows bitwise equal; max_memory_allocated grew {grew} "
+        f"bytes over the run ({grew / max(peak, 1):.3f} x the peak)")
+    cached = runtime.cache_size()
+    mp.ops.reset_counts()
+    try:
+        join("always", {}, memory_limit=peak - 1)
+    except ResourceError as e:
+        log(f"  pipeline.admit: memory_limit {peak - 1} rejected: "
+            f"{str(e)[:120]}")
+    else:
+        check(False, "pipeline.admit: peak - 1 was admitted")
+    check(all(n == (0, 0) for n in mp.ops.counts().values()),
+          f"pipeline.admit: a rejected plan launched {mp.ops.counts()}")
+    check(runtime.cache_size() == cached,
+          "pipeline.admit: a rejected plan was cached")
+    del probe, date, pos, found
+
+    # -- (c) kernel failure ---------------------------------------------
+    s = mp.sizes
+    rng = np.random.RandomState(mp.seed + 1)
+    keys = rng.randint(0, s.groupby_keys, s.groupby_rows).astype(np.int64)
+    vals = rng.rand(s.groupby_rows)
+    wsum = np.bincount(keys, weights=vals, minlength=s.groupby_keys)
+    wkeys = np.flatnonzero(np.bincount(keys, minlength=s.groupby_keys))
+
+    def groupby(mode, stats):
+        df = welddf.DataFrame({"k": keys, "v": vals})
+        return df.groupby_sum("k", "v", capacity=s.groupby_keys,
+                              kernelize=mode, collect_stats=stats)
+
+    def held(got, what):
+        check(sorted(got) == wkeys.tolist(), f"{what}: wrong key set")
+        err = max(abs(got[k] - wsum[k]) for k in got)
+        check(err <= 1e-9 * float(np.abs(wsum).max()),
+              f"{what}: max error {err}")
+        return err
+
+    faults.clear()
+    faults.inject("kernel.dict_group_sum", "raise", times=1)
+    mp.ops.reset_counts()
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        groupby("always", {})
+    except KernelQuarantinedError as e:
+        check(False, f"pipeline.fault: refused at the gate: {e}")
+    except KernelCompileError as e:
+        raised = e
+    finally:
+        out["fault_ms"] = (time.perf_counter() - t0) * 1e3
+        fired = [f["site"] for f in faults.fired()]
+        faults.clear()
+    check(raised is not None, "pipeline.fault: the kernel fault did not raise")
+    check(fired == ["kernel.dict_group_sum"], f"pipeline.fault: fired {fired}")
+    check(mp.ops.counts()["segment_sum_vectors"] == (0, 0),
+          f"pipeline.fault: {mp.ops.counts()['segment_sum_vectors']}")
+    table = health_file()
+    card = torch.cuda.get_device_name(0)
+    check(len(table) == 1 and list(table)[0].endswith("|" + card)
+          and list(table)[0].startswith("dict_group_sum|")
+          and list(table)[0] in str(raised)
+          and list(quarantine.entries()) == list(table),
+          f"pipeline.fault: health file {table}")
+    log(f"  pipeline.fault: raised KernelCompileError in "
+        f"{out['fault_ms']:.3f} ms, quarantined {list(table)[0]}")
+    mp.ops.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        groupby("always", {})
+    except KernelQuarantinedError as e:
+        out["gated_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"  pipeline.gated: the gate raised in {out['gated_ms']:.3f} "
+            f"ms: {str(e)[:120]}")
+    else:
+        check(False, "pipeline.gated: the quarantined route ran")
+    check(all(n == (0, 0) for n in mp.ops.counts().values()),
+          f"pipeline.gated: a refused plan launched {mp.ops.counts()}")
+    quarantine.clear()
+    got, st = mp.run("pipeline.cleared", "always", groupby,
+                     expect=[("dict_group_sum", "segment_sum_vectors")])
+    held(got, "pipeline.cleared")
+    check(st.get("cache.hit") is False,
+          "pipeline.cleared: a stale compiled program served the run")
+    log("  pipeline.cleared: after quarantine.clear() the kernel launched "
+        "again (no compile-cache clear)")
+    del keys, vals, got
+    runtime.clear_cache()
+    return out
 
 
 JOIN_MN_EXPECT = [("group_build", "hash_to_slot"),
@@ -3117,6 +3423,7 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
         f"{time.perf_counter() - t0:.3f} s")
     phase_tpch(mp, cols)
     phase_join_m1(mp, cols)
+    pipeline = phase_pipeline(mp, cols)
     del cols
     phase_groupby(mp)
     phase_pagerank(mp)
@@ -3144,11 +3451,20 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     check(sorted(r["name"] for r in kernels)
           == sorted(k for k in mp.launches if k != SM90),
           f"the kernels line lists {sorted(r['name'] for r in kernels)}")
+    window = {r["name"]: r["ms"] for r in kernels}
+    for r in pipeline["ledger"]:
+        wrappers = sorted({w for spec, w in JOIN_M1_EXPECT
+                           if spec == r["kernel"]})
+        log(f"pipeline.trace ledger beside the holds: {r['kernel']} "
+            f"measured_ns={r['measured_ns']} event_ns={r['event_ns']} "
+            f"predicted_ns={r['predicted_ns']}; window_ms "
+            + ", ".join(f"{w} {window[w]:.4f}" for w in wrappers))
+    check_no_quarantine({}, "the end of the run")
     gc.collect()
     torch.cuda.empty_cache()
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "lm_train": lm_train, "gate": gate,
+            "lm_train": lm_train, "gate": gate, "pipeline": pipeline,
             "total_s": time.perf_counter() - t_all}
 
 
@@ -3165,7 +3481,17 @@ def main(argv=None) -> int:
               "False); nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    result = run(torch, Sizes(), args.seed)
+    # a kernel health file or a cost ledger left on the machine must not
+    # route a kernel away unseen: both start empty in a fresh directory;
+    # and every compile verifies its IR after each pass and the planning
+    state = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    os.environ["WELD_KERNEL_HEALTH"] = str(state / "kernel_health.json")
+    os.environ["WELD_COST_LEDGER"] = str(state / "cost_ledger.jsonl")
+    os.environ["WELD_VERIFY"] = "1"
+    try:
+        result = run(torch, Sizes(), args.seed)
+    finally:
+        shutil.rmtree(state, ignore_errors=True)
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"total {result['total_s']:.1f} s")

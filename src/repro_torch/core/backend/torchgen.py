@@ -817,14 +817,25 @@ class _LoopCtx:
         self.touched: List[_Acc] = []  # vecbuilders merged in this loop
 
 
+def _ret_dtype(x: ir.KernelCall) -> str:
+    """A kernel call's ledger/quarantine dtype: the planner's
+    ``meta["dtype"]`` formula (``planner._np_dtype_of``), so the
+    calibration can match ledger medians to the gate's meta."""
+    from ..kernelplan.planner import _np_dtype_of
+
+    return str(np.dtype(_np_dtype_of(x.ret_ty)))
+
+
 class Emitter:
     def __init__(self, input_shapes: Dict[str, tuple], device: torch.device,
                  memory_limit: Optional[int] = None,
-                 kernel_impl: Optional[str] = None):
+                 kernel_impl: Optional[str] = None,
+                 measure: bool = False):
         self.input_shapes = input_shapes
         self.device = torch.device(device)
         self.memory_limit = memory_limit
         self.kernel_impl = kernel_impl
+        self.measure = measure
         self.est_bytes = 0
         #: dynamic counts of every dict this program probed —
         #: emit_program ORs their signs into the output counts so a
@@ -1023,7 +1034,56 @@ class Emitter:
             self._charge(self._kernel_footprint(spec, args, x, params),
                          f" (incl. kernel {x.kernel} scratch)")
         fns = [self._stage_elem_fn(lam, env) for lam in x.fns]
-        return kreg.execute_spec(spec, args, params, fns, self.kernel_impl)
+        dtype = _ret_dtype(x)
+        if self.measure:
+            return self._measured_kernel_call(x, spec, args, params, fns,
+                                              dtype)
+        return kreg.execute_spec(spec, args, params, fns, self.kernel_impl,
+                                 dtype=dtype)
+
+    def _measured_kernel_call(self, x: ir.KernelCall, spec, args, params,
+                              fns, dtype: str):
+        """Replay path: time this call under a ``kernel.<name>`` span and
+        append a cost-ledger record carrying the planner's
+        ``predicted_ns`` beside the measured time.
+
+        On the card a host clock around an asynchronous launch would
+        measure the launch alone, so the call is bracketed by
+        ``torch.cuda.synchronize()`` on both sides: ``measured_ns`` is
+        the span's host time from an idle card to the call's last
+        kernel finishing, i.e. its device time plus the adapter's host
+        work (what the cost model prices).  CUDA events recorded on the
+        stream just inside that bracket are tagged as ``event_ns``: the
+        stream's time from the call's first work to its last, which
+        still holds the gaps where the card waited for the host."""
+        from .. import obs
+        from ..kernelplan import registry as kreg
+
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+        with obs.span(f"kernel.{x.kernel}", n=params.get("n_rows"),
+                      impl=self.kernel_impl) as sp:
+            if cuda:
+                ev0.record()
+            out = kreg.execute_spec(spec, args, params, fns,
+                                    self.kernel_impl, dtype=dtype)
+            if cuda:
+                ev1.record()
+                torch.cuda.synchronize(self.device)
+        predicted = params.get("predicted_ns")
+        sp.set("predicted_ns", predicted)
+        sp.set("measured_ns", sp.dur_ns)
+        if cuda:
+            sp.set("event_ns", int(ev0.elapsed_time(ev1) * 1e6))
+        obs.ledger.record(
+            kernel=x.kernel, dtype=dtype, n=params.get("n_rows") or 0,
+            predicted_ns=predicted, measured_ns=sp.dur_ns or 0,
+            impl=self.kernel_impl,
+        )
+        return out
 
     @staticmethod
     def _kernel_footprint(spec, args, x: ir.KernelCall, params) -> int:
@@ -1415,15 +1475,20 @@ def emit_program(expr: ir.Expr, input_names: List[str],
                  input_shapes: Dict[str, tuple],
                  device,
                  memory_limit: Optional[int] = None,
-                 kernel_impl: Optional[str] = None):
-    """Returns fn(*tensors) evaluating the program on ``device``."""
+                 kernel_impl: Optional[str] = None,
+                 measure: bool = False):
+    """Returns fn(*tensors) evaluating the program on ``device``.
+
+    With ``measure=True`` every ``KernelCall`` is timed on its own and
+    recorded as a ``kernel.<name>`` span and a cost-ledger entry (the
+    runtime's measured replay, run only under tracing)."""
 
     def fn(*arrays):
         env = {}
         for name, arr in zip(input_names, arrays):
             env[name] = _wrap_input(arr, input_types[name])
         em = Emitter(input_shapes, device, memory_limit,
-                     kernel_impl=kernel_impl)
+                     kernel_impl=kernel_impl, measure=measure)
         out = em.run(expr, env)
         if em.taints:
             # the program probed dynamic-count dicts: a negative count on

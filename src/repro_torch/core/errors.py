@@ -15,8 +15,11 @@ carries a type, not just a message string:
 * :class:`KernelCompileError` — a planned accelerator kernel failed to
   stage/compile/launch.  Carries the quarantine key
   ``(kernel, impl, dtype, n)`` so ``kernelplan.quarantine`` can record
-  the offender and the recovery layer can fall back to the generic
-  lowering.
+  the offender.  On the CPU the recovery layer then falls back to the
+  generic lowering; on a card it raises (see ``core.recovery``).
+* :class:`KernelQuarantinedError` — the planner's gate met a quarantined
+  route under ``kernelize="always"`` on a card, where the generic
+  lowering may not stand in for the hand-written kernel.
 * :class:`InjectedFault` — raised by an armed ``core.faults`` failpoint
   (deterministic fault injection for tests/CI).
 * :class:`WeldVerifyError` — the static verifier (``core.check``) found
@@ -36,6 +39,7 @@ __all__ = [
     "CapacityError",
     "ResourceError",
     "KernelCompileError",
+    "KernelQuarantinedError",
     "InjectedFault",
     "WeldVerifyError",
 ]
@@ -74,6 +78,12 @@ class KernelCompileError(WeldError):
         self.impl = impl
         self.dtype = dtype
         self.n = n
+
+
+class KernelQuarantinedError(KernelCompileError):
+    """A quarantined route was planned under ``kernelize="always"`` on a
+    card: raised at the planner's gate, before anything is built or
+    launched.  ``kernelplan.quarantine.clear()`` lifts it."""
 
 
 class InjectedFault(WeldError):

@@ -18,8 +18,11 @@ back-compatibility):
 * ``"off"`` (``False``) — bypass the planner entirely.
 
 ``kernel_impl`` ("cuda" or "ref", default: by the tensors' device) is
-forwarded to the kernel entries.  The block-size autotuner, the ledger
-calibration and the quarantine of failed routes wait for their slice.
+forwarded to the kernel entries.  A route that failed to build or
+launch is in the quarantine (:mod:`.quarantine`): on the CPU the gate
+refuses it up front; on a card it raises under ``"always"`` and is
+refused with a ``RuntimeWarning`` under ``"auto"``.  The block-size
+autotuner and the ledger calibration wait for their slice.
 
 This module stays import-light: the planner and registry load lazily on
 first attribute access.

@@ -27,12 +27,17 @@ lambdas.  Everything unmatched lowers exactly as before; a program with
 no matches is returned unchanged.
 
 This is the copy of the JAX package's planner for the routes the port
-has.  The quarantine check, the weldbound midpoint pricing and the
-verifier checkpoint wait for their slices; capacities (symbolic ones
-included) resolve through the emitter's static evaluator.  A map chain
-whose body the CUDA generator cannot emit is refused at match time (the
-spec's ``refuse`` hook): the loop stays on the generic emitter and the
-reason is recorded under ``stats["kernelplan"]["refused"]``.
+has, with its hooks: capacities (symbolic ones included) resolve through
+weldbound's ``static_size``; a candidate whose length is unknown is
+priced at the midpoint of its weldbound row interval; a route in the
+quarantine (``quarantine``) is rejected up front on the CPU, even under
+``"always"``, and on a card raises under ``"always"`` and warns under
+``"auto"``; every decision is a ``kernelplan.candidate`` event; and
+the planned program is verified (``check.checkpoint("kernelplan")``).
+A map chain whose body the CUDA generator cannot emit is refused at
+match time (the spec's ``refuse`` hook): the loop stays on the generic
+emitter and the reason is recorded under
+``stats["kernelplan"]["refused"]``.
 
 Soundness rules (checked per match, conservative):
 
@@ -53,13 +58,14 @@ Routing modes (``plan_kernels(mode=...)``):
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import ir
+from .. import obs as _obs
 from .. import wtypes as wt
-from ..backend.torchgen import _static_eval
 from ..backend.torchgen import match_group_probe as _group_probe_shape
 from . import cost as _cost
 from . import registry as reg
@@ -150,11 +156,12 @@ def _scalar_kind_ok(ty: wt.WeldType, spec: reg.KernelSpec) -> bool:
 
 
 def _static_cap(e: Optional[ir.Expr], dense: Shapes) -> Optional[int]:
-    """Resolve a capacity expression to a concrete int through the
-    emitter's static evaluator (literals and forms over input lengths)."""
-    if e is None:
-        return None
-    return _static_eval(e, {k: v for k, v in dense.items() if v is not None})
+    """Resolve a capacity / size-hint expression to a concrete int:
+    literals and symbolic forms over input lengths (``max(len(r), 1)``,
+    ``len(l)*len(r)``) from the host-count-free join path."""
+    from ..analysis.bounds import static_size
+
+    return static_size(e, dense)
 
 
 def _is_plus_identity(e: ir.Expr, elem: wt.Scalar) -> bool:
@@ -1083,6 +1090,7 @@ def plan_kernels(
     input_shapes: Optional[Dict[str, tuple]] = None,
     stats: Optional[Dict[str, int]] = None,
     mode: str = "always",
+    impl: Optional[str] = None,
 ) -> ir.Expr:
     """Annotate matched loops with KernelCall nodes.  Identity on programs
     with no matches; never rewrites inside ``for`` bodies.
@@ -1107,9 +1115,68 @@ def plan_kernels(
     #: let-bound dict values (kernelized or generic) -> static capacity,
     #: which prices the probe side of a hash join.
     dict_caps: Dict[str, int] = {}
+    #: weldbound [lo, hi] row intervals for let-bound intermediates
+    #: whose exact length is unknown — the cost model prices those
+    #: candidates at the interval midpoint instead of bailing
+    nbounds: Dict[str, Tuple[int, Optional[int]]] = {}
+    try:
+        from ..analysis import bounds as _bounds
+
+        if _bounds.enabled():
+            nbounds = _bounds.analyze(e).name_bounds(input_shapes)
+    except Exception:
+        nbounds = {}
+
+    def _quarantined(kc: ir.KernelCall, meta: dict) -> bool:
+        """Whether the route is quarantined.  On a card, where the
+        generic lowering may not stand in for the kernel unseen, a
+        quarantined route raises under "always" and warns under
+        "auto"."""
+        from . import quarantine
+
+        dtype = _np_dtype_of(kc.ret_ty)
+        if not quarantine.is_quarantined(kc.kernel, impl=impl, dtype=dtype,
+                                         n=meta.get("n")):
+            return False
+        if quarantine.on_card():
+            what = (f"kernel {kc.kernel!r} is quarantined on "
+                    f"{quarantine.device_name()} (dtype "
+                    f"{np.dtype(dtype).name}, n={meta.get('n')})")
+            if mode == "always":
+                from ..errors import KernelQuarantinedError
+
+                raise KernelQuarantinedError(
+                    f"{what}; kernelize='always' will not run it on the "
+                    f"generic lowering: fix the kernel and call "
+                    f"kernelplan.quarantine.clear()",
+                    kernel=kc.kernel, impl=impl, dtype=str(np.dtype(dtype)),
+                    n=meta.get("n"))
+            warnings.warn(f"{what}: the planner keeps the generic lowering "
+                          f"for it", RuntimeWarning, stacklevel=2)
+        return True
 
     def consider(kc: ir.KernelCall, orig: ir.Expr) -> ir.Expr:
         meta = _call_meta(kc, dense, dict_caps)
+        if meta.get("n") is None and nbounds:
+            mid = _midpoint_n(kc, nbounds)
+            if mid is not None:
+                meta["n"] = mid
+                kplan["midpoint_priced"] = (
+                    kplan.get("midpoint_priced", 0) + 1)
+        if _quarantined(kc, meta):
+            # a route that failed to build or launch before is rejected
+            # up front (even under "always") — re-paying a known failure
+            # would just bounce off the recovery fallback again
+            kplan["rejected"][kc.kernel] = (
+                kplan["rejected"].get(kc.kernel, 0) + 1
+            )
+            kplan["costs"].append({
+                "kernel": kc.kernel, "routed": False,
+                "why": "quarantined", "kernel_us": 0.0, "jnp_us": 0.0,
+            })
+            _obs.event("kernelplan.candidate", kernel=kc.kernel,
+                       n=meta.get("n"), routed=False, why="quarantined")
+            return orig
         if kc.kernel in ("hash_probe", "group_probe"):
             # the reference's rule (its one-hot tile is block x
             # capacity): an unknown or oversized dict keeps the generic
@@ -1123,6 +1190,8 @@ def plan_kernels(
         if mode == "auto":
             est = _cost.estimate(reg.get(kc.kernel), meta)
             kplan["costs"].append({"kernel": kc.kernel, **est.as_stats()})
+            _obs.event("kernelplan.candidate", kernel=kc.kernel,
+                       n=meta.get("n"), **est.as_stats())
             if not est.routed:
                 kplan["rejected"][kc.kernel] = (
                     kplan["rejected"].get(kc.kernel, 0) + 1
@@ -1132,6 +1201,8 @@ def plan_kernels(
             # "always" routes unconditionally; the roofline price still
             # rides along in the plan
             est = _cost.estimate(reg.get(kc.kernel), meta)
+            _obs.event("kernelplan.candidate", kernel=kc.kernel,
+                       n=meta.get("n"), routed=True, why="mode=always")
         kplan["routed"][kc.kernel] = kplan["routed"].get(kc.kernel, 0) + 1
         stats["kernelize.matched"] += 1
         key = f"kernelize.{kc.kernel}"
@@ -1199,7 +1270,34 @@ def plan_kernels(
                 return consider(kc, x)
         return x
 
-    return rec(e)
+    planned = rec(e)
+    # self-verify the planned program: a bad rewrite here (stale ident
+    # type, unregistered kernel, capacity mismatch between build and
+    # probe) would otherwise only surface as a cryptic launch error
+    from .. import check
+
+    check.checkpoint("kernelplan", planned, stats=stats,
+                     shapes=input_shapes)
+    return planned
+
+
+def _midpoint_n(kc: ir.KernelCall,
+                nbounds: Dict[str, Tuple[int, Optional[int]]]
+                ) -> Optional[int]:
+    """Midpoint of the derived [lo, hi] length interval of the call's
+    driving argument — only consulted when the exact length is unknown,
+    and only when the interval's upper bound is finite."""
+    if kc.kernel in ("matmul", "matvec"):
+        return None  # dims-driven: a guessed n would misprice the tiles
+    args = (kc.args[1:] if kc.kernel in ("hash_probe", "group_probe")
+            else kc.args)
+    for a in args:
+        if isinstance(a, ir.Ident) and a.name in nbounds:
+            lo, hi = nbounds[a.name]
+            if hi is None:
+                continue
+            return max(1, (int(lo) + int(hi) + 1) // 2)
+    return None
 
 
 def _probed_as_dict(name: str, body: ir.Expr) -> bool:

@@ -32,6 +32,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...kernels import ops as kops
@@ -120,13 +121,41 @@ def fingerprint() -> str:
     return ",".join(sorted(f"{s.name}:{s.entry}" for s in _REGISTRY.values()))
 
 
-def prepare_kernels(expr: ir.Expr) -> None:
-    """Run the ``prepare`` hook of every kernel call in a planned program."""
+def prepare_kernels(expr: ir.Expr, impl: Optional[str] = None) -> None:
+    """Run the ``prepare`` hook of every kernel call in a planned program.
+
+    ``nvcc`` refusing a generated map-chain body
+    (``_build.GeneratedBuildError``) raises ``KernelCompileError`` for
+    that call, the failure the recovery layer's kernel rung exists for.
+    Any other failure (no ``nvcc``, a missing card) raises as it is.
+    """
+    from ...kernels._build import GeneratedBuildError
+    from .planner import _np_dtype_of
+
     for node in ir.walk(expr):
         if isinstance(node, ir.KernelCall):
             spec = _REGISTRY.get(node.kernel)
-            if spec is not None and spec.prepare is not None:
+            if spec is None or spec.prepare is None:
+                continue
+            try:
                 spec.prepare(node)
+            except GeneratedBuildError as e:
+                raise _kernel_failure(
+                    node.kernel, impl,
+                    str(np.dtype(_np_dtype_of(node.ret_ty))),
+                    dict(node.params).get("n_rows"), "build", e) from e
+
+
+def _kernel_failure(kernel: str, impl, dtype, n, what: str,
+                    e: Exception):
+    """``e`` as a ``KernelCompileError`` carrying the quarantine key
+    ``(kernel, impl, dtype, n)``."""
+    from ..errors import KernelCompileError
+
+    return KernelCompileError(
+        f"kernel {kernel!r} (impl={impl}) failed to {what}: "
+        f"{type(e).__name__}: {e}",
+        kernel=kernel, impl=impl, dtype=dtype, n=n)
 
 
 def describe() -> str:
@@ -163,18 +192,31 @@ def _poison_value(out):
     return out
 
 
-def execute_spec(spec: KernelSpec, args, params, fns, impl):
+def execute_spec(spec: KernelSpec, args, params, fns, impl, dtype=None):
     """Every planned kernel launch funnels through here.
 
-    A ``poison`` armed at the ``kernel.<name>`` failpoint negates the
-    result's counts, as a capacity overflow would.  A kernel that fails
-    raises as it is (the reference's ``KernelCompileError`` wrapping and
-    its quarantine rung are not ported yet).
+    Arms the ``kernel.<name>`` failpoints: ``raise`` simulates a failed
+    build or launch and surfaces as a typed
+    :class:`~repro_torch.core.errors.KernelCompileError` carrying the
+    quarantine key ``(kernel, impl, dtype, n)``, for the recovery
+    layer's kernel rung; ``poison`` negates the result's counts as a
+    capacity overflow would.  A kernel that fails by itself raises as it
+    is: an out-of-memory error, a failed build of the kernel library, a
+    C entry's refusal of its arguments, a CUDA error (possibly an
+    earlier launch's) and a missing card are never taken for this
+    kernel's fault, so they never quarantine it.
     """
     from .. import faults
+    from ..errors import InjectedFault
 
+    site = f"kernel.{spec.name}"
+    try:
+        faults.maybe_raise(site)
+    except InjectedFault as e:
+        raise _kernel_failure(spec.name, impl, dtype, params.get("n_rows"),
+                              "launch", e) from e
     out = spec.execute(args, params, fns, impl)
-    if faults.poisoned(f"kernel.{spec.name}"):
+    if faults.poisoned(site):
         out = _poison_value(out)
     return out
 
@@ -580,7 +622,9 @@ def _exec_matmul(args, params, fns, impl):
 
 def _exec_matvec(args, params, fns, impl):
     """linalg.matvec: the matmul kernel with a (k, 1) right-hand side,
-    which takes its warp-per-row launch shape."""
+    which takes one of its row launches: ``rows_bulk`` (64-row tiles of
+    A by bulk copies) where A's alignment and row length allow it, else
+    ``rows_warp`` (a warp a row), as ``tiled_matmul.plan`` names it."""
     a = _dense_data(args[0], "matvec lhs")
     b = _dense_data(args[1], "matvec rhs")
     ct = torch.promote_types(a.dtype, b.dtype)

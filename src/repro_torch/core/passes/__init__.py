@@ -55,8 +55,9 @@ def optimize(
     stats = stats if stats is not None else {}
     from . import fusion as _fusion
 
-    from .. import obs
+    from .. import check, obs
 
+    verifying = check.enabled()
     for it in range(MAX_FIXPOINT_ITERS):
         before = ir.canon_key(e)
         for name in names:
@@ -66,6 +67,9 @@ def optimize(
                                            input_shapes=input_shapes)
                 else:
                     e = _PASS_FNS[name](e, stats)
+            if verifying:
+                check.checkpoint(f"pass.{name}", e, stats=stats,
+                                 shapes=input_shapes)
         stats["iterations"] = it + 1
         if ir.canon_key(e) == before:
             break

@@ -2,7 +2,7 @@
 
 Weld's premise is one runtime safely owning execution for many
 libraries — so the runtime must not delegate failure back to the user.
-One failure family is retryable here, and this module owns its ladder:
+Two failure families are retryable, and this module owns the ladder:
 
 * **Capacity poison** (:class:`~repro_torch.core.errors.CapacityError`): a
   dictmerger/groupbuilder overflowed its static capacity and flagged the
@@ -13,12 +13,18 @@ One failure family is retryable here, and this module owns its ladder:
   represent the keys), the last rung degrades to the generic
   ``kernelize="off"`` lowering — the unmodified-library safety net Split
   Annotations keeps around, which the torchgen lowering exactly is.
-
-The reference's second family, a kernel that fails to stage, compile
-or launch (``KernelCompileError``: quarantine the offender, degrade to
-the generic lowering), is not ported yet: in the port a kernel failure
-raises, so a faulty kernel is never swapped for the generic lowering
-unseen.
+* **Kernel failure** (:class:`~repro_torch.core.errors.KernelCompileError`):
+  a planned kernel failed to build (``nvcc`` refused a generated
+  map-chain body) or its ``kernel.<route>`` fault fired.  The offender
+  is recorded in the quarantine (``kernelplan.quarantine``, keyed by the
+  device's name).  On the CPU the same program then re-runs on the
+  generic lowering, as the reference's rung does.  On a card the rung
+  raises the error, naming the key: the generic lowering never stands
+  in for a hand-written kernel there, and the planner's gate raises on
+  the quarantined route under ``"always"`` until
+  ``quarantine.clear()``.  Other failures (out of memory, a C entry's
+  refusal, a CUDA error, a missing card) are not kernel failures and
+  reach no rung.
 
 Every step emits a ``RuntimeWarning``, an obs event + ``recovery.retry``
 span, and lands in the ``recovery.*`` stats namespace of the attempt
@@ -37,7 +43,8 @@ from typing import Optional
 from . import ir
 from . import obs
 from . import wtypes as wt
-from .errors import CapacityError
+from .errors import (CapacityError, KernelCompileError,
+                     KernelQuarantinedError)
 
 ENV_RECOVERY = "WELD_RECOVERY"
 
@@ -154,6 +161,7 @@ def run_with_recovery(runner, prog, *, optimize, memory_limit, passes,
     a recovered run the stats gain the ``recovery.*`` namespace.
     """
     events = []
+    quarantined = []
     cur_prog = prog
     cur_mode = mode
     factor = 1
@@ -177,6 +185,8 @@ def run_with_recovery(runner, prog, *, optimize, memory_limit, passes,
                 stats["recovery.events"] = events
                 stats["recovery.regrow_factor"] = factor
                 stats["recovery.fallback"] = cur_mode != mode
+                if quarantined:
+                    stats["recovery.quarantined"] = quarantined
                 root.set("recovery.attempts", attempt)
             return value, compile_ms, from_cache, stats
         except CapacityError as e:
@@ -224,3 +234,28 @@ def run_with_recovery(runner, prog, *, optimize, memory_limit, passes,
                            "detail": detail})
             _warn(f"weld recovery (attempt {attempt}): {detail}")
             obs.event("recovery.step", attempt=attempt, detail=detail)
+        except KernelCompileError as e:
+            if (isinstance(e, KernelQuarantinedError) or not enabled()
+                    or cur_mode == "off"):
+                raise
+            from .kernelplan import quarantine
+
+            qkey = quarantine.record(e.kernel or "?", impl=e.impl,
+                                     dtype=e.dtype, n=e.n, error=str(e))
+            quarantined.append(qkey)
+            if quarantine.on_card():
+                obs.event("recovery.step", attempt=attempt, kernel=e.kernel,
+                          detail=f"quarantined [{qkey}]; raised")
+                raise KernelCompileError(
+                    f"{e} [quarantined as {qkey}; on a card the generic "
+                    f"lowering does not stand in for a kernel]",
+                    kernel=e.kernel, impl=e.impl, dtype=e.dtype,
+                    n=e.n) from e
+            detail = (f"kernel {e.kernel!r} failed ({e}); quarantined "
+                      f"[{qkey}] and degrading to the generic lowering")
+            events.append({"attempt": attempt, "action": "quarantine",
+                           "detail": detail})
+            _warn(f"weld recovery (attempt {attempt}): {detail}")
+            obs.event("recovery.step", attempt=attempt, kernel=e.kernel,
+                      detail=detail)
+            cur_mode = "off"

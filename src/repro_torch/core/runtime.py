@@ -15,10 +15,21 @@ result's ``stats["cache.*"]``.
 
 ``compile_and_run`` (what `Evaluate` calls) runs under the recovery
 ladder (``core/recovery.py``): a poisoned result regrows the builder
-capacities and retries, then degrades to the generic lowering.
+capacities and retries, then degrades to the generic lowering; a kernel
+that fails to build (or whose ``kernel.<route>`` fault fires) is
+quarantined, and the program re-runs on the generic lowering on the CPU
+and raises on a card.
 
-Left for later slices (ROADMAP A): the AOT staging API, weldbound
-admission and the measured replay.
+Along the way: with ``WELD_VERIFY=1`` the input program, every pass's
+output and the planned program are verified (``check.checkpoint``);
+weldbound admission evaluates the plan's peak-memory certificate
+against ``memory_limit`` before anything is built or launched
+(:func:`_admit`); the build step (each generated kernel's ``nvcc``, the
+emitter's closure) runs under the ``jit_compile`` span; and with
+tracing on, a kernelized evaluation is replayed once with every kernel
+call timed (:func:`_measured_replay`), which writes the cost ledger.
+
+Left for a later slice (ROADMAP A): the AOT staging API.
 """
 from __future__ import annotations
 
@@ -31,14 +42,16 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import check
 from . import faults
 from . import ir
 from . import obs
 from . import wtypes as wt
 from ..device import default_device
+from .analysis import bounds as _bounds
 from .backend.torchgen import emit_program
 from .backend.values import WDict, WGroup, WVec
-from .errors import CapacityError
+from .errors import CapacityError, ResourceError
 from .lazy import Program
 from .passes import loop_count, optimize as run_passes
 
@@ -188,13 +201,11 @@ def _encode(prog: Program, device: torch.device):
 def _cache_key(prog: Program, names: List[str], arrays, opt: bool,
                memory_limit, passes, mode: str, kernel_impl,
                device: torch.device) -> str:
-    from .kernelplan import fingerprint
-
     # positional input aliasing: rebuilt workflows (fresh obj ids) share
     # one compiled program as long as structure matches
     name_map = {n: f"in{i}" for i, n in enumerate(names)}
     sig = ",".join(f"{a.dtype}:{tuple(a.shape)}" for a in arrays)
-    kreg = fingerprint() if mode != "off" else ""
+    kreg = _kreg_fingerprint() if mode != "off" else ""
     return (
         ir.canon_key(prog.expr, name_map)
         + f"|opt={opt}|mem={memory_limit}|passes={passes}"
@@ -203,13 +214,26 @@ def _cache_key(prog: Program, names: List[str], arrays, opt: bool,
     )
 
 
+def _kreg_fingerprint() -> str:
+    """The kernel registry and the quarantine state: registering or
+    unregistering a spec, and quarantining or clearing a kernel, must
+    never be served by a stale compiled program."""
+    from .kernelplan import fingerprint, quarantine
+
+    return fingerprint() + "/" + quarantine.fingerprint()
+
+
 def _compile(prog: Program, names, shapes, types, opt: bool, memory_limit,
              passes, mode: str, kernel_impl, device) -> Tuple[object, dict]:
-    """Optimize + plan + emit one program."""
+    """Optimize + plan + admit + emit one program."""
     t0 = time.perf_counter()
     expr = prog.expr
     stats: dict = {}
     stats["loops.before"] = loop_count(expr)
+    # verify the frontend's program before any rewrite touches it: a
+    # pre-existing violation must be blamed on the input, not on
+    # whichever pass happens to run first
+    check.checkpoint("input", expr, env=types, stats=stats, shapes=shapes)
     if opt:
         with obs.span("optimize"):
             expr = run_passes(expr, passes=passes, stats=stats,
@@ -218,22 +242,77 @@ def _compile(prog: Program, names, shapes, types, opt: bool, memory_limit,
     if mode != "off":
         from .kernelplan import plan_kernels
 
-        with obs.span("kernelplan", mode=mode):
+        with obs.span("kernelplan", mode=mode) as sp:
             expr = plan_kernels(expr, input_shapes=shapes, stats=stats,
-                                mode=mode)
-        if torch.device(device).type == "cuda":
+                                mode=mode, impl=kernel_impl)
+            sp.set("matched", stats.get("kernelize.matched", 0))
+    # the planned IR and its input binding ride along in the cached
+    # stats, so the measured replay reaches the program that ran
+    stats["plan.ir"] = expr
+    stats["plan.inputs"] = (list(names), dict(types), dict(shapes))
+    _admit(expr, shapes, memory_limit, stats)
+    with obs.span("jit_compile"):
+        if mode != "off" and torch.device(device).type == "cuda":
             # build what the routed calls need before the first row (the
             # generated map-chain kernels); counted in compile_ms
             from .kernelplan.registry import prepare_kernels
 
             t1 = time.perf_counter()
-            prepare_kernels(expr)
+            prepare_kernels(expr, impl=kernel_impl)
             stats["kernels.prepare_ms"] = (time.perf_counter() - t1) * 1e3
-    stats["plan.ir"] = expr
-    fn = emit_program(expr, names, types, shapes, device, memory_limit,
-                      kernel_impl=kernel_impl)
+        fn = emit_program(expr, names, types, shapes, device, memory_limit,
+                          kernel_impl=kernel_impl)
     stats["compile_ms"] = (time.perf_counter() - t0) * 1e3
     return fn, stats
+
+
+def _admit(expr: ir.Expr, shapes, memory_limit, stats: dict) -> None:
+    """Weldbound admission: evaluate the plan's symbolic peak-memory
+    certificate against the bound inputs and reject BEFORE building — a
+    rejected plan costs zero kernel launches and is never cached.
+    Analysis OR certificate-evaluation failures only disable admission
+    (the emitter's own charging still guards execution)."""
+    if not _bounds.enabled():
+        return
+    tb0 = time.perf_counter()
+    admitted = True
+    brep = None
+    with obs.span("bounds") as sp:
+        try:
+            brep = _bounds.analyze(expr)
+        except Exception:
+            brep = None
+        if brep is not None:
+            try:
+                peak = brep.peak(shapes)
+                certificate = brep.certificate()
+                builders = brep.builder_lines(shapes)
+                out_rows = brep.result_rows(shapes)
+            except Exception as e:
+                # the certificate failed to evaluate at these shapes —
+                # same contract as an analysis failure: fall back to the
+                # emitter's charging, never kill the compile
+                brep = None
+                stats["bounds.degraded"] = f"{type(e).__name__}: {e}"
+                sp.set("degraded", stats["bounds.degraded"])
+        if brep is not None:
+            admitted = memory_limit is None or peak <= int(memory_limit)
+            stats["bounds.certificate"] = certificate
+            stats["bounds.peak_bytes"] = peak
+            stats["bounds.builders"] = builders
+            stats["bounds.out_rows"] = out_rows
+            stats["bounds.admitted"] = admitted
+            sp.set("peak_bytes", peak)
+            sp.set("admitted", admitted)
+    stats["bounds.ms"] = round((time.perf_counter() - tb0) * 1e3, 3)
+    if brep is not None and not admitted:
+        raise ResourceError(
+            f"plan rejected at admission: peak-memory certificate "
+            f"{stats['bounds.certificate']} = "
+            f"{stats['bounds.peak_bytes']} bytes exceeds "
+            f"memory_limit={int(memory_limit)} (builder size hints + "
+            f"kernel scratch footprints provably do not fit; nothing "
+            f"was built or launched)")
 
 
 def _compile_cached(key: str, build) -> Tuple[object, dict, bool]:
@@ -320,6 +399,10 @@ def _compile_and_run(prog, optimize, memory_limit, passes, mode,
             # the span ends when the card is done, not when the launches
             # are queued
             torch.cuda.synchronize(device)
+    if obs.enabled() and stats.get("kernelize.matched"):
+        pnames, ptypes, pshapes = stats["plan.inputs"]
+        _measured_replay(stats["plan.ir"], pnames, ptypes, pshapes,
+                         device, memory_limit, kernel_impl, arrays)
     with obs.span("decode"):
         faults.maybe_raise("decode")
         if faults.poisoned("decode"):
@@ -334,6 +417,29 @@ def _compile_and_run(prog, optimize, memory_limit, passes, mode,
     exported["encode_ms"] = encode_ms
     exported["run_ms"] = run_ms
     return value, compile_ms, from_cache, exported
+
+
+def _measured_replay(expr, input_names, types, shapes, device,
+                     memory_limit, kernel_impl, arrays) -> None:
+    """Re-run the planned program with every ``KernelCall`` timed, so
+    each gets its own ``kernel.<name>`` span and a cost-ledger record
+    (``emit_program(measure=True)``).  Runs only when tracing is on and
+    a kernel was routed; an untraced evaluation never reaches here.
+    Best-effort: a replay failure is recorded on the ``measure.replay``
+    span, never raised.  Serialized under the compile lock, like the
+    reference's eager replay."""
+    with obs.span("measure.replay") as sp:
+        try:
+            faults.maybe_raise("measure.replay")
+            with _compile_lock:
+                fn = emit_program(expr, input_names, types, shapes, device,
+                                  memory_limit, kernel_impl=kernel_impl,
+                                  measure=True)
+                fn(*arrays)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        except Exception as e:
+            sp.set("error", f"{type(e).__name__}: {e}")
 
 
 def decode_value(v, ty: wt.WeldType):

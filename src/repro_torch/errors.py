@@ -4,6 +4,7 @@ from .core.errors import (  # noqa: F401
     CapacityError,
     InjectedFault,
     KernelCompileError,
+    KernelQuarantinedError,
     ResourceError,
     WeldError,
     WeldVerifyError,
@@ -11,5 +12,6 @@ from .core.errors import (  # noqa: F401
 
 __all__ = [
     "WeldError", "CapacityError", "ResourceError",
-    "KernelCompileError", "InjectedFault", "WeldVerifyError",
+    "KernelCompileError", "KernelQuarantinedError", "InjectedFault",
+    "WeldVerifyError",
 ]

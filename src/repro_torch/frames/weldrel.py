@@ -45,10 +45,10 @@ class Query:
         self.pred = pred if self.pred is None else (self.pred & pred)
         return self
 
-    def _finish(self, obj: WeldObject, finalize, *, kernelize=None,
-                kernel_impl=None, collect_stats=None):
-        res = Evaluate(obj, kernelize=kernelize, kernel_impl=kernel_impl,
-                       collect_stats=collect_stats)
+    def _finish(self, obj: WeldObject, finalize, *, memory_limit=None,
+                kernelize=None, kernel_impl=None, collect_stats=None):
+        res = Evaluate(obj, memory_limit=memory_limit, kernelize=kernelize,
+                       kernel_impl=kernel_impl, collect_stats=collect_stats)
         return finalize(res.value)
 
     # -- ungrouped aggregate ---------------------------------------------------
@@ -306,23 +306,20 @@ class Query:
         Capacities and expansion buffers are instead *symbolic* IR
         expressions (``max(len(build), 1)`` for the group capacity,
         ``len(probe) * len(build)`` for the expansion buffer) that the
-        planner and the emitter resolve against the bound input shapes
-        (torchgen ``_static_eval``).  Every join
+        weldbound interval analysis derives bounds for and the backend
+        resolves against the bound input shapes.  Every join
         lowers through the m:n group path (duplicates cannot be ruled
         out without counting), so ``how="anti"``, ``validate="m:1"``
         and packed (float or multi-column) keys — all of which *need* a
         host value scan — raise under ``precount=False``.
 
-        ``memory_limit`` (compile-time admission control in the
-        reference) waits for the port's weldbound admission (ROADMAP,
-        queue A item 2: "weldcheck and weldbound"): anything but None
-        raises ``NotImplementedError``.
+        ``memory_limit`` (bytes, lazy only) arms compile-time admission
+        control: the plan's symbolic peak-memory certificate is
+        evaluated against the bound input shapes and a provably
+        over-budget plan raises a typed
+        :class:`~repro_torch.core.errors.ResourceError` *before* anything
+        is built or launched (see ``repro_torch.core.analysis.bounds``).
         """
-        if memory_limit is not None:
-            raise NotImplementedError(
-                "join memory_limit admission waits for the weldbound slice "
-                "of the port (ROADMAP, queue A item 2: \"weldcheck and "
-                "weldbound\")")
         if how not in ("inner", "left", "anti"):
             raise NotImplementedError(
                 f"join how={how!r} (supported: inner, left, anti)"
@@ -664,8 +661,9 @@ class Query:
             else:
                 # symbolic expansion bound: every probe row matches at
                 # most len(build) rows (left joins emit at least one, so
-                # max(len(build), 1) per row) — the backend resolves it
-                # against the bound input shapes
+                # max(len(build), 1) per row) — the weldbound interval
+                # analysis tightens and certifies this, and the backend
+                # resolves it against the bound input shapes
                 per_row: ir.Expr = ir.Len(r_ids[0])
                 if how == "left":
                     per_row = ir.BinOp("max", per_row,
@@ -686,8 +684,8 @@ class Query:
                 lambda v: Table(
                     dict(zip(out_names, [np.asarray(a) for a in v])),
                     eager=False),
-                kernelize=kernelize, kernel_impl=kernel_impl,
-                collect_stats=collect_stats)
+                memory_limit=memory_limit, kernelize=kernelize,
+                kernel_impl=kernel_impl, collect_stats=collect_stats)
 
         # bool value columns cannot ride the "+"-dictmerger directly —
         # they build as i8 and cast back to bool at the probe (build
@@ -820,8 +818,8 @@ class Query:
             lambda v: Table(
                 dict(zip(out_names, [np.asarray(a) for a in v])),
                 eager=False),
-            kernelize=kernelize, kernel_impl=kernel_impl,
-            collect_stats=collect_stats)
+            memory_limit=memory_limit, kernelize=kernelize,
+            kernel_impl=kernel_impl, collect_stats=collect_stats)
 
 
 def _host(col: weldnp.ndarray) -> np.ndarray:

@@ -12,7 +12,11 @@ A second path, :func:`build_generated`, builds a source the port
 generates at run time (a map chain's kernel, ``map_chain.py``) into a
 shared library of its own under the same directory, keyed by the hash of
 its text and flags, with ``-fmad=false`` so that its arithmetic rounds
-as the generic emitter's separate PyTorch operators do.
+as the generic emitter's separate PyTorch operators do.  Its ``nvcc``
+failing raises :class:`GeneratedBuildError`, the one build failure the
+evaluate pipeline's kernel-failure rung acts on; every other failure
+here (no ``nvcc``, the kernel library's own build, a CUDA error a C
+entry returns) raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -94,6 +98,10 @@ _C_SIGNATURES = {
         ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
         *(ctypes.c_float,) * 9, _P),
 }
+
+
+class GeneratedBuildError(RuntimeError):
+    """``nvcc`` refused a source generated at run time."""
 
 
 def nvcc_path() -> str:
@@ -206,8 +214,8 @@ def build_generated(text: str, name: str) -> Tuple[ctypes.CDLL, dict]:
             [nvcc_path(), *GEN_NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the generated source "
-                               f"{src}:\n{proc.stdout}")
+            raise GeneratedBuildError(
+                f"nvcc failed on the generated source {src}:\n{proc.stdout}")
         os.replace(tmp, out)
         os.replace(src, BUILD_DIR / f"{name}-{tag}.cu")
     lib = ctypes.CDLL(str(out))

@@ -1031,3 +1031,186 @@ def test_train_steps_on_the_card_match_the_cpu(gpu):
     for name, p in on_cpu["params"].items():
         torch.testing.assert_close(on_card["params"][name].cpu(), p,
                                    rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the evaluate pipeline's records on the card: the measured replay, and
+# the kernel-failure rung's quarantine key
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def private_state(tmp_path, monkeypatch):
+    """A private cost ledger and kernel health file, cold caches."""
+    from repro_torch.core import faults, runtime
+    from repro_torch.core.kernelplan import quarantine
+
+    monkeypatch.setenv("WELD_COST_LEDGER", str(tmp_path / "ledger.jsonl"))
+    monkeypatch.setenv("WELD_KERNEL_HEALTH",
+                       str(tmp_path / "kernel_health.json"))
+    quarantine.clear(disk=False)
+    runtime.clear_cache()
+    yield tmp_path
+    faults.clear()
+    quarantine.clear(disk=False)
+    runtime.clear_cache()
+
+
+def test_traced_join_records_each_routed_kernel(gpu, private_state):
+    """A traced m:1 join on the card writes one ledger record per routed
+    kernel; each ``measured_ns`` (the call bracketed by synchronizes) is
+    at least the CUDA-event time of the same call (``event_ns``)."""
+    from repro_torch import obs
+    from repro_torch.frames import weldrel
+
+    rng = np.random.RandomState(5)
+    left = weldrel.Table({"k": rng.randint(0, 512, 1 << 20)
+                          .astype(np.int64), "p": rng.rand(1 << 20)})
+    right = weldrel.Table({"k": np.arange(365, dtype=np.int64),
+                           "v": rng.rand(365)})
+    obs.enable()
+    pos = obs.mark()
+    try:
+        st: dict = {}
+        weldrel.Query(left).join(right, on="k", kernelize="always",
+                                 collect_stats=st)
+        spans = [sp for sp in obs.spans_since(pos)
+                 if sp.name.startswith("kernel.")]
+    finally:
+        obs.disable()
+        obs.clear()
+    recs = obs.ledger.read(str(private_state / "ledger.jsonl"))
+    assert [r["kernel"] for r in recs] == ["dict_hash_build", "hash_probe"]
+    assert [sp.name for sp in spans] == ["kernel.dict_hash_build",
+                                         "kernel.hash_probe"]
+    for r, sp in zip(recs, spans):
+        assert r["measured_ns"] == sp.tags["measured_ns"]
+        assert 0 < sp.tags["event_ns"] <= r["measured_ns"]
+        assert r["predicted_ns"] > 0
+
+
+def _card_groupby(kernelize="always"):
+    """A group-by on the card routed to ``dict_group_sum`` (the route
+    whose kernel is ``segment_sum_vectors``), and numpy's sums."""
+    from repro_torch.frames import welddf
+
+    rng = np.random.RandomState(9)
+    keys = rng.randint(0, 4096, 1 << 20).astype(np.int64)
+    vals = rng.rand(1 << 20)
+    want = np.bincount(keys, weights=vals, minlength=4096)
+
+    def run(mode=kernelize):
+        df = welddf.DataFrame({"k": keys, "v": vals})
+        st: dict = {}
+        out = df.groupby_sum("k", "v", capacity=4096, kernelize=mode,
+                             collect_stats=st)
+        return out, st
+
+    return run, keys, want
+
+
+def test_kernel_raise_on_the_card_quarantines_under_its_name(
+        gpu, private_state):
+    """``kernel.dict_group_sum:raise`` on card tensors raises
+    ``KernelCompileError`` (the generic lowering does not stand in for
+    the kernel on a card) after writing one health-file key, which names
+    the card; the next "always" compile raises ``KernelQuarantinedError``
+    at the gate with no launch; after ``quarantine.clear()`` the kernel
+    launches again and gives numpy's sums."""
+    import json
+
+    from repro_torch.core import errors, faults
+    from repro_torch.core.kernelplan import quarantine
+
+    run, keys, want = _card_groupby()
+    faults.inject("kernel.dict_group_sum", "raise", times=1)
+    t_ops.reset_counts()
+    with pytest.raises(errors.KernelCompileError) as ei:
+        run()
+    assert not isinstance(ei.value, errors.KernelQuarantinedError)
+    table = json.loads((private_state / "kernel_health.json").read_text())
+    (key,) = table
+    assert list(quarantine.entries()) == [key] and key in str(ei.value)
+    assert key.startswith("dict_group_sum|")
+    assert key.endswith("|" + torch.cuda.get_device_name())
+    assert t_ops.counts()["segment_sum_vectors"] == (0, 0)
+    with pytest.raises(errors.KernelQuarantinedError):
+        run()
+    assert all(c == (0, 0) for c in t_ops.counts().values())
+    quarantine.clear()
+    out, st = run()
+    assert t_ops.counts()["segment_sum_vectors"][0] >= 1
+    assert "recovery.attempts" not in st
+    assert sorted(out) == np.flatnonzero(
+        np.bincount(keys, minlength=4096)).tolist()
+    np.testing.assert_allclose([out[k] for k in sorted(out)],
+                               want[sorted(out)], rtol=1e-12)
+
+
+def test_a_quarantined_route_on_the_card_warns_under_auto(
+        gpu, private_state):
+    """Under "auto" the gate keeps the generic lowering for a quarantined
+    route on the card, and says so with a ``RuntimeWarning``."""
+    import warnings
+
+    from repro_torch.core import errors, faults
+
+    run, _, _ = _card_groupby()
+    faults.inject("kernel.dict_group_sum", "raise", times=1)
+    with pytest.raises(errors.KernelCompileError):
+        run()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        _, st = run("auto")
+    assert any("quarantined" in str(x.message) for x in w)
+    assert any(c.get("why") == "quarantined"
+               for c in st["kernelplan"]["costs"])
+
+
+def _misaligned_launch(args, params, fns, impl):
+    """The segment kernel's C entry given segment ids 4 bytes off its
+    16-byte condition: the entry refuses them (``_build.check``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import segment_reduce as sr
+
+    n, k = 1 << 12, 64
+    seg = torch.zeros(n + 4, dtype=torch.int32, device="cuda")[1:n + 1]
+    vals = torch.zeros((n, 1), dtype=torch.float64, device="cuda")
+    cfg = sr.launch_config(n, k, 1, 8)
+    partials = torch.empty((cfg.blocks, k, 1), dtype=torch.float64,
+                           device="cuda")
+    out = torch.empty((k, 1), dtype=torch.float64, device="cuda")
+    rc = _build.library().weld_segment_sum(
+        sr.DTYPE_CODES[torch.float64], seg.data_ptr(), vals.data_ptr(), n, k,
+        k, 1, cfg.replicas, cfg.tiles, cfg.blocks, partials.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "segment_sum kernel launch")
+
+
+def _oom_launch(args, params, fns, impl):
+    """An allocation of 1 TiB on an 80 GB card."""
+    torch.empty(1 << 40, dtype=torch.uint8, device="cuda")
+
+
+@pytest.mark.parametrize("what", ["misaligned", "oom"])
+def test_a_kernel_own_failure_on_the_card_raises_as_it_is(
+        gpu, private_state, monkeypatch, what):
+    """A C entry refusing a pointer and an out-of-memory error on the
+    card are the launch's own failures, not a kernel fault: each raises
+    as it is and writes no health-file key."""
+    import dataclasses
+
+    from repro_torch.core.kernelplan import quarantine, registry
+
+    launch = {"misaligned": _misaligned_launch, "oom": _oom_launch}[what]
+    monkeypatch.setitem(registry._REGISTRY, "dict_group_sum",
+                        dataclasses.replace(registry.get("dict_group_sum"),
+                                            execute=launch))
+    run, _, _ = _card_groupby()
+    want = {"misaligned": RuntimeError, "oom": torch.OutOfMemoryError}[what]
+    with pytest.raises(want) as ei:
+        run()
+    if what == "misaligned":
+        assert "misaligned" in str(ei.value)
+    assert quarantine.entries() == {}
+    assert not (private_state / "kernel_health.json").exists()

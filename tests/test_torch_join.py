@@ -268,6 +268,50 @@ def test_undersized_symbolic_capacity_poisons_in_both(mode, monkeypatch):
                   precount=False, capacity=10)
 
 
+def _routes(stats):
+    return {k: v for k, v in stats.items()
+            if k.startswith("kernelize.") and k != "kernelize.matched"}
+
+
+def _stats_of(pkg, mode, kw):
+    st: dict = {}
+    _join(pkg, mode, st, **kw)
+    return st
+
+
 def test_memory_limit_waits_for_the_weldbound_slice():
-    with pytest.raises(NotImplementedError, match="weldbound"):
-        _join(PORT, "always", {}, _probe(), _build(), memory_limit=1 << 30)
+    """``join(memory_limit=)`` is weldbound admission in both packages:
+    a limit equal to the port's own certified peak admits and gives the
+    rows of the unlimited run; one byte less raises ``ResourceError``
+    before anything runs.  The result rows the certificate derives
+    (``bounds.out_rows``) equal the reference's."""
+    from repro.core.errors import ResourceError as RResourceError
+    from repro_torch.core.errors import ResourceError as TResourceError
+
+    for mode in MODES:
+        for wl in ("m1_inner", "mn_left_fanout4", "mn_inner_precount_off"):
+            kw = dict(_workloads()[wl])
+            stats = {pkg: {} for pkg in ("port", "ref")}
+            free = _join(PORT, mode, stats["port"], **kw)
+            routes = _routes(stats["port"])
+            ref_mode = mode
+            if mode == "auto":
+                ref_mode = next((m for m in ("auto", "always", "off")
+                                 if _routes(_stats_of(REF, m, kw)) == routes),
+                                None)
+            _join(REF, ref_mode or mode, stats["ref"], **kw)
+            if ref_mode is not None:
+                assert stats["port"]["bounds.out_rows"] == \
+                    stats["ref"]["bounds.out_rows"], (mode, wl)
+            ref_mode = ref_mode or mode
+            for pkg, m, st, err in (
+                    (PORT, mode, stats["port"], TResourceError),
+                    (REF, ref_mode, stats["ref"], RResourceError)):
+                peak = st["bounds.peak_bytes"]
+                got = _join(pkg, m, {}, memory_limit=peak, **kw)
+                if pkg is PORT:
+                    assert set(got) == set(free)
+                    for c in free:
+                        np.testing.assert_array_equal(got[c], free[c])
+                with pytest.raises(err, match="admission"):
+                    _join(pkg, m, {}, memory_limit=peak - 1, **kw)

@@ -4,8 +4,11 @@ tree rendering, the cost ledger, and the spans an evaluation emits.
 
 The tracer cases of ``test_obs.py`` that need neither JAX nor
 ``Query.explain`` (which waits for the AOT slice), each run against
-both packages; then the port's pipeline spans.  Nothing here is timed
-against a limit: spans are checked for nesting and order only.
+both packages; then the port's pipeline spans, the planner's
+``kernelplan.candidate`` events and the measured replay's ledger
+records, held against the reference's on the same inputs.  Nothing
+here is timed against a limit: spans are checked for nesting and order
+only, and a record's ``measured_ns`` only for being positive.
 """
 from __future__ import annotations
 
@@ -235,7 +238,7 @@ def test_evaluate_emits_pipeline_spans():
     ((x + 1.0) * 2.0).evaluate()
     names = [s.name for s in obs.spans()]
     for want in ("weld.evaluate", "encode", "cache.lookup", "optimize",
-                 "pass.fusion", "execute", "decode"):
+                 "pass.fusion", "jit_compile", "execute", "decode"):
         assert want in names, (want, names)
     root = next(s for s in obs.spans() if s.name == "weld.evaluate")
     assert root.depth == 0 and root.tags["from_cache"] is False
@@ -280,3 +283,125 @@ def test_group_agg_accepts_collect_stats():
         [left.col("key")], {"s": (left.col("price"), "+")},
         capacity=256, kernelize="auto", collect_stats=st)
     assert out and "loops.before" in st
+
+
+# ---------------------------------------------------------------------------
+# the planner's candidate events and the measured replay
+# ---------------------------------------------------------------------------
+
+
+def _m1_join(w, mode, impl, **kw):
+    rng = np.random.RandomState(11)
+    left = w.Table({"k": rng.randint(0, 64, 2048).astype(np.int64),
+                    "p": rng.rand(2048)})
+    right = w.Table({"k": np.arange(48, dtype=np.int64),
+                     "v": rng.rand(48)})
+    return w.Query(left).join(right, on="k", kernelize=mode,
+                              kernel_impl=impl, **kw)
+
+
+def _traced(pkg, fn):
+    obs = pkg.obs
+    obs.enable()
+    pos = obs.mark()
+    try:
+        out = fn()
+        return out, obs.spans_since(pos)
+    finally:
+        obs.disable()
+
+
+@pytest.mark.parametrize("mode", ["always", "auto"])
+def test_candidate_events_match_the_reference(mode):
+    """Each priced candidate is one ``kernelplan.candidate`` event, with
+    the same kernels, sizes and (under "always") decisions as the
+    reference's; under "auto" each event carries its gate's decision."""
+    from repro.frames import weldrel as r_weldrel
+    from repro_torch.core import runtime
+    from repro_torch.frames import weldrel as t_weldrel
+
+    runtime.clear_cache()
+    events = {}
+    for pkg, w, impl in ((PORT, t_weldrel, None), (REF, r_weldrel, "ref")):
+        _, spans = _traced(pkg, lambda: _m1_join(w, mode, impl))
+        events[id(pkg)] = [sp.tags for sp in spans
+                           if sp.name == "kernelplan.candidate"]
+    port, ref = events[id(PORT)], events[id(REF)]
+    assert [(e["kernel"], e["n"]) for e in port] == \
+        [(e["kernel"], e["n"]) for e in ref]
+    assert {e["kernel"] for e in port} == {"dict_hash_build", "hash_probe"}
+    if mode == "always":
+        assert port == ref
+    for e in port:
+        assert isinstance(e["routed"], bool) and e["why"]
+
+
+def test_traced_evaluate_appends_one_record_per_routed_call(tmp_path):
+    """A traced kernelized evaluation replays the plan once under
+    ``measure.replay``: one ``kernel.<name>`` span and one ledger record
+    per routed call, with the planner's ``predicted_ns`` and dtype, as
+    the reference records them."""
+    from repro.frames import weldrel as r_weldrel
+    from repro_torch.core import runtime
+    from repro_torch.frames import weldrel as t_weldrel
+
+    path = str(tmp_path / "cost_ledger.jsonl")
+    runtime.clear_cache()
+    records, kspans, stats = {}, {}, {}
+    for pkg, w, impl in ((PORT, t_weldrel, None), (REF, r_weldrel, "ref")):
+        before = len(pkg.ledger.read(path))
+        st = stats[id(pkg)] = {}
+        _, spans = _traced(pkg, lambda: _m1_join(w, "always", impl,
+                                                 collect_stats=st))
+        records[id(pkg)] = pkg.ledger.read(path)[before:]
+        kspans[id(pkg)] = [sp for sp in spans
+                           if sp.name.startswith("kernel.")]
+        assert sum(sp.name == "measure.replay" for sp in spans) == 1
+    port = records[id(PORT)]
+    assert [r["kernel"] for r in port] == \
+        [r["kernel"] for r in records[id(REF)]] == \
+        ["dict_hash_build", "hash_probe"]
+    for got, want in zip(port, records[id(REF)]):
+        assert (got["dtype"], got["n"], got["bucket"]) == \
+            (want["dtype"], want["n"], want["bucket"])
+        assert got["measured_ns"] > 0 and got["predicted_ns"] > 0
+    assert [sp.tags["measured_ns"] for sp in kspans[id(PORT)]] == \
+        [r["measured_ns"] for r in port]
+    # the record's dtype is the planner's meta["dtype"] formula
+    from repro_torch.core import ir
+    from repro_torch.core.kernelplan.planner import _np_dtype_of
+
+    calls = [n for n in ir.walk(stats[id(PORT)]["plan.ir"])
+             if isinstance(n, ir.KernelCall)]
+    assert [r["dtype"] for r in port] == \
+        [str(np.dtype(_np_dtype_of(kc.ret_ty))) for kc in calls]
+    assert [r["predicted_ns"] for r in port] == \
+        [dict(kc.params)["predicted_ns"] for kc in calls]
+
+
+def test_untraced_evaluate_replays_nothing(tmp_path):
+    from repro_torch.frames import weldrel as t_weldrel
+
+    path = tmp_path / "cost_ledger.jsonl"
+    st: dict = {}
+    _m1_join(t_weldrel, "always", None, collect_stats=st)
+    assert st["kernelize.matched"] == 2
+    assert not path.exists()
+    assert t_obs.spans() == []
+
+
+def test_trace_smoke_tool_runs_on_the_cpu():
+    """``tools/trace_smoke_torch.py --device cpu`` passes end to end."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(root / "tools" / "trace_smoke_torch.py"),
+         "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ledger summary OK" in proc.stdout

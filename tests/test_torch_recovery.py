@@ -6,8 +6,10 @@ reference regrew and retried (``M.groupby_agg`` over 8,000 keys at
 capacity 4,097; ``welddf.groupby_sum`` at capacity 64 over keys {1, 2,
 100}), under kernelize "off", "always" and "auto"; then the
 reference's own recovery and fault-injection cases (``test_recovery.py``,
-``test_verify.py``, the capacity and poison faults of
-``test_join_fuzz.py``), each run against both packages.
+``test_verify.py``, the quarantine and measured-replay cases, the
+capacity, poison and kernel-raise faults of ``test_join_fuzz.py``),
+each run against both packages, with a private kernel health file
+and cost ledger per test.
 
 Tolerances: group-by sums f64 rtol 1e-12 (the two backends sum in
 different orders), join rows equal exactly (as sets: a regrown table
@@ -27,22 +29,26 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch
 from repro import errors as r_errors_top
 from repro import faults as r_faults_top
 from repro.core import check as r_check, faults as r_faults, ir as r_ir
 from repro.core import lazy as r_lazy, macros as r_M, recovery as r_recovery
-from repro.core import runtime as r_runtime, wtypes as r_wt
+from repro.core import obs as r_obs, runtime as r_runtime, wtypes as r_wt
 from repro.core import errors as r_errors
+from repro.core.kernelplan import quarantine as r_quarantine
 from repro.frames import welddf as r_welddf, weldrel as r_weldrel
 from repro_torch import errors as t_errors_top
 from repro_torch import faults as t_faults_top
 from repro_torch.core import check as t_check, faults as t_faults, ir as t_ir
 from repro_torch.core import lazy as t_lazy, macros as t_M
+from repro_torch.core import obs as t_obs
 from repro_torch.core import recovery as t_recovery, runtime as t_runtime
 from repro_torch.core import wtypes as t_wt
 from repro_torch.core import errors as t_errors
+from repro_torch.core.kernelplan import quarantine as t_quarantine
 from repro_torch.frames import welddf as t_welddf, weldrel as t_weldrel
 from test_join_fuzz import make_case, pd_oracle, _rowset as fuzz_rowset
 
@@ -50,12 +56,14 @@ REF = SimpleNamespace(name="ref", faults=r_faults, faults_top=r_faults_top,
                       recovery=r_recovery, runtime=r_runtime, check=r_check,
                       ir=r_ir, wt=r_wt, M=r_M, lazy=r_lazy, welddf=r_welddf,
                       weldrel=r_weldrel, errors=r_errors,
-                      errors_top=r_errors_top)
+                      errors_top=r_errors_top, quarantine=r_quarantine,
+                      obs=r_obs)
 PORT = SimpleNamespace(name="port", faults=t_faults, faults_top=t_faults_top,
                        recovery=t_recovery, runtime=t_runtime, check=t_check,
                        ir=t_ir, wt=t_wt, M=t_M, lazy=t_lazy,
                        welddf=t_welddf, weldrel=t_weldrel, errors=t_errors,
-                       errors_top=t_errors_top)
+                       errors_top=t_errors_top, quarantine=t_quarantine,
+                       obs=t_obs)
 PKGS = pytest.mark.parametrize("pkg", [PORT, REF], ids=["port", "ref"])
 MODES = ("off", "always", "auto")
 RTOL_F64 = 1e-12
@@ -69,14 +77,21 @@ def _port_on_cpu():
 
 
 @pytest.fixture(autouse=True)
-def _isolated():
-    """Disarmed faults and cold compile caches around every test."""
+def _isolated(tmp_path, monkeypatch):
+    """Disarmed faults, cold compile caches, and a private kernel health
+    file and cost ledger around every test."""
+    monkeypatch.setenv("WELD_KERNEL_HEALTH",
+                       str(tmp_path / "kernel_health.json"))
+    monkeypatch.setenv("WELD_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("WELD_COST_LEDGER", str(tmp_path / "ledger.jsonl"))
     for pkg in (PORT, REF):
         pkg.faults.clear()
+        pkg.quarantine.clear(disk=False)
         pkg.runtime.clear_cache()
     yield
     for pkg in (PORT, REF):
         pkg.faults.clear()
+        pkg.quarantine.clear(disk=False)
         pkg.runtime.clear_cache()
         pkg.recovery.set_enabled(None)
 
@@ -509,6 +524,8 @@ FUZZ_FAULTS = (
     ("group.build", "poison", None),
     ("kernel.group_build", "poison", None),
     ("kernel.dict_hash_build", "poison", None),
+    ("kernel.group_build", "raise", None),
+    ("kernel.dict_hash_build", "raise", None),
 )
 
 
@@ -517,8 +534,8 @@ def test_join_fuzz_fault_injection(seed):
     """Seeded cases, each re-run with a drawn failpoint armed: the port
     recovers to the pandas oracle (or the fault never fired), and a
     consumed decode poison with recovery disabled raises the typed
-    error.  The reference's kernel-raise faults need the quarantine rung,
-    which the port does not have yet."""
+    error.  A kernel-raise fault degrades to the generic lowering and
+    quarantines its kernel (cleared before the next case)."""
     import pandas as pd
 
     rng = np.random.RandomState(seed)
@@ -548,3 +565,324 @@ def test_join_fuzz_fault_injection(seed):
                                   filtered)
         finally:
             faults.clear()
+            PORT.quarantine.clear(disk=False)
+
+
+# ---------------------------------------------------------------------------
+# the kernel-failure rung and its quarantine (test_recovery.py)
+# ---------------------------------------------------------------------------
+
+
+@PKGS
+def test_kernel_fault_degrades_quarantines_and_gates(pkg, tmp_path):
+    """A launch failure falls back to the generic lowering of the same
+    program, records the offender on disk, and the next compile rejects
+    the quarantined route at the gate — without a cache clear."""
+    q = pkg.quarantine
+    want = _rowset(_join(pkg, "off"))
+    qfp0 = q.fingerprint()
+    pkg.faults.inject("kernel.group_build", "raise", times=1)
+    st: dict = {}
+    got, msgs = _quiet(_join, pkg, "always", collect_stats=st)
+    assert _rowset(got) == want
+    assert st["recovery.fallback"]
+    assert st["recovery.events"][0]["action"] == "quarantine"
+    assert any("quarantined" in m for m in msgs)
+    (key,) = st["recovery.quarantined"]
+    assert key.startswith("group_build|")
+    parts = key.split("|")
+    assert q.is_quarantined("group_build", impl=parts[1], dtype=parts[2],
+                            n=1)
+    assert (tmp_path / "kernel_health.json").exists()
+    assert q.entries()[key]["count"] == 1
+    assert "InjectedFault" in q.entries()[key]["last_error"]
+    assert q.fingerprint() != qfp0
+    st2: dict = {}
+    got2 = _join(pkg, "always", collect_stats=st2)
+    assert _rowset(got2) == want
+    kp = st2["kernelplan"]
+    assert kp["rejected"].get("group_build") == 1
+    assert any(c.get("why") == "quarantined" and not c.get("routed")
+               for c in kp["costs"])
+    assert "group_build" not in kp.get("routed", {})
+    assert "recovery.attempts" not in st2
+
+
+def test_kernel_fault_ladders_match_the_reference():
+    """The same fault degrades both packages alike: equal rows, equal
+    ladders, and a quarantine key of the same kernel, dtype and size
+    bucket; the port's key also names its device."""
+    out, stats = {}, {}
+    for pkg in (PORT, REF):
+        pkg.faults.inject("kernel.group_build", "raise", times=1)
+        st: dict = {}
+        out[pkg.name], _ = _quiet(_join, pkg, "always", collect_stats=st)
+        stats[pkg.name] = st
+    assert _rowset(out["port"]) == _rowset(out["ref"])
+    assert _ladder(stats["port"]) == _ladder(stats["ref"])
+    (pkey,) = stats["port"]["recovery.quarantined"]
+    (rkey,) = stats["ref"]["recovery.quarantined"]
+    kernel, impl, dtype, bucket, device = pkey.split("|")
+    assert [kernel, dtype, bucket] == [rkey.split("|")[i] for i in (0, 2, 3)]
+    assert (impl, device) == ("ref", "cpu")
+
+
+@PKGS
+def test_quarantine_corrupt_file_degrades_to_empty(pkg, tmp_path,
+                                                   monkeypatch):
+    q = pkg.quarantine
+    p = tmp_path / "kernel_health.json"
+    p.write_text("{not json")
+    monkeypatch.setattr(q, "_health", None)  # force a re-read
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        assert q.entries() == {}
+    (warning,) = [x for x in w if "corrupt" in str(x.message)]
+    assert issubclass(warning.category, RuntimeWarning)
+    msg = str(warning.message)
+    assert str(p) in msg and "delete the file" in msg
+    p.write_text("[1, 2, 3]")
+    monkeypatch.setattr(q, "_health", None)
+    with warnings.catch_warnings(record=True) as w2:
+        warnings.simplefilter("always")
+        assert q.entries() == {}
+    assert any("not an object" in str(x.message) for x in w2)
+
+
+@PKGS
+def test_quarantine_io_fault_is_best_effort(pkg, tmp_path):
+    q = pkg.quarantine
+    pkg.faults.inject("io.quarantine", "raise", times=1)
+    q.record("hash_probe", impl="ref", dtype="f8", n=100, error="x")
+    # the write failed, but the quarantine still applies in-process
+    assert not (tmp_path / "kernel_health.json").exists()
+    assert q.is_quarantined("hash_probe", impl="ref", dtype="f8", n=100)
+    q.record("hash_probe", impl="ref", dtype="f8", n=100)
+    assert (tmp_path / "kernel_health.json").exists()
+
+
+def test_quarantine_default_file_is_in_the_checkout(monkeypatch):
+    """Without ``$WELD_KERNEL_HEALTH`` the port's quarantine has no file:
+    a record holds in the process and nothing is written, in the
+    checkout or elsewhere, so one failed run cannot route a kernel away
+    in every later process."""
+    from pathlib import Path
+
+    monkeypatch.delenv("WELD_KERNEL_HEALTH")
+    root = Path(t_runtime.__file__).resolve().parents[3]
+    existed = (root / "build" / "kernel_health.json").exists()
+    t_quarantine.clear(disk=True)
+    assert t_quarantine.path() is None
+    key = t_quarantine.record("hash_probe", impl="ref", dtype="f8", n=100)
+    assert t_quarantine.is_quarantined("hash_probe", impl="ref", dtype="f8",
+                                       n=100)
+    assert list(t_quarantine.entries()) == [key]
+    assert (root / "build" / "kernel_health.json").exists() == existed
+    t_quarantine.clear(disk=True)
+    assert t_quarantine.entries() == {}
+
+
+@PKGS
+def test_measured_replay_failure_is_tagged_not_raised(pkg, tmp_path):
+    """A failure inside the traced replay lands on the measure.replay
+    span, never reaches the caller, and writes no ledger record."""
+    obs = pkg.obs
+    pkg.faults.inject("measure.replay", "raise", times=1)
+    obs.enable()
+    pos = obs.mark()
+    try:
+        got = _join(pkg, "always")
+        spans = obs.spans_since(pos)
+    finally:
+        obs.disable()
+        obs.clear()
+    assert len(_rowset(got)) == 7
+    (replay,) = [sp for sp in spans if sp.name == "measure.replay"]
+    assert "InjectedFault" in replay.tags["error"]
+    assert obs.ledger.read(str(tmp_path / "ledger.jsonl")) == []
+
+
+@PKGS
+def test_ledger_io_fault_drops_record_not_execution(pkg, tmp_path):
+    ledger = pkg.obs.ledger
+    pkg.faults.inject("io.ledger", "raise", times=1)
+    p = str(tmp_path / "ledger.jsonl")
+    assert ledger.record("k", "f8", 10, 1, 2, path=p) is None
+    assert ledger.read(p) == []
+    assert ledger.record("k", "f8", 10, 1, 2, path=p) is not None
+    assert len(ledger.read(p)) == 1
+
+
+# ---------------------------------------------------------------------------
+# a missing card is never a kernel failure
+# ---------------------------------------------------------------------------
+
+
+def _swap_spec(monkeypatch, name, **fields):
+    """Register a copy of spec ``name`` with ``fields`` replaced, for the
+    length of one test."""
+    import dataclasses
+
+    from repro_torch.core.kernelplan import registry
+
+    monkeypatch.setitem(registry._REGISTRY, name, dataclasses.replace(
+        registry.get(name), **fields))
+
+
+def test_device_unavailable_is_never_wrapped_or_quarantined(monkeypatch):
+    """A launch that finds no card raises ``DeviceUnavailableError`` as it
+    is: no ``KernelCompileError``, no quarantine, no generic re-run."""
+    from repro_torch.device import DeviceUnavailableError
+
+    def no_card(args, params, fns, impl):
+        raise DeviceUnavailableError("no CUDA device")
+
+    _swap_spec(monkeypatch, "group_build", execute=no_card)
+    with pytest.raises(DeviceUnavailableError):
+        _join(PORT, "always")
+    assert t_quarantine.entries() == {}
+
+
+def test_a_failed_build_is_a_kernel_failure_and_a_missing_card_is_not(
+        monkeypatch):
+    """``prepare_kernels`` (where the card's generated map-chain bodies
+    are built) wraps ``nvcc`` refusing a generated body as
+    ``KernelCompileError`` naming the kernel, and lets
+    ``DeviceUnavailableError`` and every other build failure (no
+    ``nvcc``, the kernel library's own build) through as they are."""
+    from repro_torch.core.kernelplan import registry
+    from repro_torch.device import DeviceUnavailableError
+    from repro_torch.kernels._build import GeneratedBuildError
+
+    x = t_ir.Ident("x", t_wt.Vec(t_wt.F64))
+    call = t_ir.KernelCall(kernel="map_elementwise", args=(x,),
+                           ret_ty=t_wt.Vec(t_wt.F64),
+                           params=(("n_rows", 4096),), fns=())
+
+    def broken(kc):
+        raise GeneratedBuildError("nvcc exited with status 1")
+
+    _swap_spec(monkeypatch, "map_elementwise", prepare=broken)
+    with pytest.raises(t_errors.KernelCompileError) as ei:
+        registry.prepare_kernels(call, impl="cuda")
+    assert (ei.value.kernel, ei.value.impl, ei.value.dtype, ei.value.n) \
+        == ("map_elementwise", "cuda", "float64", 4096)
+
+    for exc in (DeviceUnavailableError("no CUDA device"),
+                RuntimeError("nvcc not found"),
+                RuntimeError("nvcc failed on filter_reduce.cu")):
+        def fails(kc, exc=exc):
+            raise exc
+
+        _swap_spec(monkeypatch, "map_elementwise", prepare=fails)
+        with pytest.raises(type(exc)) as ei:
+            registry.prepare_kernels(call, impl="cuda")
+        assert ei.value is exc
+
+
+KERNEL_OWN_FAILURES = {
+    "refusal": lambda: RuntimeError(
+        "segment_sum kernel launch: CUDA error 716 (misaligned address)"),
+    "oom": lambda: torch.OutOfMemoryError("CUDA out of memory"),
+    "sticky": lambda: RuntimeError(
+        "CUDA error: an illegal memory access was encountered"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(KERNEL_OWN_FAILURES))
+def test_a_kernel_own_failure_raises_as_it_is(monkeypatch, what):
+    """A launch that fails by itself (a C entry refusing its pointers,
+    out of memory, a CUDA error that may be an earlier launch's) is not
+    a kernel fault: it raises unchanged, climbs no rung and quarantines
+    nothing."""
+    exc = KERNEL_OWN_FAILURES[what]()
+
+    def fails(args, params, fns, impl):
+        raise exc
+
+    _swap_spec(monkeypatch, "group_build", execute=fails)
+    with pytest.raises(type(exc)) as ei:
+        _join(PORT, "always")
+    assert ei.value is exc
+    assert t_quarantine.entries() == {}
+
+
+@pytest.fixture()
+def on_a_card(monkeypatch):
+    """The quarantine's device taken for a card's: the rules the port
+    keeps on a card, exercised on CPU tensors."""
+    monkeypatch.setattr(t_quarantine, "on_card", lambda: True)
+
+
+def test_kernel_fault_on_a_card_raises_and_records_its_key(on_a_card,
+                                                           tmp_path):
+    """On a card the rung never swaps the kernel for the generic
+    lowering: the fault raises ``KernelCompileError`` naming the
+    quarantine key, after writing that one key."""
+    PORT.faults.inject("kernel.group_build", "raise", times=1)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        with pytest.raises(t_errors.KernelCompileError) as ei:
+            _join(PORT, "always")
+    assert not isinstance(ei.value, t_errors.KernelQuarantinedError)
+    (key,) = t_quarantine.entries()
+    assert key.startswith("group_build|") and key in str(ei.value)
+    assert ei.value.kernel == "group_build"
+    assert not [x for x in w if "degrading" in str(x.message)]
+    assert (tmp_path / "kernel_health.json").exists()
+
+
+def test_quarantined_route_on_a_card_raises_under_always(on_a_card):
+    """The gate raises on a quarantined route under "always", before
+    anything is launched, and caches nothing; ``quarantine.clear()``
+    lifts it with no compile-cache clear."""
+    from repro_torch.kernels import ops
+
+    want = _rowset(_join(PORT, "always"))
+    PORT.faults.inject("kernel.group_build", "raise", times=1)
+    with pytest.raises(t_errors.KernelCompileError):
+        _join(PORT, "always")
+    cached = t_runtime.cache_size()
+    ops.reset_counts()
+    with pytest.raises(t_errors.KernelQuarantinedError) as ei:
+        _join(PORT, "always")
+    assert ei.value.kernel == "group_build"
+    assert all(c == (0, 0) for c in ops.counts().values())
+    assert t_runtime.cache_size() == cached
+    t_quarantine.clear()
+    st: dict = {}
+    assert _rowset(_join(PORT, "always", collect_stats=st)) == want
+    assert st["kernelize.group_build"] == 1
+    assert "recovery.attempts" not in st
+
+
+def test_quarantined_route_on_a_card_warns_under_auto(on_a_card):
+    """Under "auto" the gate keeps the generic lowering for a
+    quarantined route, with a ``RuntimeWarning`` on every compile."""
+    t_quarantine.record("group_build", impl=None, dtype="int64", n=1)
+    for _ in range(2):
+        t_runtime.clear_cache()
+        st: dict = {}
+        _, msgs = _quiet(_join, PORT, "auto", collect_stats=st)
+        assert any("quarantined" in m for m in msgs)
+        assert any(c.get("why") == "quarantined"
+                   for c in st["kernelplan"]["costs"])
+        assert "kernelize.group_build" not in _routes(st)
+
+
+def test_faults_smoke_tool_runs_on_the_cpu():
+    """``tools/faults_smoke_torch.py --device cpu`` passes end to end, its
+    quarantine key naming the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(root / "tools" / "faults_smoke_torch.py"),
+         "--device", "cpu"], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "|cpu; next compile rejected it" in proc.stdout
