@@ -4,13 +4,16 @@
     python3 chip_smoke.py [--seed N] [--out results.json]
 
 Run from the root of a checkout on a machine with a CUDA card (and
-``nvcc``): it points the kernel health file and the cost ledger at a
-fresh temporary directory, turns on ``WELD_VERIFY=1`` (every compile
-verifies its IR after each pass and after planning; each phase's line
-prints ``verify.runs``, ``verify.ms`` and ``bounds.ms``), builds the
-port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
+``nvcc``): it points the kernel health file, the cost ledger and the
+autotuner's cache at a fresh temporary directory, turns on
+``WELD_VERIFY=1`` (every compile verifies its IR after each pass, after
+planning and after tuning; each phase's line prints ``verify.runs``,
+``verify.ms`` and ``bounds.ms``, and a ``tuned:`` line for each routed
+call with a grid cap the tuner chose, and each "auto" decision its
+``source``), builds the port's CUDA kernels from
+``src/repro_torch/kernels/csrc`` and then
 
-1. runs fourteen phases through the entry points a user calls — TPC-H Q6
+1. runs sixteen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -35,7 +38,15 @@ port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and then
    ``kernel.dict_group_sum:raise`` raising, quarantined under the
    card's name, raising at the gate on the next compile and launched
    again after ``quarantine.clear()``; every phase fails on a
-   quarantine), an m:n join on TPC-H
+   quarantine), compile once and serve many (``serve``: a
+   ``QueryServer`` of 8 workers over 32 requests of five SF10-sized
+   plans — the Q1.1 join, weldrel's group-by, the dense group-by and Q6
+   as WeldObjects, the m:n join — bitwise equal to one serial run a
+   plan, one compile a plan, a rebound ``CompiledQuery`` with no
+   compile, a request shed a byte below its certified peak, the gate
+   calibrated from one traced run a plan on the card's clock, and the
+   tuner's caps), an
+   m:n join on TPC-H
    partsupp's fan-out (16,777,216 probe rows against 50,000 parts x 4
    suppliers: inner, left), the recovery ladder (that inner join with
    its build capacity under-estimated by the ``join.capacity`` failpoint,
@@ -95,9 +106,11 @@ any check fails.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -233,6 +246,11 @@ class MainPath:
         self.phase_ms = {}
         #: map-chain bodies (IR lambdas) the phases routed, by phase
         self.bodies = {}
+        #: the grid caps the autotuner gave the phases' routed calls:
+        #: (spec, size bucket) -> max_blocks
+        self.tuned = {}
+        #: tables and numpy results several phases share, made once
+        self.memo = {}
 
     def run(self, phase: str, mode: str, fn, expect=(), recovers=False):
         """Zero the counters, drive ``fn(mode, stats)`` and read them.
@@ -298,6 +316,13 @@ class MainPath:
         refused = stats.get("kernelplan", {}).get("refused")
         if refused:
             log(f"  refused routes: {refused}")
+        for t in stats.get("kernelplan", {}).get("autotune", []):
+            if t["n"] and "max_blocks" in t["params"]:
+                self.tuned[t["kernel"], bucket_of(t["n"])] = \
+                    t["params"]["max_blocks"]
+            log(f"  tuned: {t['kernel']} n={t['n']} {t['params']} "
+                f"{'cached' if t['cached'] else 'timed'} winner_us="
+                f"{t['us']} default_us={t['default_us']}")
         if mode == "auto":
             plan = stats.get("kernelplan", {})
             if plan.get("midpoint_priced"):
@@ -305,7 +330,8 @@ class MainPath:
                     f"at the midpoint of their weldbound row interval")
             for c in plan.get("costs", []):
                 log(f"  auto decision: {c['kernel']} routed={c['routed']} "
-                    f"predicted kernel_us={c['kernel_us']} generic_us="
+                    f"source={c.get('source')} predicted kernel_us="
+                    f"{c['kernel_us']} generic_us="
                     f"{c['jnp_us']} ({c['why']}); measured run_ms="
                     f"{entry.get('run_ms', float('nan')):.3f}")
         if mode == "always":
@@ -317,6 +343,28 @@ class MainPath:
             check(all(p == 0 for _, p in counts.values()),
                   f"{phase}: plain versions served kernel calls: {counts}")
         return value, stats
+
+
+def bucket_of(n: int) -> int:
+    """The autotuner's size bucket of ``n`` rows."""
+    from repro_torch.core.kernelplan import autotune
+
+    return autotune.size_bucket(int(n))
+
+
+#: the planner route whose tuned grid cap each held wrapper launches with
+TUNED_SPEC = {"filter_reduce_sum": "filter_reduce_sum",
+              "filter_reduce_sum_multi": "filter_reduce_sum",
+              "segment_sum": "vecmerger_segment_sum",
+              "segment_sum_vectors": "dict_group_sum",
+              "map_elementwise": "map_elementwise"}
+
+
+def main_path_cap(tuned: dict, wrapper: str, n: int):
+    """The grid cap the main path's compile gave ``wrapper``'s route at
+    ``n`` rows, or None (the kernel module's default) where no phase
+    tuned that route at that size."""
+    return tuned.get((TUNED_SPEC.get(wrapper), bucket_of(n)))
 
 
 def lineitem(n: int, seed: int) -> dict:
@@ -840,10 +888,13 @@ def same_column(got: np.ndarray, want: np.ndarray, what: str) -> None:
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{what}: {got.dtype}{got.shape} vs numpy {want.dtype}{want.shape}")
     if want.dtype.kind == "f":
+        bits = np.dtype(f"i{want.dtype.itemsize}")
+        gb, wb = got.view(bits), want.view(bits)
+        if np.array_equal(gb, wb):  # the same bits, NaN payloads included
+            return
         nan = np.isnan(want)
         check(np.array_equal(np.isnan(got), nan), f"{what}: NaN rows differ")
-        check(np.array_equal(got[~nan].view(np.int64),
-                             want[~nan].view(np.int64)),
+        check(bool(np.all((gb == wb) | nan)),
               f"{what}: values differ from numpy's")
     else:
         check(np.array_equal(got, want), f"{what}: values differ from numpy's")
@@ -884,6 +935,8 @@ def join_m1_tables(mp: MainPath, cols: dict):
     """lineorder (the lineitem columns + orderdate) and the 1993 date
     rows, with each order date's position in them and whether it is
     there."""
+    if "join_m1" in mp.memo:
+        return mp.memo["join_m1"]
     n = cols["qty"].shape[0]
     rng = np.random.RandomState(mp.seed + 5)
     probe = dict(cols, orderdate=ssb_dates()[rng.randint(0, SSB_DAYS, n)])
@@ -891,6 +944,7 @@ def join_m1_tables(mp: MainPath, cols: dict):
     pos = np.clip(np.searchsorted(date["datekey"], probe["orderdate"]),
                   0, 364)
     found = date["datekey"][pos] == probe["orderdate"]
+    mp.memo["join_m1"] = (probe, date, pos, found)
     return probe, date, pos, found
 
 
@@ -1164,17 +1218,24 @@ JOIN_MN_EXPECT = [("group_build", "hash_to_slot"),
 def join_mn_tables(mp: MainPath):
     """partsupp (the build side) and the lineitem-shaped probe rows of the
     m:n join, each part key uniform over twice the part range."""
+    if "join_mn" in mp.memo:
+        return mp.memo["join_mn"]
     s = mp.sizes
     build = partsupp(s.join_mn_parts, s.join_mn_fanout, mp.seed)
     probe = lineitem(s.join_mn_rows, mp.seed + 6)
     rng = np.random.RandomState(mp.seed + 7)
     probe["partkey"] = rng.randint(0, 2 * s.join_mn_parts,
                                    s.join_mn_rows).astype(np.int64)
+    mp.memo["join_mn"] = (build, probe)
     return build, probe
 
 
-def join_mn_want(build: dict, probe: dict, how: str) -> dict:
-    """numpy's m:n join: probe-row order, build-row order within a key."""
+def join_mn_want(mp: MainPath, how: str) -> dict:
+    """numpy's m:n join of ``join_mn_tables``: probe-row order, build-row
+    order within a key (made once a run for each ``how``)."""
+    if ("join_mn", how) in mp.memo:
+        return mp.memo["join_mn", how]
+    build, probe = join_mn_tables(mp)
     bk = build["partkey"]  # sorted: within a key, build-row order
     lo = np.searchsorted(bk, probe["partkey"], side="left")
     cnt = np.searchsorted(bk, probe["partkey"], side="right") - lo
@@ -1186,6 +1247,7 @@ def join_mn_want(build: dict, probe: dict, how: str) -> dict:
     want = {c: v[rows] for c, v in probe.items()}
     want["suppkey"] = np.where(hit, build["suppkey"][gidx], 0)
     want["supplycost"] = np.where(hit, build["supplycost"][gidx], np.nan)
+    mp.memo["join_mn", how] = want
     return want
 
 
@@ -1198,7 +1260,7 @@ def phase_join_mn(mp: MainPath) -> None:
     build, probe = join_mn_tables(mp)
     expect = JOIN_MN_EXPECT
     for how in ("inner", "left"):
-        want = join_mn_want(build, probe, how)
+        want = join_mn_want(mp, how)
         log(f"join_mn.{how}: {want['suppkey'].shape[0]} output rows")
 
         def join(mode, stats, how=how):
@@ -1240,7 +1302,7 @@ def phase_recovery(mp: MainPath) -> None:
 
     s = mp.sizes
     build, probe = join_mn_tables(mp)
-    want = join_mn_want(build, probe, "inner")
+    want = join_mn_want(mp, "inner")
 
     def join(mode, stats):
         res = weldrel.Query(weldrel.Table(probe)).join(
@@ -1313,6 +1375,456 @@ def phase_recovery(mp: MainPath) -> None:
         f"{stats['recovery.attempts']}, regrow x"
         f"{stats['recovery.regrow_factor']}, fallback "
         f"{stats['recovery.fallback']}, max error {err:.3e}")
+
+
+SERVE_EXPECT = [("dict_hash_build", "hash_to_slot"),
+                ("dict_hash_build", "segment_sum"),
+                ("hash_probe", "dict_probe"),
+                ("dict_group_sum", "segment_sum_vectors"),
+                ("filter_reduce_sum", "filter_reduce_sum"),
+                ("group_build", "slot_hist"),
+                ("group_probe", "group_probe")]
+
+
+def _served(got) -> dict:
+    """A served result as numpy: a weldrel Table's columns, or the dict
+    or scalar it is."""
+    from repro_torch.frames import weldrel
+
+    if isinstance(got, weldrel.Table):
+        return {c: np.asarray(weldrel._host(v)) for c, v in got.cols.items()}
+    if isinstance(got, tuple) and len(got) == 1:  # a one-merger struct
+        return got[0]
+    return got
+
+
+def _bitwise_same(got, want, what: str) -> None:
+    """Equal bit for bit: tables column by column, dicts key by key,
+    scalars by their bits."""
+    if isinstance(want, dict) and want and isinstance(
+            next(iter(want.values())), np.ndarray):
+        same_table(got, want, what)
+        return
+    def bits(v):
+        return np.atleast_1d(np.asarray(v, dtype=np.float64)).view(np.int64)
+
+    if isinstance(want, dict):
+        check(list(got) == list(want), f"{what}: keys differ")
+        check(all(np.array_equal(bits(got[k]), bits(want[k])) for k in want),
+              f"{what}: values differ bitwise")
+        return
+    check(np.array_equal(bits(got), bits(want)),
+          f"{what}: {got!r} vs {want!r} bitwise")
+
+
+#: how much faster than its "auto" run a plan's "always" run may be
+#: before a calibrated flip to the generic lowering counts as wrong (the
+#: spread of a plan's runs on the card)
+FLIP_SPREAD = 0.05
+
+
+def _flip_times(torch, compiled, name: str, make) -> tuple:
+    """(ms of the plan under "always", ms under "auto"): the minimum of
+    3 runs of each compiled handle, alternating, on the inputs it bound
+    at compile time (already on the card)."""
+    handles = [compiled(name, make, "always"), compiled(name, make, "auto")]
+    best = [float("inf"), float("inf")]
+    for _ in range(3):
+        for i, h in enumerate(handles):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h.run()
+            torch.cuda.synchronize()
+            best[i] = min(best[i], (time.perf_counter() - t0) * 1e3)
+    return tuple(best)
+
+
+def phase_serve(mp: MainPath, cols: dict) -> dict:
+    """Compile once, serve many: ``QueryServer(workers=8)`` takes 32
+    requests over five plans at the phases' sizes, every kernel route
+    under "always":
+
+    - 10 x SSB Q1.1's m:1 inner join (59,986,052 x 365), a StagedQuery
+      (hash_to_slot, segment_sum, dict_probe);
+    - 5 x weldrel's SF10 4,096-key ``group_agg``, a StagedQuery (the
+      port's planner takes dict_hash_build for it: hash_to_slot,
+      segment_sum);
+    - 5 x the dense SF10 4,096-key group-by ``welddf.groupby_sum``
+      builds, as a WeldObject (segment_sum_vectors, grid cap tuned);
+    - 8 x TPC-H Q6's filtered sum on SF10 lineitem, as a WeldObject
+      (filter_reduce_sum, grid cap tuned);
+    - 4 x the partsupp m:n inner join (16,777,216 x 200,000), a
+      StagedQuery (hash_to_slot, slot_hist, group_probe).
+
+    (a) every result bitwise equal to the serial run of its plan (two a
+    plan, the first compiling, through a server of one worker) and to
+    numpy (join columns exact, f64 rtol 1e-9); the serial wall of the 32
+    is the sum of their second runs' walls; (b) ``cache.misses`` = 5,
+    nothing compiled twice; (c)
+    ``CompiledQuery.run(table=, right=)`` on a lineorder and date table
+    from another seed: zero compiles, equal to numpy; (d) one request
+    with ``memory_limit`` a byte below its certified peak sheds with
+    ``ResourceError`` (``serve.shed``), launches nothing, is not cached;
+    (e) calibration: one traced run of each plan writes a ledger of the
+    phase's own (later phases' gates stay on theirs), then
+    ``clear_cache`` and an "auto" compile of each with
+    ``WELD_CALIBRATE_MIN=1``: ``explain()`` shows ``source=measured`` for
+    every group of the card's records, each decision's roofline and
+    measured µs (the card's time inside the kernel entries), the routes
+    that flipped, and the "auto" runs still equal numpy; a plan whose
+    route flipped to the generic lowering fails if its "always" run is
+    faster than its "auto" run by more than ``FLIP_SPREAD`` (min of 3
+    runs each, inputs on the card); (f) the tuner's cap for each tuned
+    call, with the default's and the winner's time by its clock."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import ir, macros as M, runtime
+    from repro_torch.core.errors import ResourceError
+    from repro_torch.core.kernelplan import calibrate
+    from repro_torch.core.lazy import NewWeldObject
+    from repro_torch.core.serve import QueryServer
+    from repro_torch.frames import weldrel
+
+    s = mp.sizes
+    out: dict = {}
+    t_serve = time.perf_counter()
+
+    def clock(what):
+        log(f"  serve.clock: {what} at {time.perf_counter() - t_serve:.1f} s")
+
+    probe, date, pos, found = join_m1_tables(mp, cols)
+    keep = found & (probe["qty"] < 24.0)
+    want_m1 = {c: v[keep] for c, v in probe.items()}
+    want_m1["weeknum"] = date["weeknum"][pos[keep]]
+    want_m1["rate"] = date["rate"][pos[keep]]
+    clock("the Q1.1 tables and numpy's join")
+    rng = np.random.RandomState(mp.seed + 1)
+    gkeys = rng.randint(0, s.groupby_keys, s.groupby_rows).astype(np.int64)
+    gvals = rng.rand(s.groupby_rows)
+    gsum = np.bincount(gkeys, weights=gvals, minlength=s.groupby_keys)
+    gcnt = np.bincount(gkeys, minlength=s.groupby_keys)
+    q6m = ((cols["ship"] >= 365) & (cols["ship"] < 730)
+           & (cols["disc"] >= 0.05) & (cols["disc"] <= 0.07)
+           & (cols["qty"] < 24.0))
+    want_q6 = float((cols["price"][q6m] * cols["disc"][q6m]).sum())
+    del q6m
+    clock("the group-by table and Q6's sum")
+    build, mn_probe = join_mn_tables(mp)
+    want_mn = join_mn_want(mp, "inner")
+    clock("the m:n tables and numpy's join")
+
+    def m1(mode="always"):
+        t = weldrel.Table(probe)
+        return weldrel.Query(t).filter(t.col("qty") < 24.0).stage().join(
+            weldrel.Table(date), on="orderdate", right_on="datekey",
+            how="inner", kernelize=mode)
+
+    def group_agg(mode="always"):
+        t = weldrel.Table({"k": gkeys, "v": gvals})
+        return weldrel.Query(t).stage().group_agg(
+            [t.col("k")], {"v": (t.col("v"), "+")},
+            capacity=s.groupby_keys, kernelize=mode)
+
+    def groupby_dense():
+        k, v = NewWeldObject(gkeys, None), NewWeldObject(gvals, None)
+        return NewWeldObject([k, v], M.groupby_agg(
+            ir.Ident(k.obj_id, k.weld_type()),
+            ir.Ident(v.obj_id, v.weld_type()), "+",
+            capacity=s.groupby_keys))
+
+    def q6():
+        t = weldrel.Table(cols)
+        return weldrel.Query(t).filter(
+            (t.col("ship") >= 365) & (t.col("ship") < 730)
+            & (t.col("disc") >= 0.05) & (t.col("disc") <= 0.07)
+            & (t.col("qty") < 24.0)).stage().agg(
+            {"rev": (t.col("price") * t.col("disc"), "+")}).obj
+
+    def mn(mode="always"):
+        return weldrel.Query(weldrel.Table(mn_probe)).stage().join(
+            weldrel.Table(build), on="partkey", how="inner", kernelize=mode)
+
+    plans = [("join_m1", m1, 10), ("group_agg", group_agg, 5),
+             ("groupby_dense", groupby_dense, 5), ("q6", q6, 8),
+             ("join_mn", mn, 4)]
+    make_of = {name: make for name, make, _ in plans}
+
+    def held(name, got):
+        """Each plan's result against numpy."""
+        if name == "join_m1":
+            same_table(got, want_m1, f"serve.{name}")
+        elif name == "join_mn":
+            same_table(got, want_mn, f"serve.{name}")
+        elif name == "q6":
+            close(got, want_q6, 1e-9, f"serve.{name}")
+        else:
+            wkeys = np.flatnonzero(gcnt).tolist()
+            check(sorted(got) == wkeys, f"serve.{name}: wrong key set")
+            scale = float(np.abs(gsum).max())
+            for k in wkeys:
+                v = got[k]
+                total = v[0] if isinstance(v, tuple) else v
+                check(abs(total - gsum[k]) <= 1e-9 * scale,
+                      f"serve.{name}[{k}]: {total!r} vs {gsum[k]!r}")
+                if isinstance(v, tuple):
+                    check(v[1] == gcnt[k], f"serve.{name}[{k}]: count")
+
+    # -- serial: two runs a plan through a server of one worker ----------
+    runtime.clear_cache()
+    serial, serial_ms, steady_ms = {}, {}, {}
+    with QueryServer(workers=1, kernelize="always") as one:
+        for name, make, _ in plans:
+            for ms in (serial_ms, steady_ms):
+                req = make()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = _served(one.run(req))
+                ms[name] = (time.perf_counter() - t0) * 1e3
+                if name in serial:
+                    _bitwise_same(got, serial[name],
+                                  f"serve.serial.{name}: second run")
+                serial[name] = got
+            held(name, serial[name])
+    serial_wall = sum(steady_ms[name] * count for name, _, count in plans)
+    log("  serve.serial (ms, first run of each plan, compile included): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in serial_ms.items())
+        + "; second run: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steady_ms.items()))
+    reqs = [(name, make()) for name, make, count in plans
+            for _ in range(count)]
+    clock("the tables, numpy's results and the serial runs")
+
+    # -- (a), (b): 32 requests on 8 workers from a cold compile cache ----
+    runtime.clear_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def compiled(name, make, mode="always"):
+        """The cached handle of one plan (a hit once it has been served)."""
+        from repro_torch.core.lazy import build_program
+
+        req = make()
+        prog = req.program() if hasattr(req, "program") \
+            else build_program(req)
+        return runtime.compile_program(prog, kernelize=mode)
+
+    handles = {}
+
+    def serve_all(mode, stats):
+        with QueryServer(workers=8, kernelize=mode) as srv:
+            futs = [srv.submit(q) for _, q in reqs]
+            got = [f.result() for f in futs]
+            stats["serve"] = srv.stats()
+        # the routes the served plans took, from their cached compiles
+        for name, make, _ in plans:
+            handles[name] = compiled(name, make)
+            routed = handles[name].stats["kernelplan"]["routed"]
+            for spec, n in routed.items():
+                key = f"kernelize.{spec}"
+                stats[key] = stats.get(key, 0) + n
+        return got
+
+    results, st = mp.run("serve", "always", serve_all, expect=SERVE_EXPECT)
+    wall = mp.phase_ms["serve[always]"]["wall_ms"]
+    peak = torch.cuda.max_memory_allocated()
+    sv = st["serve"]
+    for (name, _), got in zip(reqs, results):
+        _bitwise_same(_served(got), serial[name], f"serve.{name} vs serial")
+    del results
+    check(sv["cache.misses"] == len(plans)
+          and sv["cache.hits"] + sv["cache.waits"] == len(reqs) - len(plans)
+          and runtime.cache_size() == len(plans),
+          f"serve: {len(plans)} plans but {sv}")
+    check(sv["serve.completed"] == len(reqs) and sv["serve.shed"] == 0
+          and sv["serve.errors"] == 0, f"serve: {sv}")
+    out.update(wall_ms=wall, serial_ms=serial_ms, requests=len(reqs),
+               serial_steady_ms=steady_ms, serial_wall_ms=serial_wall,
+               requests_per_s=len(reqs) / (wall / 1e3),
+               serial_requests_per_s=len(reqs) / (serial_wall / 1e3),
+               max_memory_allocated=peak, memory_at_start=base,
+               counters={k: v for k, v in sv.items()
+                         if k.startswith(("serve.", "cache."))})
+    log(f"  serve: {len(reqs)} requests on 8 workers in {wall:.3f} ms "
+        f"({out['requests_per_s']:.3f} requests/s) from a cold compile "
+        f"cache; serially (each plan's second run times its count) "
+        f"{serial_wall:.3f} ms ({out['serial_requests_per_s']:.3f} "
+        f"requests/s); serial first runs {sum(serial_ms.values()):.3f} "
+        f"ms; every result bitwise equal to its serial run; "
+        f"{out['counters']}; max_memory_allocated {peak} bytes ({base} "
+        f"at the start)")
+    log(f"  serve card: {card_line()}")
+    clock("32 requests on 8 workers, held")
+
+    # -- (f) the tuned calls --------------------------------------------
+    tuned = []
+    for name, handle in handles.items():
+        for ev in handle.stats.get("kernelplan", {}).get("autotune", []):
+            tuned.append(dict(ev, plan=name))
+            log(f"  serve.tuned: {name} {ev['kernel']} n={ev['n']} cap "
+                f"{ev['params']} winner_us={ev['us']} default_us="
+                f"{ev['default_us']} (tuner's clock: CUDA events, min of "
+                f"3)")
+    check(any(t["kernel"] in ("filter_reduce_sum", "dict_group_sum",
+                              "vecmerger_segment_sum")
+              and t["us"] is not None for t in tuned),
+          f"serve: no B1/B4/B5 call tuned on the card: {tuned}")
+    out["tuned"] = tuned
+    handles.clear()
+
+    # -- (c) a rebound CompiledQuery: zero compiles ----------------------
+    cq = m1().compile()
+    misses = runtime.cache_stats()["cache.misses"]
+    cols2 = lineitem(s.lineitem, mp.seed + 100)
+    r2 = np.random.RandomState(mp.seed + 105)
+    probe2 = dict(cols2, orderdate=ssb_dates()[r2.randint(0, SSB_DAYS,
+                                                          s.lineitem)])
+    del cols2
+    date2 = dict(date, rate=np.random.RandomState(mp.seed + 103)
+                 .uniform(0.0, 0.1, 365))
+    pos2 = np.clip(np.searchsorted(date2["datekey"], probe2["orderdate"]),
+                   0, 364)
+    keep2 = (date2["datekey"][pos2] == probe2["orderdate"]) \
+        & (probe2["qty"] < 24.0)
+    want2 = {c: v[keep2] for c, v in probe2.items()}
+    want2["weeknum"] = date2["weeknum"][pos2[keep2]]
+    want2["rate"] = date2["rate"][pos2[keep2]]
+    t0 = time.perf_counter()
+    got2 = _served(cq.run(table=weldrel.Table(probe2),
+                          right=weldrel.Table(date2)))
+    rebind_ms = (time.perf_counter() - t0) * 1e3
+    check(runtime.cache_stats()["cache.misses"] == misses,
+          "serve.rebind: a same-shape rebind compiled")
+    same_table(got2, want2, "serve.rebind")
+    del probe2, want2, got2, pos2, keep2
+    out["rebind_ms"] = rebind_ms
+    log(f"  serve.rebind: CompiledQuery.run(table=, right=) on tables from "
+        f"another seed in {rebind_ms:.3f} ms, 0 compiles, equal to numpy")
+    clock("(c), a rebound CompiledQuery")
+
+    # -- (d) a request a byte below its certified peak sheds -------------
+    peak_bytes = cq.stats["bounds.peak_bytes"]
+    shed = m1()
+    shed.memory_limit = peak_bytes - 1
+    cached = runtime.cache_size()
+    mp.ops.reset_counts()
+    with QueryServer(workers=8, kernelize="always") as srv:
+        try:
+            srv.run(shed)
+        except ResourceError as e:
+            log(f"  serve.shed: memory_limit {peak_bytes - 1} shed: "
+                f"{str(e)[:100]}")
+        else:
+            check(False, "serve.shed: admitted a byte below its peak")
+        ss = srv.stats()
+    check(ss["serve.shed"] == 1 and ss["serve.errors"] == 0,
+          f"serve.shed: {ss}")
+    check(all(n == (0, 0) for n in mp.ops.counts().values()),
+          f"serve.shed: a shed request launched {mp.ops.counts()}")
+    check(runtime.cache_size() == cached, "serve.shed: a shed plan was cached")
+
+    # -- (e) calibration from traced runs --------------------------------
+    def auto_reports():
+        """Each plan compiled under "auto": (its EXPLAIN report, a
+        function running it)."""
+        reps = {}
+        for name, make, _ in plans:
+            req = make("auto") if name in ("join_m1", "group_agg",
+                                           "join_mn") else make()
+            if hasattr(req, "program"):
+                cq_ = req.compile()
+                reps[name] = (cq_.explain(), cq_.run)
+            else:
+                from repro_torch.core.lazy import build_program
+
+                h = runtime.compile_program(build_program(req),
+                                            kernelize="auto")
+                reps[name] = (weldrel.PlanReport(op=name, stats=h.stats,
+                                                 spans=[], analyze=False,
+                                                 result=None), h.run)
+        return reps
+
+    # a ledger of the phase's own, so the medians it writes calibrate no
+    # later phase's gate; one traced run a plan, each record its group's
+    main_ledger = os.environ.get("WELD_COST_LEDGER")
+    main_min = os.environ.get(calibrate.ENV_MIN_SAMPLES)
+    os.environ["WELD_COST_LEDGER"] = obs.ledger.ledger_path() + ".serve"
+    os.environ[calibrate.ENV_MIN_SAMPLES] = "1"
+    calibrate.invalidate()
+    runtime.clear_cache()
+    before = {n: r.costs() for n, (r, _) in auto_reports().items()}
+    clock("(d), and the roofline's \"auto\" compiles")
+    obs.enable()
+    try:
+        with QueryServer(workers=1, kernelize="always") as one:
+            for name, make, _ in plans:
+                one.run(make())
+    finally:
+        obs.disable()
+        obs.clear()
+    clock("one traced run a plan")
+    calibrate.invalidate()
+    card = torch.cuda.get_device_name()
+    medians = {k: g for k, g in calibrate.medians().items()
+               if k[3:] == ("cuda", card)}
+    runtime.clear_cache()
+    flipped, flip_times = [], {}
+    for name, (rep, go) in auto_reports().items():
+        costs = rep.costs()
+        check(len(costs) == len(before[name]),
+              f"serve.calibrate: {name} priced {len(before[name])} then "
+              f"{len(costs)} candidates")
+        for b, a in zip(before[name], costs):
+            n = re.search(r"\bn=(\d+)", a["why"])
+            calls = max([g["calls"] for (k, _, bk, _, _), g in medians.items()
+                         if k == a["kernel"] and n is not None
+                         and bk == obs.ledger.size_bucket(int(n.group(1)))]
+                        or [0])
+            check(a["source"] == "measured"
+                  or calls < calibrate.min_samples(),
+                  f"serve.calibrate: {name} {a['kernel']} stayed roofline "
+                  f"with {calls} records: {a['why']}")
+            if b["routed"] and not a["routed"]:
+                flipped.append(f"{name}.{a['kernel']}")
+            log(f"  serve.calibrate: {name} {a['kernel']} roofline "
+                f"kernel_us={b['kernel_us']} -> {a['source']} kernel_us="
+                f"{a['kernel_us']} generic_us={a['jnp_us']} routed "
+                f"{b['routed']} -> {a['routed']} ({a['why']})")
+        if any(a["source"] == "measured" for a in costs):
+            check("source=measured" in rep.render(),
+                  f"serve.calibrate: {name}: explain() shows no measured "
+                  f"source")
+        held(name, _served(go()))
+        if any(f.startswith(f"{name}.") for f in flipped):
+            flip_times[name] = _flip_times(torch, compiled, name, make_of[name])
+            t_kernel, t_generic = flip_times[name]
+            log(f"  serve.calibrate: {name} flipped: always {t_kernel:.3f} ms, "
+                f"auto {t_generic:.3f} ms (min of 3, inputs on the card)")
+            check(t_kernel >= t_generic * (1.0 - FLIP_SPREAD),
+                  f"serve.calibrate: {name} flipped a route to the generic "
+                  f"lowering, but its kernel route runs in {t_kernel:.3f} "
+                  f"ms against {t_generic:.3f}")
+    log(f"  serve.calibrate: flipped {flipped or 'none'}; every auto run "
+        f"equal to numpy")
+    clock("the calibrated \"auto\" compiles and runs")
+    if main_ledger is None:
+        del os.environ["WELD_COST_LEDGER"]
+    else:
+        os.environ["WELD_COST_LEDGER"] = main_ledger
+    if main_min is None:
+        del os.environ[calibrate.ENV_MIN_SAMPLES]
+    else:
+        os.environ[calibrate.ENV_MIN_SAMPLES] = main_min
+    calibrate.invalidate()
+    out["flip_times_ms"] = flip_times
+    out["flipped"] = flipped
+    out["calibrated"] = {f"{k}|{d}|{b}": g for (k, d, b, _, _), g in
+                         medians.items()}
+    del probe, date, want_m1, build, mn_probe, want_mn, gkeys, gvals, cq
+    runtime.clear_cache()
+    return out
 
 
 def _routed_body(stats: dict):
@@ -2240,7 +2752,10 @@ def _tolerance(torch, plain, dtype):
 
 
 def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
-                 dev="cuda") -> list:
+                 tuned: dict, dev="cuda") -> list:
+    """B1, B2, B4 and B5 at the main path's shapes, each launched with
+    the grid cap the main path's compile chose for that shape
+    (``main_path_cap``), held against its plain version and timed."""
     from repro_torch.kernels import filter_reduce as fr
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_reduce as sr
@@ -2273,6 +2788,10 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     rows = []
     for name, kern, plain, lib_name, dtypes, src, tpu in cases:
         per_dtype = []
+        n_main = (n_fr if name.startswith("filter_reduce") else
+                  n_ss if name == "segment_sum" else n_sv)
+        cap = main_path_cap(tuned, name, n_main)
+        kern = functools.partial(kern, max_blocks=cap)
         for dt in dtypes:
             itemsize = torch.empty((), dtype=dt).element_size()
             if name.startswith("filter_reduce"):
@@ -2322,7 +2841,8 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                 dtype=str(dt).split(".")[-1], max_abs_err=err, tolerance=tol,
                 shape=list(shape))
             per_dtype.append(row)
-            log(f"kernel {name}[{row['dtype']}] shape={shape} {_times(row)} "
+            log(f"kernel {name}[{row['dtype']}] shape={shape} "
+                f"max_blocks={cap or 'default'} {_times(row)} "
                 f"({lib_name}) max_abs_err={err:.3e} (tol {tol:.3e}) "
                 f"bitwise_repeat=ok")
             del args, first, second, want
@@ -2343,7 +2863,7 @@ def hold_kernels(torch, sizes: Sizes, seed: int, launches: dict,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "library": lib_name,
-            "dtype": "float64", "per_dtype": per_dtype,
+            "dtype": "float64", "max_blocks": cap, "per_dtype": per_dtype,
         })
     return rows
 
@@ -2745,7 +3265,8 @@ def _times(row: dict) -> str:
 
 
 def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
-                       bodies: dict, by_phase: dict, dev="cuda") -> list:
+                       bodies: dict, by_phase: dict, tuned: dict,
+                       dev="cuda") -> list:
     """The array path's three kernels at the phases' shapes:
     map_elementwise on the Black-Scholes body (33,554,432 options), the
     logreg body (4,194,304 logits) and an f32 body; tiled_matmul at 4096^3
@@ -2756,7 +3277,9 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     runs an f32 matvec or an unaligned one); and
     filter_reduce_q6 in f64 at SF10.  Each runs twice (bitwise equal) and
     is held against its plain version: bitwise where the arithmetic is
-    IEEE-exact on both sides, else to the stated tolerance."""
+    IEEE-exact on both sides, else to the stated tolerance.  A map chain
+    launches with the grid cap the main path's compile chose at its
+    size (``main_path_cap``)."""
     from repro_torch.core import ir
     from repro_torch.kernels import filter_reduce as fr
     from repro_torch.kernels import map_chain as mc
@@ -2796,9 +3319,11 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     for label, lam, make, env, kind in cases:
         cols = make()
         plain_fn = mc.stage_plain(lam, env, dev)
+        cap = main_path_cap(tuned, "map_elementwise", cols[0].shape[0])
 
-        def kern(lam=lam, cols=cols, env=env, plain_fn=plain_fn):
-            return mc.map_elementwise(plain_fn, cols, lam=lam, env=env)
+        def kern(lam=lam, cols=cols, env=env, plain_fn=plain_fn, cap=cap):
+            return mc.map_elementwise(plain_fn, cols, lam=lam, env=env,
+                                      max_blocks=cap)
 
         def plain(cols=cols, plain_fn=plain_fn):
             return ref.map_elementwise(plain_fn, cols)
@@ -2832,9 +3357,10 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
                          None, reps, nbytes, ops,
                          PEAK_OPS[name_of(want.dtype)], case=label,
                          dtype=name_of(want.dtype), max_abs_err=err,
-                         tolerance=tol, n=n)
+                         tolerance=tol, n=n, max_blocks=cap)
         per.append(row)
         log(f"kernel map_elementwise[{label}] n={n} dtype={row['dtype']} "
+            f"max_blocks={cap or 'default'} "
             f"{_times(row)} max_abs_err={err:.3e} ({kind}) "
             f"bitwise_repeat=ok")
         del cols, first, second, want
@@ -2866,8 +3392,8 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
         "max_abs_err": main["max_abs_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None, "library": None,
-        "dtype": main["dtype"], "per_dtype": per,
-        "generated_builds": mc.build_info(),
+        "dtype": main["dtype"], "max_blocks": main["max_blocks"],
+        "per_dtype": per, "generated_builds": mc.build_info(),
         "host_lookup_ms": lookup_ms, "host_canon_key_ms": canon_ms,
     })
 
@@ -3407,6 +3933,11 @@ def build_kernels() -> None:
             log(f"  {line.strip()}")
 
 
+def elapsed(what: str, t_all: float) -> None:
+    """The script's clock at the end of a stage (where its time goes)."""
+    log(f"[{time.perf_counter() - t_all:.1f} s] {what} done")
+
+
 def run(torch, sizes: Sizes, seed: int) -> dict:
     import repro_torch
 
@@ -3416,38 +3947,58 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     build_kernels()
+    elapsed("build_kernels", t_all)
     mp = MainPath(torch, sizes, seed)
     t0 = time.perf_counter()
     cols = lineitem(sizes.lineitem, seed)
     log(f"lineitem: {sizes.lineitem} rows generated in "
         f"{time.perf_counter() - t0:.3f} s")
     phase_tpch(mp, cols)
+    elapsed("phase_tpch", t_all)
     phase_join_m1(mp, cols)
+    elapsed("phase_join_m1", t_all)
     pipeline = phase_pipeline(mp, cols)
-    del cols
+    elapsed("phase_pipeline", t_all)
+    serve = phase_serve(mp, cols)
+    elapsed("phase_serve", t_all)
+    del cols, mp.memo["join_m1"]
     phase_groupby(mp)
+    elapsed("phase_groupby", t_all)
     phase_pagerank(mp)
+    elapsed("phase_pagerank", t_all)
     phase_quickstart(mp)
+    elapsed("phase_quickstart", t_all)
     phase_gate(mp)
+    elapsed("phase_gate", t_all)
     phase_join_mn(mp)
+    elapsed("phase_join_mn", t_all)
+    mp.memo.pop(("join_mn", "left"), None)
     phase_recovery(mp)
+    elapsed("phase_recovery", t_all)
+    mp.memo.clear()
     phase_blackscholes(mp)
+    elapsed("phase_blackscholes", t_all)
     phase_logreg(mp)
+    elapsed("phase_logreg", t_all)
     phase_matmul(mp)
+    elapsed("phase_matmul", t_all)
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm_serve(torch, sizes, seed, mp.launches)
+    elapsed("phase_lm_serve", t_all)
     gc.collect()
     torch.cuda.empty_cache()
     lm_train = phase_lm_train(torch, sizes, seed, mp.launches)
+    elapsed("phase_lm_train", t_all)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
-    kernels = hold_kernels(torch, sizes, seed, mp.launches)
+    kernels = hold_kernels(torch, sizes, seed, mp.launches, mp.tuned)
     kernels += hold_join_kernels(torch, sizes, seed, mp.launches)
     kernels += hold_array_kernels(torch, sizes, seed, mp.launches, mp.bodies,
-                                  mp.by_phase)
+                                  mp.by_phase, mp.tuned)
     kernels += hold_attention_kernel(torch, sizes, seed, mp.launches)
     kernels += hold_fused_adamw(torch, sizes, seed, mp.launches)
+    elapsed("the kernel holds", t_all)
     check(sorted(r["name"] for r in kernels)
           == sorted(k for k in mp.launches if k != SM90),
           f"the kernels line lists {sorted(r['name'] for r in kernels)}")
@@ -3465,6 +4016,7 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
             "lm_train": lm_train, "gate": gate, "pipeline": pipeline,
+            "serve": serve,
             "total_s": time.perf_counter() - t_all}
 
 
@@ -3487,6 +4039,7 @@ def main(argv=None) -> int:
     state = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     os.environ["WELD_KERNEL_HEALTH"] = str(state / "kernel_health.json")
     os.environ["WELD_COST_LEDGER"] = str(state / "cost_ledger.jsonl")
+    os.environ["WELD_AUTOTUNE_CACHE"] = str(state / "autotune.json")
     os.environ["WELD_VERIFY"] = "1"
     try:
         result = run(torch, Sizes(), args.seed)

@@ -1047,19 +1047,23 @@ class Emitter:
         append a cost-ledger record carrying the planner's
         ``predicted_ns`` beside the measured time.
 
-        On the card a host clock around an asynchronous launch would
-        measure the launch alone, so the call is bracketed by
-        ``torch.cuda.synchronize()`` on both sides: ``measured_ns`` is
-        the span's host time from an idle card to the call's last
-        kernel finishing, i.e. its device time plus the adapter's host
-        work (what the cost model prices).  CUDA events recorded on the
-        stream just inside that bracket are tagged as ``event_ns``: the
-        stream's time from the call's first work to its last, which
-        still holds the gaps where the card waited for the host."""
+        On the card ``measured_ns`` is the device time inside the call's
+        kernel entries (``kernels/ops.py``, CUDA events around each:
+        ``_count.device_clock``), the clock of the roofline's figures
+        that the calibrated gate compares it with: the staged bodies,
+        which the generic lowering evaluates too, and the entries' own
+        host path (each entry's launches queue behind a cover) stay out.
+        The span around the call is bracketed by
+        ``torch.cuda.synchronize()`` on both sides and is kept as
+        ``host_ns``; CUDA events just inside give ``event_ns``, the
+        stream's time from the call's first work to its last (the covers
+        included).  On the CPU ``measured_ns`` is the span's host time."""
         from .. import obs
+        from ...kernels import _count
         from ..kernelplan import registry as kreg
 
         cuda = self.device.type == "cuda"
+        marks: list = []
         if cuda:
             torch.cuda.synchronize(self.device)
             ev0 = torch.cuda.Event(enable_timing=True)
@@ -1068,20 +1072,28 @@ class Emitter:
                       impl=self.kernel_impl) as sp:
             if cuda:
                 ev0.record()
-            out = kreg.execute_spec(spec, args, params, fns,
-                                    self.kernel_impl, dtype=dtype)
-            if cuda:
+                with _count.device_clock() as marks:
+                    out = kreg.execute_spec(spec, args, params, fns,
+                                            self.kernel_impl, dtype=dtype)
                 ev1.record()
                 torch.cuda.synchronize(self.device)
+            else:
+                out = kreg.execute_spec(spec, args, params, fns,
+                                        self.kernel_impl, dtype=dtype)
         predicted = params.get("predicted_ns")
+        measured = _count.clock_ns(marks) if cuda else (sp.dur_ns or 0)
         sp.set("predicted_ns", predicted)
-        sp.set("measured_ns", sp.dur_ns)
+        sp.set("measured_ns", measured)
+        sp.set("host_ns", sp.dur_ns)
         if cuda:
             sp.set("event_ns", int(ev0.elapsed_time(ev1) * 1e6))
         obs.ledger.record(
             kernel=x.kernel, dtype=dtype, n=params.get("n_rows") or 0,
-            predicted_ns=predicted, measured_ns=sp.dur_ns or 0,
+            predicted_ns=predicted, measured_ns=measured,
             impl=self.kernel_impl,
+            device=(torch.cuda.get_device_name(self.device) if cuda
+                    else "cpu"),
+            host_ns=sp.dur_ns,
         )
         return out
 

@@ -4,6 +4,7 @@ The subsystem sits between the optimizer and the backend emitter:
 
     frames -> lazy DAG -> optimize (fusion/predication/CSE)
            -> **plan_kernels** (this package; cost-gated in "auto" mode)
+           -> **tune_plan** (the autotuner bakes tuned launch parameters)
            -> torchgen emitter (KernelCall nodes dispatch to
               repro_torch.kernels.ops, everything else lowers through
               the generic vector emitter)
@@ -21,11 +22,13 @@ back-compatibility):
 forwarded to the kernel entries.  A route that failed to build or
 launch is in the quarantine (:mod:`.quarantine`): on the CPU the gate
 refuses it up front; on a card it raises under ``"always"`` and is
-refused with a ``RuntimeWarning`` under ``"auto"``.  The block-size
-autotuner and the ledger calibration wait for their slice.
+refused with a ``RuntimeWarning`` under ``"auto"``.  The autotuner
+(:mod:`.autotune`) picks the grid cap of the routes that take one on
+the card, and the ledger calibration (:mod:`.calibrate`) replaces the
+gate's roofline kernel figure with measured medians.
 
-This module stays import-light: the planner and registry load lazily on
-first attribute access.
+This module stays import-light: the planner, registry, autotuner and
+calibration load lazily on first attribute access.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ def resolve_kernelize(kernelize: Union[None, bool, str]) -> str:
 
 
 _PLANNER_ATTRS = {"plan_kernels"}
+_AUTOTUNE_ATTRS = {"tune_plan"}
 _REGISTRY_ATTRS = {
     "KernelPlanError", "KernelSpec", "all_specs", "available", "describe",
     "fingerprint", "get", "register", "unregister",
@@ -82,11 +86,22 @@ def __getattr__(name: str):  # PEP 562 lazy re-exports
         from . import registry
 
         return getattr(registry, name)
+    if name in _AUTOTUNE_ATTRS:
+        from . import autotune
+
+        return getattr(autotune, name)
+    if name in ("autotune", "quarantine", "calibrate"):
+        # importlib (not ``from . import``) — the fromlist lookup would
+        # re-enter this __getattr__ before the submodule is bound
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
     "plan_kernels",
+    "tune_plan",
     "KernelPlanError",
     "KernelSpec",
     "register",
@@ -101,4 +116,7 @@ __all__ = [
     "normalize_kernelize",
     "KERNELIZE_MODES",
     "DEFAULT_KERNELIZE",
+    "autotune",
+    "quarantine",
+    "calibrate",
 ]

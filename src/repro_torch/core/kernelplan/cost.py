@@ -26,8 +26,17 @@ by the same two terms:
 Operators that both routes evaluate alike (the staged loop bodies) are
 left out of both.  Every constant below names its source; the ``PERF.md``
 figures are its kernel table and section 5 as they stood when the
-formulas were derived (H100 80GB HBM3, 700 W).  The model stays a static
-roofline: the ledger calibration and the autotuner are ROADMAP A4.
+formulas were derived (H100 80GB HBM3, 700 W).
+
+Once the cost ledger holds at least ``$WELD_CALIBRATE_MIN`` records of a
+(kernel, dtype, size bucket) from the compile's impl on this device,
+:func:`estimate` replaces the hook's kernel-side figure with their
+median (:mod:`.calibrate`) and re-decides; ``CostEstimate.source`` says
+which: ``"measured"`` or ``"roofline"``.  On a card the median is device
+time inside the call's kernel entries, the clock of the generic side's
+roofline figure; it leaves out the adapter's own operators between the
+entries, which the roofline's kernel side counts, so a calibrated gate
+leans, if anything, toward the kernel.
 
 ``estimate(spec, meta)`` returns a :class:`CostEstimate`; ``meta`` is
 the planner-collected static description of the match.  Unknown sizes
@@ -36,7 +45,7 @@ take (the generic lowering is always correct).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from math import ceil, log2
 
 from ...kernels import filter_reduce as _fr
@@ -193,8 +202,8 @@ class CostEstimate:
     jnp_s: float
     routed: bool
     why: str
-    #: where the kernel-side figure came from (always "roofline" until
-    #: the ledger calibration is ported).
+    #: where the kernel-side figure came from: "roofline" (the hook's
+    #: formula) or "measured" (the cost ledger's median, :func:`_calibrated`)
     source: str = "roofline"
 
     def as_stats(self) -> dict:
@@ -504,10 +513,51 @@ def cost_map_chain(meta: dict) -> CostEstimate:
     return _decide(kernel_s, jnp_s, f"n={n} cols={cols} ops={ops}")
 
 
+def _calibrated(spec, meta: dict, est: CostEstimate) -> CostEstimate:
+    """Overlay the cost ledger's measured median over the roofline
+    kernel-side estimate (see :mod:`.calibrate`): the median of the
+    records of ``meta["impl"]`` (the planner's) on the default device,
+    or of the records that name neither where ``meta`` has no impl.  The gate re-decides
+    routing from the measured figure; ``why`` gains ``source=measured``
+    vs ``source=roofline`` so ``Query.explain()`` shows which world the
+    decision came from.  Best-effort: any calibration failure leaves the
+    roofline estimate untouched."""
+    kernel = meta.get("kernel") or getattr(spec, "name", None)
+    dtype = meta.get("dtype")
+    n = meta.get("n")
+    impl = meta.get("impl")
+    hit = None
+    try:
+        if kernel and dtype is not None and n:
+            from . import calibrate
+            from .quarantine import device_name
+
+            device = device_name() if impl is not None else None
+            hit = calibrate.measured_ns(str(kernel), str(dtype), int(n),
+                                        impl=impl, device=device)
+    except Exception:
+        hit = None
+    if hit is None:
+        if " source=" in est.why:
+            return est
+        return replace(est, why=f"{est.why} source=roofline")
+    med_ns, calls = hit
+    kernel_s = med_ns / 1e9
+    routed = kernel_s <= est.jnp_s * (1.0 + ROUTE_MARGIN)
+    return CostEstimate(
+        kernel_s, est.jnp_s, routed,
+        f"{est.why} source=measured calls={calls} "
+        f"median={med_ns / 1e3:.1f}us",
+        source="measured",
+    )
+
+
 def estimate(spec, meta: dict) -> CostEstimate:
-    """Price one candidate through the spec's cost hook.  Specs without
-    a hook route unconditionally (the pre-cost-model behavior)."""
+    """Price one candidate through the spec's cost hook, then overlay
+    any ledger-measured median of ``meta["impl"]`` on the default device
+    (:func:`_calibrated`).  Specs without a hook route unconditionally
+    (the pre-cost-model behavior)."""
     hook = getattr(spec, "cost", None)
     if hook is None:
         return CostEstimate(0.0, 0.0, True, "no cost hook: always route")
-    return hook(meta)
+    return _calibrated(spec, meta, hook(meta))

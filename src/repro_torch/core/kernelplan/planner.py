@@ -1188,7 +1188,7 @@ def plan_kernels(
                              and k > spec.max_segments):
                 return orig
         if mode == "auto":
-            est = _cost.estimate(reg.get(kc.kernel), meta)
+            est = _cost.estimate(reg.get(kc.kernel), dict(meta, impl=impl))
             kplan["costs"].append({"kernel": kc.kernel, **est.as_stats()})
             _obs.event("kernelplan.candidate", kernel=kc.kernel,
                        n=meta.get("n"), **est.as_stats())
@@ -1200,7 +1200,7 @@ def plan_kernels(
         else:
             # "always" routes unconditionally; the roofline price still
             # rides along in the plan
-            est = _cost.estimate(reg.get(kc.kernel), meta)
+            est = _cost.estimate(reg.get(kc.kernel), dict(meta, impl=impl))
             _obs.event("kernelplan.candidate", kernel=kc.kernel,
                        n=meta.get("n"), routed=True, why="mode=always")
         kplan["routed"][kc.kernel] = kplan["routed"].get(kc.kernel, 0) + 1

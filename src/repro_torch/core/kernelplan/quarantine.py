@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import warnings
 from typing import Dict, Optional
 
@@ -36,6 +37,9 @@ from ..obs.ledger import size_bucket
 
 ENV_FILE = "WELD_KERNEL_HEALTH"
 
+#: guards the table: serving threads read its fingerprint while another
+#: thread's recovery rung may record a kernel
+_lock = threading.RLock()
 _health: Optional[Dict[str, dict]] = None  # lazily loaded from disk
 _generation = 0  # bumps on every mutation (part of fingerprint)
 
@@ -46,6 +50,11 @@ def path() -> Optional[str]:
 
 
 def _load() -> Dict[str, dict]:
+    with _lock:
+        return _load_locked()
+
+
+def _load_locked() -> Dict[str, dict]:
     global _health
     if _health is None:
         p = path()
@@ -76,12 +85,14 @@ def _save() -> None:
     p = path()
     if p is None:
         return
-    tmp = f"{p}.{os.getpid()}.tmp"
+    tmp = f"{p}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         faults.maybe_raise("io.quarantine", exc=OSError)
         os.makedirs(os.path.dirname(p), exist_ok=True)
+        with _lock:
+            text = json.dumps(_health, indent=1, sort_keys=True)
         with open(tmp, "w") as f:
-            json.dump(_health, f, indent=1, sort_keys=True)
+            f.write(text)
         os.replace(tmp, p)  # atomic: readers never see a partial file
     except OSError:
         try:
@@ -95,8 +106,9 @@ def _save() -> None:
 def clear(disk: bool = True) -> None:
     """Forget every quarantined kernel (after a fix / for tests)."""
     global _health, _generation
-    _health = {}
-    _generation += 1
+    with _lock:
+        _health = {}
+        _generation += 1
     if disk and path() is not None:
         try:
             os.remove(path())
@@ -135,32 +147,36 @@ def record(kernel: str, impl: Optional[str] = None, dtype=None,
     """Quarantine one (kernel, impl, dtype, size-bucket, device); returns
     the key."""
     global _generation
-    h = _load()
     k = _key(kernel, impl, dtype, n)
-    ent = h.setdefault(k, {"kernel": kernel, "impl": impl, "count": 0})
-    ent["count"] += 1
-    if error:
-        ent["last_error"] = error[:500]
-    _generation += 1
+    with _lock:
+        h = _load()
+        ent = h.setdefault(k, {"kernel": kernel, "impl": impl, "count": 0})
+        ent["count"] += 1
+        if error:
+            ent["last_error"] = error[:500]
+        _generation += 1
     _save()
     return k
 
 
 def is_quarantined(kernel: str, impl: Optional[str] = None, dtype=None,
                    n: Optional[int] = None) -> bool:
-    h = _load()
-    return bool(h) and _key(kernel, impl, dtype, n) in h
+    with _lock:
+        h = _load()
+        return bool(h) and _key(kernel, impl, dtype, n) in h
 
 
 def entries() -> Dict[str, dict]:
     """Copy of the current quarantine table (reporting/tests)."""
-    return {k: dict(v) for k, v in _load().items()}
+    with _lock:
+        return {k: dict(v) for k, v in _load().items()}
 
 
 def fingerprint() -> str:
     """Stable digest of the quarantine state for the compile-cache key."""
     import zlib
 
-    h = _load()
-    items = ";".join(sorted(h))
-    return f"g{_generation}n{len(h)}h{zlib.crc32(items.encode()):08x}"
+    with _lock:
+        h = _load()
+        items = ";".join(sorted(h))
+        return f"g{_generation}n{len(h)}h{zlib.crc32(items.encode()):08x}"

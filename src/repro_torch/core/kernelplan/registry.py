@@ -14,6 +14,15 @@ entries.  Each spec also carries its roofline ``cost`` hook (drives
 ``mode="auto"``) and its ``footprint`` (staged columns + scratch bytes
 of one call, charged against ``memory_limit`` by the emitter).
 
+``tune_space`` / ``tune_defaults`` / ``make_bench`` are the autotuner's
+(:mod:`.autotune`): a launch parameter the port's kernel takes at run
+time, its candidate values and the value that runs untuned.  Four
+routes have one, the grid cap ``max_blocks`` (B1/B2, B3, B4, B5): each
+candidate caps the grid (the launch takes ``min(cap, what n needs)``),
+every candidate is a valid launch, and the default is the cap the
+kernel module uses untuned.  The tuned value arrives in the call's
+params, and the adapters forward it to ``kernels/ops.py``.
+
 The port registers the routes of the ported slices: the aggregate and
 group-by routes ``filter_reduce_sum``, ``vecmerger_segment_sum`` and
 ``dict_group_sum``, the hash-join routes ``dict_hash_build`` +
@@ -29,7 +38,7 @@ adds the generated kernel's own operation count to the cost meta.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -86,6 +95,15 @@ class KernelSpec:
     refuse: Optional[Callable] = None
     #: (KernelCall) -> dict of cost meta only the kernel knows.
     cost_meta: Optional[Callable] = None
+    #: tunable launch parameters and their candidates, e.g.
+    #: {"max_blocks": (132, 264, 528, 1024)}; empty = nothing to tune.
+    tune_space: Dict[str, tuple] = field(default_factory=dict)
+    #: the value of each tunable that runs untuned (always a candidate).
+    tune_defaults: Dict[str, int] = field(default_factory=dict)
+    #: synthetic same-bucket workload for the autotuner, as tensors on
+    #: the default device: (meta, params, impl) -> zero-argument callable
+    #: that launches the kernel once with the candidate ``params``.
+    make_bench: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}
@@ -116,9 +134,11 @@ def all_specs() -> Tuple[KernelSpec, ...]:
 
 def fingerprint() -> str:
     """Stable key of the registered-kernel set — part of the compile-cache
-    key, so register/unregister forces a recompile rather than serving a
-    stale plan."""
-    return ",".join(sorted(f"{s.name}:{s.entry}" for s in _REGISTRY.values()))
+    key, so register/unregister and a changed untuned default force a
+    recompile rather than serving a stale plan."""
+    return ",".join(sorted(
+        f"{s.name}:{s.entry}:{sorted(s.tune_defaults.items())}"
+        for s in _REGISTRY.values()))
 
 
 def prepare_kernels(expr: ir.Expr, impl: Optional[str] = None) -> None:
@@ -272,12 +292,14 @@ def _exec_filter_reduce(args, params, fns, impl):
         and n_aggs > 1
         and len({v.dtype for v in vals}) == 1
     )
+    cap = params.get("max_blocks")
     if fuse:
         fused = kops.filter_reduce_sum_multi(torch.stack(vals), pred,
-                                             impl=impl)
+                                             impl=impl, max_blocks=cap)
         outs = [fused[k] for k in range(n_aggs)]
     else:
-        outs = [kops.filter_reduce_sum(v, pred, impl=impl) for v in vals]
+        outs = [kops.filter_reduce_sum(v, pred, impl=impl, max_blocks=cap)
+                for v in vals]
     return tuple(outs) if params["struct"] else outs[0]
 
 
@@ -289,7 +311,8 @@ def _exec_vecmerger_segment_sum(args, params, fns, impl):
     seg = _as_col(fns[0](idx, elem), n).to(torch.int32)
     vals = _as_col(fns[1](idx, elem), n).to(base.dtype)
     k = base.shape[0]
-    return WVec(base + kops.segment_sum(seg, vals, num_segments=k, impl=impl))
+    return WVec(base + kops.segment_sum(seg, vals, num_segments=k, impl=impl,
+                                        max_blocks=params.get("max_blocks")))
 
 
 def _exec_dict_group_sum(args, params, fns, impl):
@@ -322,7 +345,8 @@ def _exec_dict_group_sum(args, params, fns, impl):
     ones = valid.to(vals.dtype)
     # one launch for sums + presence counts (shared segment-id loads)
     both = kops.segment_sum_vectors(seg, torch.stack([vals_m, ones], dim=1),
-                                    num_segments=cap, impl=impl)
+                                    num_segments=cap, impl=impl,
+                                    max_blocks=params.get("max_blocks"))
     sums, counts = both[:, 0], both[:, 1]
     present = counts > 0
     order = torch.argsort((~present).to(torch.uint8), stable=True)
@@ -649,7 +673,8 @@ def _exec_map_elementwise(args, params, fns, impl):
         return staged(dummy, _elem_of(list(cols)))
 
     return WVec(kops.map_elementwise(body, arrays, impl=impl,
-                                     lam=staged.lam, env=staged.env))
+                                     lam=staged.lam, env=staged.env,
+                                     max_blocks=params.get("max_blocks")))
 
 
 # ---------------------------------------------------------------------------
@@ -738,6 +763,71 @@ def _fp_map_chain(arg_shapes, itemsize, params):
 
 
 # ---------------------------------------------------------------------------
+# Autotune benches: synthetic workloads of the tuned call's shape, built
+# as tensors on the default device (meta carries n / k / dtype; params is
+# one candidate point).  Each returns a callable that launches once.
+# ---------------------------------------------------------------------------
+
+
+def _bench_dtype(meta) -> torch.dtype:
+    return TORCH_OF_NP[np.dtype(meta.get("dtype", np.float64)).name]
+
+
+def _bench_device():
+    from ...device import default_device
+
+    return default_device()
+
+
+def _bench_filter_reduce(meta, params, impl):
+    n, dev = int(meta["n"]), _bench_device()
+    x = torch.ones((n,), dtype=_bench_dtype(meta), device=dev)
+    p = torch.ones((n,), dtype=torch.bool, device=dev)
+    cap = params.get("max_blocks")
+    return lambda: kops.filter_reduce_sum(x, p, impl=impl, max_blocks=cap)
+
+
+def _bench_segment(meta, params, impl, d: int):
+    """Keys cycling over min(K, MAX_K) segments (one window), D values a
+    row: the vecmerger (D = 1) and dense group-by (D = 2) calls."""
+    n, dev = int(meta["n"]), _bench_device()
+    k = max(min(int(meta.get("k") or 256), _sr.MAX_K), 1)
+    seg = (torch.arange(n, dtype=torch.int64, device=dev) % k).to(torch.int32)
+    cap = params.get("max_blocks")
+    if d == 1:
+        vals = torch.ones((n,), dtype=_bench_dtype(meta), device=dev)
+        return lambda: kops.segment_sum(seg, vals, num_segments=k, impl=impl,
+                                        max_blocks=cap)
+    vals = torch.ones((n, d), dtype=_bench_dtype(meta), device=dev)
+    return lambda: kops.segment_sum_vectors(seg, vals, num_segments=k,
+                                            impl=impl, max_blocks=cap)
+
+
+#: the map chain's synthetic body, x * 2 + 1, by element kind (one
+#: lambda a kind, so its generated kernel is built once)
+_BENCH_BODIES: Dict[str, ir.Lambda] = {}
+
+
+def _bench_map_chain(meta, params, impl):
+    from .. import wtypes as wt
+
+    n, dev = int(meta["n"]), _bench_device()
+    ty = wt.dtype_to_weld(np.dtype(meta.get("dtype", np.float64)))
+    lam = _BENCH_BODIES.get(ty.kind)
+    if lam is None:
+        x = ir.Ident("x", ty)
+        two, one = (ir.Literal(2 if ty.kind.startswith("i") else 2.0, ty),
+                    ir.Literal(1 if ty.kind.startswith("i") else 1.0, ty))
+        lam = _BENCH_BODIES.setdefault(ty.kind, ir.Lambda(
+            (ir.Ident("i", wt.I64), x),
+            ir.BinOp("+", ir.BinOp("*", x, two), one)))
+    col = torch.ones((n,), dtype=_bench_dtype(meta), device=dev)
+    cap = params.get("max_blocks")
+    return lambda: kops.map_elementwise(lambda c: c * 2 + 1, [col],
+                                        impl=impl, lam=lam, max_blocks=cap)
+
+
+# ---------------------------------------------------------------------------
 # The shipped registry (one entry per ported route)
 # ---------------------------------------------------------------------------
 
@@ -753,6 +843,9 @@ register(KernelSpec(
     execute=_exec_filter_reduce,
     cost=_cost.cost_filter_reduce,
     footprint=_fp_filter_reduce,
+    tune_space={"max_blocks": _fr.GRID_CAPS},
+    tune_defaults={"max_blocks": _fr.MAX_BLOCKS},
+    make_bench=_bench_filter_reduce,
 ))
 
 register(KernelSpec(
@@ -767,6 +860,10 @@ register(KernelSpec(
     execute=_exec_vecmerger_segment_sum,
     cost=_cost.cost_vecmerger,
     footprint=_fp_vecmerger,
+    tune_space={"max_blocks": _sr.GRID_CAPS},
+    tune_defaults={"max_blocks": _sr.MAX_BLOCKS},
+    make_bench=lambda meta, params, impl: _bench_segment(meta, params, impl,
+                                                         1),
 ))
 
 register(KernelSpec(
@@ -781,6 +878,10 @@ register(KernelSpec(
     execute=_exec_dict_group_sum,
     cost=_cost.cost_dict_group,
     footprint=_fp_dict_group,
+    tune_space={"max_blocks": _sr.GRID_CAPS},
+    tune_defaults={"max_blocks": _sr.MAX_BLOCKS},
+    make_bench=lambda meta, params, impl: _bench_segment(meta, params, impl,
+                                                         2),
 ))
 
 register(KernelSpec(
@@ -797,6 +898,9 @@ register(KernelSpec(
     execute=_exec_dict_hash_build,
     cost=_cost.cost_hash_build,
     footprint=_fp_hash_build,
+    # no tune space: hash_table.cu sizes its grid inside the C entry (one
+    # block for a small table, else a cooperative grid from the occupancy
+    # API), and its segment_sum calls run at the untuned cap
 ))
 
 register(KernelSpec(
@@ -812,6 +916,8 @@ register(KernelSpec(
     execute=_exec_hash_probe,
     cost=_cost.cost_hash_probe,
     footprint=_fp_hash_probe,
+    # no tune space: hash_probe.cu's dict_search grid is fixed inside the
+    # C entry
 ))
 
 register(KernelSpec(
@@ -827,6 +933,8 @@ register(KernelSpec(
     execute=_exec_group_build,
     cost=_cost.cost_group_build,
     footprint=_fp_group_build,
+    # no tune space: hash_to_slot and slot_hist are cooperative launches
+    # sized by the occupancy API inside their C entries
 ))
 
 register(KernelSpec(
@@ -843,6 +951,8 @@ register(KernelSpec(
     execute=_exec_group_probe,
     cost=_cost.cost_group_probe,
     footprint=_fp_group_probe,
+    # no tune space: group_search is a persistent grid of one block an SM
+    # (hash_probe.probe_grid), fixed by design
 ))
 
 register(KernelSpec(
@@ -856,6 +966,8 @@ register(KernelSpec(
     execute=_exec_matmul,
     cost=_cost.cost_matmul,
     footprint=_fp_matmul,
+    # no tune space: tiled_matmul.cu's tiles are compile-time constants
+    # and tiled_matmul.plan() names the launch from shape and alignment
 ))
 
 register(KernelSpec(
@@ -869,6 +981,7 @@ register(KernelSpec(
     execute=_exec_matvec,
     cost=_cost.cost_matmul,
     footprint=_fp_matmul,
+    # no tune space: the row launch is named by tiled_matmul.plan()
 ))
 
 register(KernelSpec(
@@ -886,4 +999,7 @@ register(KernelSpec(
     refuse=_mc.check_emittable,
     # the generated kernel emits each shared subtree once
     cost_meta=lambda kc: {"kernel_ops": _mc.source_for(kc.fns[0]).ops or 1},
+    tune_space={"max_blocks": _mc.GRID_CAPS},
+    tune_defaults={"max_blocks": _mc.MAX_BLOCKS},
+    make_bench=_bench_map_chain,
 ))

@@ -5,7 +5,14 @@ per kernel launch::
 
     {"kernel": "group_probe", "dtype": "float64", "n": 262144,
      "bucket": 262144, "predicted_ns": 181000, "measured_ns": 240917,
-     "impl": "ref", "params": {"block": 1024}, "ts": 1754600000.0}
+     "impl": "ref", "params": {"block": 1024}, "ts": 1754600000.0,
+     "device": "cpu", "host_ns": 240917}
+
+``impl`` and ``device`` (the card's name, or ``cpu``) say where the call
+ran: the calibration groups records by them, so the plain versions'
+times on the CPU never price a card's kernels.  On a card
+``measured_ns`` is the device time inside the call's kernel entries and
+``host_ns`` the host span around the whole call.
 
 The file lives next to the autotune cache (default
 ``~/.cache/weld-repro/cost_ledger.jsonl``) and is overridable via
@@ -66,7 +73,8 @@ def size_bucket(n: int) -> int:
 def record(kernel: str, dtype: str, n: int, predicted_ns: Optional[int],
            measured_ns: int, impl: Optional[str] = None,
            params: Optional[Dict[str, Any]] = None,
-           path: Optional[str] = None) -> Optional[dict]:
+           path: Optional[str] = None, device: Optional[str] = None,
+           host_ns: Optional[int] = None) -> Optional[dict]:
     """Append one launch record.  Best-effort: IO failures are swallowed
     so observability can never break an execution."""
     rec = {
@@ -79,7 +87,10 @@ def record(kernel: str, dtype: str, n: int, predicted_ns: Optional[int],
         "impl": impl,
         "params": dict(params) if params else {},
         "ts": time.time(),
+        "device": device,
     }
+    if host_ns is not None:
+        rec["host_ns"] = int(host_ns)
     p = path or ledger_path()
     try:
         # the io.ledger failpoint proves the best-effort contract: an

@@ -19,6 +19,10 @@ from typing import Optional
 
 from . import ir
 
+#: KernelCall params shown beside the kernel's name: the reference's tile
+#: shapes and the port's grid cap
+TUNED_PARAMS = ("block", "bm", "bn", "bk", "max_blocks")
+
 #: node kinds that carry a visible anchor under ``anchors=True`` — the
 #: "statement-shaped" nodes a diagnostic is most likely to point at.
 _ANCHORED = None  # initialised lazily to avoid import-order issues
@@ -118,12 +122,11 @@ def pretty(
         elif isinstance(x, ir.CUDF):
             out = f"cudf[{x.name}](" + ", ".join(p(a) for a in x.args) + ")"
         elif isinstance(x, ir.KernelCall):
-            # tuned tile parameters surface next to the kernel name so a
-            # plan dump shows the block shape the autotuner chose per call
-            blocks = [(k, v) for k, v in x.params
-                      if k in ("block", "bm", "bn", "bk")]
-            rest = [(k, v) for k, v in x.params
-                    if k not in ("block", "bm", "bn", "bk")]
+            # tuned launch parameters surface next to the kernel name so a
+            # plan dump shows what the autotuner chose per call (the
+            # port's is the grid cap, max_blocks)
+            blocks = [(k, v) for k, v in x.params if k in TUNED_PARAMS]
+            rest = [(k, v) for k, v in x.params if k not in TUNED_PARAMS]
             tag = f"kernel[{x.kernel}]"
             if blocks:
                 tag += "@{" + ",".join(f"{k}={v}" for k, v in blocks) + "}"

@@ -141,7 +141,11 @@ def _capacity_bounds(prog):
         shapes = {}
         for name, bound in getattr(prog, "inputs", {}).items():
             try:
-                shapes[name] = tuple(np.asarray(bound[-1]).shape)
+                # a re-bound CompiledProgram input is a tensor, possibly
+                # on the card: read its shape, never copy it to the host
+                data = bound[-1]
+                shapes[name] = tuple(data.shape if hasattr(data, "shape")
+                                     else np.asarray(data).shape)
             except Exception:
                 continue
         return _bounds.analyze(prog.expr).capacity_bounds(shapes)

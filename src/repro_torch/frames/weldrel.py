@@ -5,19 +5,21 @@ grouped-aggregate/hash join).  Mirrors the paper's port: *each operator emits it
 own loop, independent of downstream operators*, and Weld's optimizer
 fuses the chain into one pass.  Used for the TPC-H Q1/Q6 workloads.
 
-The copy of the JAX package's module for the ported slices: ``explain``,
-``stage`` and ``compile`` wait for the AOT slice (ROADMAP, queue A
-item 5: "AOT staging and serving").
+``Query.stage()`` / ``compile()`` capture the next operator as a
+:class:`StagedQuery` / :class:`CompiledQuery` (compile once, run many
+times; ``core.serve.QueryServer`` serves staged queries), and
+``Query.explain()`` reports its plan, tuned kernels and cost-gate
+decisions as a :class:`PlanReport`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core import faults, ir, wtypes as wt
 from ..core.errors import CapacityError
-from ..core.lazy import Evaluate, NewWeldObject, WeldObject
+from ..core.lazy import Evaluate, NewWeldObject, WeldObject, build_program
 from . import weldnp
 
 
@@ -40,13 +42,70 @@ class Query:
     def __init__(self, table: Table):
         self.table = table
         self.pred: Optional[weldnp.ndarray] = None
+        #: set by the stage()/compile() proxies: operator tails return a
+        #: StagedQuery instead of evaluating
+        self._staged = False
 
     def filter(self, pred: weldnp.ndarray) -> "Query":
         self.pred = pred if self.pred is None else (self.pred & pred)
         return self
 
-    def _finish(self, obj: WeldObject, finalize, *, memory_limit=None,
+    def stage(self) -> "_Stage":
+        """Capture the *next* operator as a :class:`StagedQuery` instead
+        of evaluating it::
+
+            sq = Query(t).filter(p).stage().join(r, on="key")
+
+        The staged query binds the operator's tables and IR but compiles
+        nothing; hand it to ``core.serve.QueryServer.submit`` or call
+        ``sq.compile()`` for the AOT handle.  Lazy tables only."""
+        return _Stage(self)
+
+    def compile(self, collect_stats: Optional[dict] = None) -> "_Compile":
+        """AOT-compile the *next* operator::
+
+            cq = Query(t).compile().join(r, on="key")   # CompiledQuery
+            out1 = cq.run()                   # the staged tables
+            out2 = cq.run(table=t2, right=r2)  # same shapes, 0 recompiles
+
+        Returns a proxy; calling an operator on it yields a
+        :class:`CompiledQuery` with ``.stats``, ``.explain()`` and
+        ``.run(**tables)``.  Compilation goes through the runtime's
+        bounded single-flight cache, so repeated compiles of the same
+        (plan, shape) are free."""
+        return _Compile(self, collect_stats)
+
+    def explain(self, analyze: bool = False) -> "_Explain":
+        """EXPLAIN [ANALYZE] the *next* operator instead of returning its
+        result.  Call an operator on the returned proxy exactly as you
+        would on the query::
+
+            rep = Query(t).explain().join(r, on="key")
+            rep = Query(t).explain(analyze=True).agg({...})
+            print(rep)
+
+        The report shows the fused IR after planning, every routed
+        kernel with its tuned launch parameters and roofline estimate,
+        the autotuner's choices, and the cost gate's route/reject
+        decisions with their source (roofline or measured).  With
+        ``analyze=True`` the query also runs with tracing enabled, adding
+        per-span measured times and predicted-vs-measured ratios per
+        kernel launch (the operator's result is still computed and
+        available as ``rep.result``)."""
+        return _Explain(self, analyze)
+
+    def _finish(self, obj: WeldObject, finalize: Callable, *, op: str,
+                tables: Dict[str, "Table"], memory_limit=None,
                 kernelize=None, kernel_impl=None, collect_stats=None):
+        """Common tail of every lazy operator: evaluate now (the normal
+        path) or, under stage()/compile(), capture the program plus the
+        result finalizer as a :class:`StagedQuery`."""
+        if self._staged:
+            return StagedQuery(op=op, obj=obj, finalize=finalize,
+                               tables=dict(tables),
+                               memory_limit=memory_limit,
+                               kernelize=kernelize,
+                               kernel_impl=kernel_impl)
         res = Evaluate(obj, memory_limit=memory_limit, kernelize=kernelize,
                        kernel_impl=kernel_impl, collect_stats=collect_stats)
         return finalize(res.value)
@@ -125,6 +184,7 @@ class Query:
         obj = NewWeldObject(deps, ir.Result(loop))
         return self._finish(
             obj, lambda v: {n: v[k] for k, n in enumerate(names)},
+            op="agg", tables={"table": self.table},
             kernelize=kernelize, kernel_impl=kernel_impl,
             collect_stats=collect_stats)
 
@@ -232,6 +292,7 @@ class Query:
         obj = NewWeldObject(deps, ir.Result(loop))
         return self._finish(
             obj, lambda v: v,
+            op="group_agg", tables={"table": self.table},
             kernelize=kernelize, kernel_impl=kernel_impl,
             collect_stats=collect_stats)
 
@@ -684,6 +745,7 @@ class Query:
                 lambda v: Table(
                     dict(zip(out_names, [np.asarray(a) for a in v])),
                     eager=False),
+                op="join", tables={"table": self.table, "right": other},
                 memory_limit=memory_limit, kernelize=kernelize,
                 kernel_impl=kernel_impl, collect_stats=collect_stats)
 
@@ -818,8 +880,400 @@ class Query:
             lambda v: Table(
                 dict(zip(out_names, [np.asarray(a) for a in v])),
                 eager=False),
+            op="join", tables={"table": self.table, "right": other},
             memory_limit=memory_limit, kernelize=kernelize,
             kernel_impl=kernel_impl, collect_stats=collect_stats)
+
+
+class _Explain:
+    """Proxy returned by :meth:`Query.explain`: runs the next operator
+    with stats collection (and, under ``analyze``, tracing) and wraps
+    the outcome in a :class:`PlanReport` instead of returning it."""
+
+    def __init__(self, query: Query, analyze: bool):
+        self._q = query
+        self._analyze = analyze
+
+    def agg(self, *args, **kwargs) -> "PlanReport":
+        return self._capture("agg", args, kwargs)
+
+    def group_agg(self, *args, **kwargs) -> "PlanReport":
+        return self._capture("group_agg", args, kwargs)
+
+    def join(self, *args, **kwargs) -> "PlanReport":
+        return self._capture("join", args, kwargs)
+
+    def _capture(self, op: str, args, kwargs) -> "PlanReport":
+        from ..core import obs
+
+        if self._q.table.eager:
+            raise ValueError(
+                "explain() requires a lazy table — eager tables never "
+                "build a Weld program to report on"
+            )
+        stats = kwargs.pop("collect_stats", None)
+        stats = {} if stats is None else stats
+        kwargs["collect_stats"] = stats
+        was_on = obs.enabled()
+        if self._analyze:
+            obs.enable()
+        pos = obs.mark()
+        try:
+            result = getattr(Query, op)(self._q, *args, **kwargs)
+        finally:
+            if self._analyze and not was_on:
+                obs.disable()
+        spans = obs.spans_since(pos) if self._analyze else []
+        return PlanReport(op=op, stats=stats, spans=spans,
+                          analyze=self._analyze, result=result)
+
+
+class PlanReport:
+    """Formatted EXPLAIN [ANALYZE] output for one weldrel operator."""
+
+    def __init__(self, op: str, stats: dict, spans: list, analyze: bool,
+                 result: object):
+        self.op = op
+        self.stats = stats
+        self.spans = spans
+        self.analyze = analyze
+        self.result = result
+
+    # -- structured accessors ------------------------------------------------
+
+    def kernels(self) -> List[dict]:
+        """One row per planned KernelCall in the program that ran, with
+        its tuned launch parameters (the port's grid cap ``max_blocks``)."""
+        from ..core.pretty import TUNED_PARAMS
+
+        plan = self.stats.get("plan.ir")
+        if plan is None:
+            return []
+        rows = []
+        for node in ir.walk(plan):
+            if not isinstance(node, ir.KernelCall):
+                continue
+            params = dict(node.params)
+            rows.append({
+                "kernel": node.kernel,
+                "n_rows": params.get("n_rows"),
+                "tuned": {k: v for k, v in params.items()
+                          if k in TUNED_PARAMS},
+                "predicted_ns": params.get("predicted_ns"),
+            })
+        return rows
+
+    def costs(self) -> List[dict]:
+        """The cost gate's decisions (``"auto"`` compiles): each
+        candidate's kernel and generic µs, whether it routed, why, and
+        where the kernel figure came from (``source``: "roofline" or
+        "measured")."""
+        return list(self.stats.get("kernelplan", {}).get("costs") or [])
+
+    def kernel_spans(self) -> List[dict]:
+        """Measured per-launch rows (analyze=True only): predicted vs
+        measured ns and their ratio."""
+        rows = []
+        for sp in self.spans:
+            if not sp.name.startswith("kernel."):
+                continue
+            pred = sp.tags.get("predicted_ns")
+            meas = sp.tags.get("measured_ns") or sp.dur_ns
+            rows.append({
+                "kernel": sp.name[len("kernel."):],
+                "n_rows": sp.tags.get("n"),
+                "predicted_ns": pred,
+                "measured_ns": meas,
+                "ratio": (meas / pred) if pred and meas else None,
+            })
+        return rows
+
+    # -- rendering -----------------------------------------------------------
+
+    def render(self) -> str:
+        from ..core import obs
+        from ..core.pretty import pretty
+
+        st = self.stats
+        kplan = st.get("kernelplan", {})
+        lines = [
+            f"== EXPLAIN{' ANALYZE' if self.analyze else ''} "
+            f"weldrel.{self.op} ==",
+            f"loops: {st.get('loops.before', '?')} -> "
+            f"{st.get('loops.after', '?')} (after fusion)   "
+            f"kernelize={kplan.get('mode', 'off')}   "
+            f"matched={st.get('kernelize.matched', 0)}   "
+            f"compile_ms={st.get('compile_ms', 0.0):.1f}",
+        ]
+        plan = st.get("plan.ir")
+        if plan is not None:
+            lines += ["", "-- fused IR (post-planning) --", pretty(plan)]
+        krows = self.kernels()
+        if krows:
+            lines += ["", "-- routed kernels --"]
+            for r in krows:
+                tuned = ",".join(f"{k}={v}" for k, v in r["tuned"].items())
+                pred = (f"{r['predicted_ns'] / 1e3:.1f}us"
+                        if r["predicted_ns"] else "-")
+                lines.append(
+                    f"  {r['kernel']:<24} n={r['n_rows']!s:<10} "
+                    f"tuned[{tuned}] predicted={pred}"
+                )
+        tuned = kplan.get("autotune") or []
+        if tuned:
+            lines += ["", "-- autotune --"]
+            for t in tuned:
+                times = ""
+                if t.get("us") is not None:
+                    times = (f" winner={t['us']}us default="
+                             f"{t.get('default_us')}us")
+                lines.append(
+                    f"  {t['kernel']:<24} n={t['n']!s:<10} "
+                    f"{t['params']}{' (cached)' if t.get('cached') else ''}"
+                    f"{times}")
+        costs = self.costs()
+        if costs:
+            lines += ["", "-- cost-gate decisions --"]
+            for c in costs:
+                lines.append(
+                    f"  {c.get('kernel'):<24} "
+                    f"kernel={c.get('kernel_us', 0):.1f}us "
+                    f"generic={c.get('jnp_us', 0):.1f}us "
+                    f"{'ROUTE' if c.get('routed') else 'reject'} "
+                    f"source={c.get('source', '-')} "
+                    f"({c.get('why', '')})"
+                )
+        if st.get("recovery.attempts"):
+            lines += ["", "-- recovery --"]
+            lines.append(
+                f"  recovered after {st['recovery.attempts']} attempts "
+                f"(capacity x{st.get('recovery.regrow_factor', 1)}"
+                f"{', generic fallback' if st.get('recovery.fallback') else ''})"
+            )
+            for ev in st.get("recovery.events", []):
+                lines.append(
+                    f"  attempt {ev.get('attempt')}: {ev.get('action')} — "
+                    f"{ev.get('detail')}"
+                )
+            for q in st.get("recovery.quarantined", []):
+                lines.append(f"  quarantined: {q}")
+        if st.get("verify.runs"):
+            lines += ["", "-- verify --"]
+            total = st.get("verify.ms", 0.0)
+            lines.append(
+                f"  weldcheck: {st['verify.runs']} checkpoints clean "
+                f"(types, linearity, races, capacity) in {total:.1f}ms"
+            )
+            phases = st.get("verify.phases", [])
+            by_phase: Dict[str, List[float]] = {}
+            for name, ms in phases:
+                by_phase.setdefault(name, []).append(ms)
+            for name, times in by_phase.items():
+                lines.append(
+                    f"  {name:<24} x{len(times):<3} {sum(times):8.2f}ms"
+                )
+        if "bounds.certificate" in st:
+            lines += ["", "-- bounds --"]
+            lines.append(
+                f"  peak-memory certificate: {st['bounds.certificate']}"
+            )
+            lines.append(
+                f"  peak_bytes={st.get('bounds.peak_bytes')}   "
+                f"admitted={st.get('bounds.admitted')}   "
+                f"analysis_ms={st.get('bounds.ms', 0.0):.2f}"
+            )
+            out_rows = st.get("bounds.out_rows")
+            if out_rows is not None:
+                lo, hi = out_rows
+                lines.append(
+                    f"  out_rows in [{lo}, {'inf' if hi is None else hi}]"
+                )
+            for bl in st.get("bounds.builders") or []:
+                lines.append(f"  {bl}")
+        if self.analyze:
+            mrows = self.kernel_spans()
+            if mrows:
+                lines += ["", "-- predicted vs measured (per launch) --"]
+                for r in mrows:
+                    pred = (f"{r['predicted_ns'] / 1e3:10.1f}"
+                            if r["predicted_ns"] else f"{'-':>10}")
+                    ratio = (f"{r['ratio']:.2f}x" if r["ratio"] else "-")
+                    lines.append(
+                        f"  {r['kernel']:<24} n={r['n_rows']!s:<10} "
+                        f"pred_us={pred} meas_us="
+                        f"{(r['measured_ns'] or 0) / 1e3:10.1f} "
+                        f"ratio={ratio}"
+                    )
+            if self.spans:
+                lines += ["", "-- span tree --",
+                          obs.format_tree(self.spans)]
+        return "\n".join(lines)
+
+    __str__ = render
+
+    def __repr__(self) -> str:
+        return self.render()
+
+
+class _Stage:
+    """Proxy returned by :meth:`Query.stage`: the next operator call
+    captures a :class:`StagedQuery` instead of evaluating."""
+
+    def __init__(self, query: Query):
+        self._q = query
+
+    def agg(self, *args, **kwargs) -> "StagedQuery":
+        return self._capture("agg", args, kwargs)
+
+    def group_agg(self, *args, **kwargs) -> "StagedQuery":
+        return self._capture("group_agg", args, kwargs)
+
+    def join(self, *args, **kwargs) -> "StagedQuery":
+        return self._capture("join", args, kwargs)
+
+    def _capture(self, op: str, args, kwargs) -> "StagedQuery":
+        if self._q.table.eager:
+            raise ValueError(
+                "stage()/compile() require a lazy table — eager tables "
+                "evaluate immediately and never build a Weld program"
+            )
+        q = Query(self._q.table)
+        q.pred = self._q.pred
+        q._staged = True
+        out = getattr(Query, op)(q, *args, **kwargs)
+        if not isinstance(out, StagedQuery):  # pragma: no cover - guard
+            raise ValueError(f"{op} did not reach the lazy tail; "
+                             "cannot stage it")
+        return out
+
+
+class _Compile:
+    """Proxy returned by :meth:`Query.compile`: the next operator call
+    stages AND compiles, yielding a :class:`CompiledQuery`."""
+
+    def __init__(self, query: Query, collect_stats: Optional[dict] = None):
+        self._stage = _Stage(query)
+        self._collect = collect_stats
+
+    def agg(self, *args, **kwargs) -> "CompiledQuery":
+        return self._stage._capture("agg", args, kwargs).compile(
+            collect_stats=self._collect)
+
+    def group_agg(self, *args, **kwargs) -> "CompiledQuery":
+        return self._stage._capture("group_agg", args, kwargs).compile(
+            collect_stats=self._collect)
+
+    def join(self, *args, **kwargs) -> "CompiledQuery":
+        return self._stage._capture("join", args, kwargs).compile(
+            collect_stats=self._collect)
+
+
+class StagedQuery:
+    """One captured lazy operator: the stitched program, the bound
+    tables, and the host-side result finalizer — nothing compiled yet.
+
+    ``core.serve.QueryServer.submit`` accepts these directly (it reads
+    ``program()``/``finalize`` by duck type); :meth:`compile` produces
+    the reusable :class:`CompiledQuery`."""
+
+    def __init__(self, op: str, obj: WeldObject, finalize: Callable,
+                 tables: Dict[str, Table], memory_limit=None,
+                 kernelize=None, kernel_impl=None):
+        self.op = op
+        self.obj = obj
+        self.finalize = finalize
+        self.tables = tables
+        self.memory_limit = memory_limit
+        self.kernelize = kernelize
+        self.kernel_impl = kernel_impl
+        self._prog = None
+
+    def program(self):
+        """The stitched :class:`~repro_torch.core.lazy.Program` (cached)."""
+        if self._prog is None:
+            self._prog = build_program(self.obj)
+        return self._prog
+
+    def binding(self) -> Dict[str, Dict[str, str]]:
+        """alias -> {column name -> program input name} for every bound
+        table column that is actually a program input (filter predicates
+        reach their columns through the same input objects, so
+        re-binding a column re-binds the predicate too)."""
+        prog = self.program()
+        out: Dict[str, Dict[str, str]] = {}
+        for alias, tbl in self.tables.items():
+            cols = {}
+            for cname, col in tbl.cols.items():
+                oid = col.obj.obj_id
+                if oid in prog.inputs:
+                    cols[cname] = oid
+            out[alias] = cols
+        return out
+
+    def compile(self, collect_stats: Optional[dict] = None
+                ) -> "CompiledQuery":
+        from ..core import runtime
+
+        handle = runtime.compile_program(
+            self.program(), memory_limit=self.memory_limit,
+            kernelize=self.kernelize, kernel_impl=self.kernel_impl)
+        if collect_stats is not None:
+            collect_stats.update(handle.stats)
+        return CompiledQuery(self, handle)
+
+
+class CompiledQuery:
+    """AOT handle for one weldrel operator: ``.stats``, ``.explain()``,
+    and ``.run(**tables)`` re-binding same-shape tables against the
+    cached program with zero recompiles.
+
+    ``run()`` with no arguments executes against the staged tables (the
+    encoded inputs stay on the device); ``run(table=t2)`` (and
+    ``right=r2`` for joins) re-binds the named tables' columns by name.
+    Shapes and dtypes must match the compiled signature — anything else
+    needs a fresh ``Query(...).compile()``."""
+
+    def __init__(self, staged: StagedQuery, handle):
+        self.staged = staged
+        self.handle = handle
+        self._binding = staged.binding()
+        self._pos = {name: i for i, name in enumerate(handle.input_names)}
+
+    @property
+    def stats(self) -> dict:
+        return self.handle.stats
+
+    @property
+    def from_cache(self) -> bool:
+        return self.handle.from_cache
+
+    def explain(self) -> PlanReport:
+        """The same EXPLAIN report ``Query.explain()`` renders, off the
+        compiled plan's stats (cost-gate decisions included)."""
+        return PlanReport(op=self.staged.op, stats=self.stats, spans=[],
+                          analyze=False, result=None)
+
+    def run(self, **tables):
+        prog = self.staged.program()
+        arrays = None
+        if tables:
+            arrays = list(self.handle._low.arrays)
+            for alias, tbl in tables.items():
+                mapping = self._binding.get(alias)
+                if mapping is None:
+                    raise KeyError(
+                        f"unknown table alias {alias!r}; this "
+                        f"{self.staged.op} binds {sorted(self._binding)}")
+                for cname, iname in mapping.items():
+                    if cname not in tbl.cols:
+                        raise KeyError(
+                            f"re-bound table {alias!r} is missing column "
+                            f"{cname!r} required by the compiled plan")
+                    enc = prog.inputs[iname][1]
+                    arrays[self._pos[iname]] = enc.encode(
+                        np.asarray(_host(tbl.cols[cname])))
+        value = self.handle.run(arrays)
+        return self.staged.finalize(value)
 
 
 def _host(col: weldnp.ndarray) -> np.ndarray:

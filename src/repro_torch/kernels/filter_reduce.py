@@ -15,18 +15,23 @@ the same from run to run (fixed grid, fixed summation order).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .ref import filter_reduce_sum as filter_reduce_sum_plain
 from .ref import filter_reduce_q6 as filter_reduce_q6_plain
 from .ref import filter_reduce_sum_multi as filter_reduce_sum_multi_plain
 
-#: threads per block and the grid cap of the partial-sum launch (the
-#: grid depends only on n, so a given n always sums in the same order)
+#: threads per block and the default grid cap of the partial-sum launch
+#: (the grid depends only on n and the cap, so a given n sums in the
+#: same order at a given cap)
 THREADS = 256
 MAX_BLOCKS = 1024
+#: the caps the autotuner times (kernelplan/registry.py): one, two and
+#: four blocks an SM of the H100's 132, and the default
+GRID_CAPS = (132, 264, 528, MAX_BLOCKS)
 #: aggregates per launch (csrc kMaxA); wider calls take several launches
 MAX_A = 4
 #: range columns of one Q6 launch (csrc kMaxQ6)
@@ -36,9 +41,14 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                torch.int64: 3}
 
 
-def grid_blocks(n: int) -> int:
-    """Blocks of the partial-sum launch: four rows per thread, capped."""
-    return max(1, min(MAX_BLOCKS, math.ceil(n / (THREADS * 4))))
+def grid_blocks(n: int, max_blocks: Optional[int] = None) -> int:
+    """Blocks of the partial-sum launch: four rows per thread, capped at
+    ``max_blocks`` (default :data:`MAX_BLOCKS`).  Any cap of at least one
+    block is valid: the launch strides over the rows by its grid."""
+    cap = MAX_BLOCKS if max_blocks is None else int(max_blocks)
+    if cap < 1:
+        raise ValueError(f"filter_reduce grid cap must be >= 1, got {cap}")
+    return max(1, min(cap, math.ceil(n / (THREADS * 4))))
 
 
 def _check_args(vals: torch.Tensor, pred: torch.Tensor) -> None:
@@ -57,11 +67,12 @@ def _check_args(vals: torch.Tensor, pred: torch.Tensor) -> None:
         raise ValueError("filter_reduce kernel takes contiguous tensors")
 
 
-def _launch(vals: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def _launch(vals: torch.Tensor, pred: torch.Tensor,
+            max_blocks: Optional[int] = None) -> torch.Tensor:
     """(A, n) values -> (A,) predicated sums on the card."""
     a, n = vals.shape
     out = torch.empty((a,), dtype=vals.dtype, device=vals.device)
-    nblocks = grid_blocks(n)
+    nblocks = grid_blocks(n, max_blocks)
     partials = torch.empty((nblocks, min(a, MAX_A)), dtype=vals.dtype,
                            device=vals.device)
     lib = _build.library()
@@ -77,18 +88,20 @@ def _launch(vals: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def filter_reduce_sum(x: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
-    """sum(x[pred]) in one pass: x (n,), pred (n,) bool -> 0-dim tensor."""
+def filter_reduce_sum(x: torch.Tensor, pred: torch.Tensor,
+                      max_blocks: Optional[int] = None) -> torch.Tensor:
+    """sum(x[pred]) in one pass: x (n,), pred (n,) bool -> 0-dim tensor.
+    ``max_blocks`` caps the grid (:func:`grid_blocks`)."""
     if x.device.type == "cpu":
-        filter_reduce_sum.plain_calls += 1
+        _count.bump(filter_reduce_sum, "plain_calls")
         return filter_reduce_sum_plain(x, pred)
     if x.ndim != 1:
         raise ValueError(f"filter_reduce_sum takes a 1-D column, got {x.shape}")
     _check_args(x, pred)
     if x.shape[0] == 0:
         return torch.zeros((), dtype=x.dtype, device=x.device)
-    out = _launch(x[None, :], pred)[0]
-    filter_reduce_sum.launches += 1
+    out = _launch(x[None, :], pred, max_blocks)[0]
+    _count.bump(filter_reduce_sum, "launches")
     return out
 
 
@@ -96,12 +109,13 @@ filter_reduce_sum.launches = 0
 filter_reduce_sum.plain_calls = 0
 
 
-def filter_reduce_sum_multi(vals: torch.Tensor,
-                            pred: torch.Tensor) -> torch.Tensor:
+def filter_reduce_sum_multi(vals: torch.Tensor, pred: torch.Tensor,
+                            max_blocks: Optional[int] = None
+                            ) -> torch.Tensor:
     """Row-wise predicated sums: vals (A, n), pred (n,) -> (A,), with the
     predicate and the value rows read once for all A aggregates."""
     if vals.device.type == "cpu":
-        filter_reduce_sum_multi.plain_calls += 1
+        _count.bump(filter_reduce_sum_multi, "plain_calls")
         return filter_reduce_sum_multi_plain(vals, pred)
     if vals.ndim != 2:
         raise ValueError(f"filter_reduce_sum_multi takes (A, n) values, got "
@@ -110,8 +124,8 @@ def filter_reduce_sum_multi(vals: torch.Tensor,
     if vals.shape[1] == 0 or vals.shape[0] == 0:
         return torch.zeros((vals.shape[0],), dtype=vals.dtype,
                            device=vals.device)
-    out = _launch(vals, pred)
-    filter_reduce_sum_multi.launches += 1
+    out = _launch(vals, pred, max_blocks)
+    _count.bump(filter_reduce_sum_multi, "launches")
     return out
 
 
@@ -124,7 +138,7 @@ def filter_reduce_q6(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     """sum(val where all(lo[k] <= cols[k] < hi[k])) in one pass: cols
     (K, n), lo/hi (K,), val (n,), all of one float dtype -> 0-dim."""
     if val.device.type == "cpu":
-        filter_reduce_q6.plain_calls += 1
+        _count.bump(filter_reduce_q6, "plain_calls")
         return filter_reduce_q6_plain(cols, lo, hi, val)
     tensors = (cols, lo, hi, val)
     if any(t.device != val.device for t in tensors) \
@@ -159,7 +173,7 @@ def filter_reduce_q6(cols: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             partials.data_ptr(), nblocks, out.data_ptr(),
             torch.cuda.current_stream(val.device).cuda_stream)
     _build.check(rc, "filter_reduce_q6 kernel launch")
-    filter_reduce_q6.launches += 1
+    _count.bump(filter_reduce_q6, "launches")
     return out
 
 

@@ -48,7 +48,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _count
 from . import ref
 from .ref import chunked_attention as attention_plain
 
@@ -144,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version's kv chunk (the kernel tiles by itself; the backward
     recomputes with the plain version at this chunk)."""
     if q.device.type == "cpu":
-        flash_attention.plain_calls += 1
+        _count.bump(flash_attention, "plain_calls")
         return attention_plain(q, k, v, causal=causal, group=group,
                                scale=scale, chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -163,7 +163,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        flash_attention.backward_calls += 1
+        _count.bump(flash_attention, "backward_calls")
         q, k, v = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         with torch.enable_grad():
@@ -213,9 +213,9 @@ def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
             + (f"returned CUresult {rc - TMA_ERROR}" if rc > TMA_ERROR
                else "is not in the driver"))
     _build.check(rc, f"flash_attention kernel launch ({which})")
-    flash_attention.launches += 1
+    _count.bump(flash_attention, "launches")
     if which == "sm90":
-        flash_attention.launches_sm90 += 1
+        _count.bump(flash_attention, "launches_sm90")
     return out[0] if squeeze else out
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .ref import adamw_scalars
 from .ref import adamw_update as adamw_update_plain
 
@@ -34,7 +34,7 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     at step ``step`` (t, counted from 1) and learning rate ``lr`` (Python
     numbers or CPU scalars); returns (p, m, v)."""
     if p.device.type == "cpu":
-        adamw_update.plain_calls += 1
+        _count.bump(adamw_update, "plain_calls")
         pn, mn, vn = adamw_update_plain(p, g, m, v, lr, step, b1=b1, b2=b2,
                                         eps=eps, wd=wd)
         p.copy_(pn)
@@ -67,7 +67,7 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
             omb2, eps, wd, c1, c2,
             torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "fused_adamw kernel launch")
-    adamw_update.launches += 1
+    _count.bump(adamw_update, "launches")
     return p, m, v
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .hash_table import compact_slots, hash_to_slot, table_size
 from .ref import slot_hist as slot_hist_plain
 
@@ -38,7 +38,7 @@ def slot_hist(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
     """Rows per slot: ``out[s] = #{i: slots[i] == s}``, slots (n,) int32
     -> (num_slots,) int32; ids outside [0, num_slots) are not counted."""
     if slots.device.type == "cpu":
-        slot_hist.plain_calls += 1
+        _count.bump(slot_hist, "plain_calls")
         return slot_hist_plain(slots, num_slots)
     if slots.dtype != torch.int32 or slots.ndim != 1:
         raise ValueError(f"slot_hist kernel takes (n,) int32 slots, got "
@@ -58,7 +58,7 @@ def slot_hist(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
         rc = lib.weld_slot_hist(slots.data_ptr(), n, num_slots,
                                 out.data_ptr(), stream)
     _build.check(rc, "slot_hist kernel launch")
-    slot_hist.launches += 1
+    _count.bump(slot_hist, "launches")
     return out
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .ref import dict_probe as dict_probe_plain
 from .ref import group_probe as group_probe_plain
 
@@ -56,7 +56,7 @@ def _outputs(n: int, dev, sizes: bool):
 def dict_probe(table_keys: torch.Tensor, count, queries: torch.Tensor):
     """(pos, found) of each query against sorted-front-packed dict keys."""
     if queries.device.type == "cpu":
-        dict_probe.plain_calls += 1
+        _count.bump(dict_probe, "plain_calls")
         return dict_probe_plain(table_keys, count, queries)
     cnt = _prepare(table_keys, count, queries, "dict_probe")
     n, cap = queries.shape[0], table_keys.shape[0]
@@ -70,7 +70,7 @@ def dict_probe(table_keys: torch.Tensor, count, queries: torch.Tensor):
                                  queries.data_ptr(), n, pos.data_ptr(),
                                  found.data_ptr(), stream)
     _build.check(rc, "dict_probe kernel launch")
-    dict_probe.launches += 1
+    _count.bump(dict_probe, "launches")
     return pos, found
 
 
@@ -83,7 +83,7 @@ def group_probe(table_keys: torch.Tensor, offsets: torch.Tensor, count,
     """(pos, found, sizes) per query against a groupbuilder's sorted key
     column and CSR offsets (``sizes`` is 0 on a miss)."""
     if queries.device.type == "cpu":
-        group_probe.plain_calls += 1
+        _count.bump(group_probe, "plain_calls")
         return group_probe_plain(table_keys, offsets, count, queries)
     cnt = _prepare(table_keys, count, queries, "group_probe")
     n, cap = queries.shape[0], table_keys.shape[0]
@@ -103,7 +103,7 @@ def group_probe(table_keys: torch.Tensor, offsets: torch.Tensor, count,
                                   pos.data_ptr(), found.data_ptr(),
                                   sizes.data_ptr(), stream)
     _build.check(rc, "group_probe kernel launch")
-    group_probe.launches += 1
+    _count.bump(group_probe, "launches")
     return pos, found, sizes
 
 

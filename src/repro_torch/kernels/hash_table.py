@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .ref import hash_to_slot as hash_to_slot_plain
 
 #: "no key": reserved; rows with this key are never inserted (a real key
@@ -83,7 +83,7 @@ def hash_to_slot(keys: torch.Tensor, cap_table: int):
         raise ValueError(f"hash table size must be a power of two >= 2, got "
                          f"{cap_table}")
     if keys.device.type == "cpu":
-        hash_to_slot.plain_calls += 1
+        _count.bump(hash_to_slot, "plain_calls")
         return hash_to_slot_plain(keys, cap_table)
     if keys.dtype != torch.int64 or keys.ndim != 1:
         raise ValueError(f"hash_to_slot kernel takes (n,) int64 keys, got "
@@ -105,7 +105,7 @@ def hash_to_slot(keys: torch.Tensor, cap_table: int):
                                    slots.data_ptr(), table.data_ptr(),
                                    used.data_ptr(), stream)
     _build.check(rc, "hash_to_slot kernel launch")
-    hash_to_slot.launches += 1
+    _count.bump(hash_to_slot, "launches")
     return slots, table, used
 
 

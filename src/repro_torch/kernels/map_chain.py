@@ -55,11 +55,15 @@ import torch
 
 from ..core import ir
 from ..core import wtypes as wt
-from . import _build
+from . import _build, _count
 from .ref import map_elementwise as map_elementwise_plain
 
 THREADS = 256
+#: the default grid cap (the kernel strides over the rows by its grid)
 MAX_BLOCKS = 4096
+#: the caps the autotuner times (kernelplan/registry.py): 2, 4, 8 and 16
+#: blocks an SM of the H100's 132, and the default
+GRID_CAPS = (264, 528, 1056, 2112, MAX_BLOCKS)
 
 _TORCH_OF_KIND = {
     "bool": torch.bool, "i8": torch.int8, "i32": torch.int32,
@@ -604,19 +608,22 @@ def scalar_value(env: dict, name: str, path: Tuple[int, ...]):
 
 def map_elementwise(fn, arrays: Sequence[torch.Tensor],
                     lam: Optional[ir.Lambda] = None,
-                    env: Optional[dict] = None) -> torch.Tensor:
+                    env: Optional[dict] = None,
+                    max_blocks: Optional[int] = None) -> torch.Tensor:
     """out[i] = body(a1[i], ..., ak[i]) over equal-length 1-D columns.
 
     ``fn`` is the body staged as a whole-column torch closure (the plain
     version, taken for CPU tensors); ``lam`` is the same body as IR, from
     which the CUDA route generates its kernel, and ``env`` binds the
     body's free scalars.  Columns longer than the shortest are read up to
-    the shortest, as the generic loop does."""
+    the shortest, as the generic loop does.  ``max_blocks`` caps the grid
+    (default :data:`MAX_BLOCKS`); every element is computed alike
+    whatever the grid."""
     arrays = list(arrays)
     if not arrays:
         raise ValueError("map_elementwise needs at least one column")
     if arrays[0].device.type == "cpu":
-        map_elementwise.plain_calls += 1
+        _count.bump(map_elementwise, "plain_calls")
         return map_elementwise_plain(fn, arrays)
     dev = arrays[0].device
     if dev.type != "cuda" or any(a.device != dev for a in arrays):
@@ -649,12 +656,15 @@ def map_elementwise(fn, arrays: Sequence[torch.Tensor],
     P = ctypes.c_void_p
     cols = (P * len(arrays))(*[a.data_ptr() for a in arrays])
     scal = (P * max(len(values), 1))(*[v.data_ptr() for v in values])
-    blocks = max(1, min(MAX_BLOCKS, -(-n // THREADS)))
+    cap = MAX_BLOCKS if max_blocks is None else int(max_blocks)
+    if cap < 1:
+        raise ValueError(f"map_elementwise grid cap must be >= 1, got {cap}")
+    blocks = max(1, min(cap, -(-n // THREADS)))
     with torch.cuda.device(dev):
         rc = lib.weld_map_launch(cols, scal, out.data_ptr(), n, blocks,
                                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "map_elementwise kernel launch")
-    map_elementwise.launches += 1
+    _count.bump(map_elementwise, "launches")
     return out
 
 

@@ -5,7 +5,9 @@ JAX package's ``kernels/ops.py`` for the ported kernels).
 PyTorch version) or ``None``.  The tensors' device decides: a CUDA
 tensor takes the kernel, a CPU tensor the plain version, and asking for
 the other one raises — ``impl="ref"`` never runs on the card, and no
-kernel failure is ever retried with the plain version.
+kernel failure is ever retried with the plain version.  Every entry is
+``_count.clocked``: the measured replay reads the card's time inside
+the entries (``_count.device_clock``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from . import _count
 from . import filter_reduce as _fr
 from . import flash_attention as _fa
 from . import fused_adamw as _aw
@@ -56,30 +59,35 @@ def _check_impl(impl: Optional[str], t: torch.Tensor) -> None:
 
 def counts() -> dict:
     """{wrapper name: (launches, plain_calls)}."""
-    return {k: (f.launches, f.plain_calls) for k, f in WRAPPERS.items()}
+    with _count._lock:
+        return {k: (f.launches, f.plain_calls) for k, f in WRAPPERS.items()}
 
 
 def reset_counts() -> None:
     """Zero every wrapper's counters (flash_attention's
     ``backward_calls`` and ``launches_sm90`` too)."""
-    for f in WRAPPERS.values():
-        f.launches = 0
-        f.plain_calls = 0
-    _fa.flash_attention.backward_calls = 0
-    _fa.flash_attention.launches_sm90 = 0
+    _count.reset(WRAPPERS.values())
+    _count.reset([_fa.flash_attention], ("backward_calls", "launches_sm90"))
 
 
-def filter_reduce_sum(x, pred, impl: Optional[str] = None):
+@_count.clocked
+def filter_reduce_sum(x, pred, impl: Optional[str] = None,
+                      max_blocks: Optional[int] = None):
+    """sum(x[pred]); ``max_blocks`` caps the kernel's grid (the
+    autotuner's parameter; None = ``filter_reduce.MAX_BLOCKS``)."""
     _check_impl(impl, x)
-    return _fr.filter_reduce_sum(x, pred)
+    return _fr.filter_reduce_sum(x, pred, max_blocks=max_blocks)
 
 
-def filter_reduce_sum_multi(vals, pred, impl: Optional[str] = None):
+@_count.clocked
+def filter_reduce_sum_multi(vals, pred, impl: Optional[str] = None,
+                            max_blocks: Optional[int] = None):
     """Predicated row sums: vals (A, n) + pred (n,) -> (A,) in ONE pass."""
     _check_impl(impl, vals)
-    return _fr.filter_reduce_sum_multi(vals, pred)
+    return _fr.filter_reduce_sum_multi(vals, pred, max_blocks=max_blocks)
 
 
+@_count.clocked
 def filter_reduce_q6(cols, lo, hi, val, impl: Optional[str] = None):
     """The hand-fused TPC-H Q6: sum(val where all(lo_k <= cols[k] < hi_k))
     in one pass; cols (K, n), lo/hi (K,), val (n,)."""
@@ -87,21 +95,29 @@ def filter_reduce_q6(cols, lo, hi, val, impl: Optional[str] = None):
     return _fr.filter_reduce_q6(cols, lo, hi, val)
 
 
+@_count.clocked
 def segment_sum(seg_ids, vals, num_segments: int,
-                impl: Optional[str] = None):
+                impl: Optional[str] = None, max_blocks: Optional[int] = None):
+    """Keyed sums; ``max_blocks`` caps the kernel's grid (the
+    autotuner's parameter; None = ``segment_reduce.MAX_BLOCKS``)."""
     _check_impl(impl, vals)
-    return _sr.segment_sum(seg_ids, vals, num_segments)
+    return _sr.segment_sum(seg_ids, vals, num_segments,
+                           max_blocks=max_blocks)
 
 
+@_count.clocked
 def segment_sum_vectors(seg_ids, vals, num_segments: int,
-                        impl: Optional[str] = None):
+                        impl: Optional[str] = None,
+                        max_blocks: Optional[int] = None):
     _check_impl(impl, vals)
-    return _sr.segment_sum_vectors(seg_ids, vals, num_segments)
+    return _sr.segment_sum_vectors(seg_ids, vals, num_segments,
+                                   max_blocks=max_blocks)
 
 
 # -- dict build / probe (hash-join route) --------------------------------------
 
 
+@_count.clocked
 def hash_to_slot(keys, cap_table: int, impl: Optional[str] = None):
     """Open-addressing slot assignment for int64 (packed) keys; rows equal
     to ``hash_table.EMPTY`` park at slot ``cap_table``.  Returns
@@ -110,6 +126,7 @@ def hash_to_slot(keys, cap_table: int, impl: Optional[str] = None):
     return _ht.hash_to_slot(keys, cap_table)
 
 
+@_count.clocked
 def dict_probe(table_keys, count, queries, impl: Optional[str] = None):
     """(pos, found) per query against a sorted-front-packed dict key
     column; ``pos`` is zeroed where not found."""
@@ -120,6 +137,7 @@ def dict_probe(table_keys, count, queries, impl: Optional[str] = None):
 # -- group build / probe (m:n hash-join route) ---------------------------------
 
 
+@_count.clocked
 def group_build(keys, capacity: int, impl: Optional[str] = None):
     """CSR group build over int64 (packed) keys: rows with equal keys share
     an ascending-key compact slot.  Returns ``(cslots, offsets, used)`` —
@@ -128,6 +146,7 @@ def group_build(keys, capacity: int, impl: Optional[str] = None):
     return _gb.group_build(keys, capacity)
 
 
+@_count.clocked
 def group_probe(table_keys, offsets, count, queries,
                 impl: Optional[str] = None):
     """(pos, found, sizes) per query against a groupbuilder's sorted key
@@ -140,6 +159,7 @@ def group_probe(table_keys, offsets, count, queries,
 # -- tiled matmul (linalg.matmul / linalg.matvec) --------------------------------
 
 
+@_count.clocked
 def matmul(a, b, impl: Optional[str] = None):
     """C = A @ B for 2-D f32/f64 operands of one dtype, accumulated in that
     dtype; a (k, 1) right-hand side is the matvec launch shape."""
@@ -150,19 +170,23 @@ def matmul(a, b, impl: Optional[str] = None):
 # -- fused elementwise map chain -------------------------------------------------
 
 
+@_count.clocked
 def map_elementwise(fn, arrays, impl: Optional[str] = None, lam=None,
-                    env=None):
+                    env=None, max_blocks: Optional[int] = None):
     """Apply a staged elementwise body to 1-D columns in one fused pass.
     ``fn`` is the body as a whole-column torch closure (the plain
     version), ``lam`` the same body as IR (the CUDA route generates its
-    kernel from it) and ``env`` binds the body's free scalars."""
+    kernel from it) and ``env`` binds the body's free scalars;
+    ``max_blocks`` caps the kernel's grid (None = ``map_chain.MAX_BLOCKS``)."""
     _check_impl(impl, arrays[0])
-    return _mc.map_elementwise(fn, arrays, lam=lam, env=env)
+    return _mc.map_elementwise(fn, arrays, lam=lam, env=env,
+                               max_blocks=max_blocks)
 
 
 # -- attention (the LM stack's prefill) ------------------------------------------
 
 
+@_count.clocked
 def attention(q, k, v, causal: bool = True, group: int = 1, scale=None,
               chunk: int = 1024, impl: Optional[str] = None):
     """Online-softmax attention: q (H, Sq, D), k/v (H // group, Skv, D),
@@ -177,6 +201,7 @@ def attention(q, k, v, causal: bool = True, group: int = 1, scale=None,
 # -- fused AdamW (the LM stack's optimizer step) ---------------------------------
 
 
+@_count.clocked
 def adamw_update(p, g, m, v, lr, step, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, wd: float = 0.01,
                  impl: Optional[str] = None):

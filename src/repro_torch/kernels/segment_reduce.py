@@ -15,11 +15,11 @@ Results keep the value dtype and are bitwise the same from run to run.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .filter_reduce import DTYPE_CODES
 from .ref import segment_sum as segment_sum_plain
 from .ref import segment_sum_vectors as segment_sum_vectors_plain
@@ -42,6 +42,9 @@ BLOCK_RESERVED = 1024
 SMS = 132
 #: grid cap: one wave of the H100's 132 SMs at two blocks an SM
 MAX_BLOCKS = 2 * SMS
+#: the caps the autotuner times (kernelplan/registry.py): a quarter, half
+#: and one block an SM, and the default
+GRID_CAPS = (SMS // 4, SMS // 2, SMS, MAX_BLOCKS)
 #: chunks each block takes at least before the grid grows
 MIN_CHUNKS_PER_BLOCK = 4
 
@@ -77,14 +80,21 @@ def smem_bytes(k: int, d: int, itemsize: int, replicas: int,
             + 2 * tiles * 32 * (4 + d * itemsize) + tiles * owners * 4)
 
 
-def launch_config(n: int, k: int, d: int, itemsize: int) -> Launch:
+def launch_config(n: int, k: int, d: int, itemsize: int,
+                  max_blocks: Optional[int] = None) -> Launch:
     """The partial launch for one window of K keys; raises for a shape the
     kernel does not take.  Two blocks an SM where they fit, else one.  A
     block keeps as many replicas of the K x D accumulator as fit beside
     chunks of MAX_TILES tiles (16 at small K: every warp its own replica,
     owning every key); where not even one does, one replica and the
-    largest chunk that fits, of at least MIN_TILES tiles.  The shape
-    depends only on the call's sizes, which fixes the summation order."""
+    largest chunk that fits, of at least MIN_TILES tiles.  The grid is
+    capped at ``max_blocks`` (default :data:`MAX_BLOCKS`; any cap of at
+    least one block is valid, the blocks stride over the chunks).  The
+    shape depends only on the call's sizes and the cap, which fixes the
+    summation order."""
+    cap = MAX_BLOCKS if max_blocks is None else int(max_blocks)
+    if cap < 1:
+        raise ValueError(f"segment_sum grid cap must be >= 1, got {cap}")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"segment_sum kernel takes rows of 1 to {MAX_D} "
                          f"values, got D={d}")
@@ -100,7 +110,7 @@ def launch_config(n: int, k: int, d: int, itemsize: int) -> Launch:
         if shape is not None:
             replicas, tiles = shape
             chunks = math.ceil(n / (32 * tiles))
-            blocks = max(1, min(SMS * per_sm,
+            blocks = max(1, min(SMS * per_sm, cap,
                                 math.ceil(chunks / MIN_CHUNKS_PER_BLOCK)))
             return Launch(replicas, tiles, per_sm, blocks)
     raise ValueError(
@@ -120,7 +130,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
+def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int,
+            max_blocks: Optional[int] = None) -> torch.Tensor:
     n, d = vals.shape
     if seg.device != vals.device or vals.device.type != "cuda":
         raise ValueError(
@@ -138,7 +149,7 @@ def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
         return out.zero_()
     seg, vals = _aligned(seg), _aligned(vals)
     window = min(k, MAX_K)
-    cfg = launch_config(n, window, d, vals.element_size())
+    cfg = launch_config(n, window, d, vals.element_size(), max_blocks)
     partials = torch.empty((cfg.blocks, window, d), dtype=vals.dtype,
                            device=vals.device)
     lib = _build.library()
@@ -153,15 +164,17 @@ def _launch(seg: torch.Tensor, vals: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def segment_sum(seg_ids: torch.Tensor, vals: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """out[s] = sum(vals[seg_ids == s]): seg_ids (n,) int32, vals (n,)."""
+                num_segments: int,
+                max_blocks: Optional[int] = None) -> torch.Tensor:
+    """out[s] = sum(vals[seg_ids == s]): seg_ids (n,) int32, vals (n,);
+    ``max_blocks`` caps the grid (:func:`launch_config`)."""
     if seg_ids.device.type == "cpu":
-        segment_sum.plain_calls += 1
+        _count.bump(segment_sum, "plain_calls")
         return segment_sum_plain(seg_ids, vals, num_segments)
     if vals.ndim != 1:
         raise ValueError(f"segment_sum takes a 1-D column, got {vals.shape}")
-    out = _launch(seg_ids, vals[:, None], num_segments)[:, 0]
-    segment_sum.launches += bool(vals.shape[0])
+    out = _launch(seg_ids, vals[:, None], num_segments, max_blocks)[:, 0]
+    _count.bump(segment_sum, "launches", bool(vals.shape[0]))
     return out
 
 
@@ -170,16 +183,17 @@ segment_sum.plain_calls = 0
 
 
 def segment_sum_vectors(seg_ids: torch.Tensor, vals: torch.Tensor,
-                        num_segments: int) -> torch.Tensor:
+                        num_segments: int,
+                        max_blocks: Optional[int] = None) -> torch.Tensor:
     """vals (n, D) rows summed into (K, D) by segment id."""
     if seg_ids.device.type == "cpu":
-        segment_sum_vectors.plain_calls += 1
+        _count.bump(segment_sum_vectors, "plain_calls")
         return segment_sum_vectors_plain(seg_ids, vals, num_segments)
     if vals.ndim != 2:
         raise ValueError(f"segment_sum_vectors takes (n, D) values, got "
                          f"{vals.shape}")
-    out = _launch(seg_ids, vals, num_segments)
-    segment_sum_vectors.launches += bool(vals.shape[0])
+    out = _launch(seg_ids, vals, num_segments, max_blocks)
+    _count.bump(segment_sum_vectors, "launches", bool(vals.shape[0]))
     return out
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _count
 from .ref import tiled_matmul as tiled_matmul_plain
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -51,7 +51,7 @@ def plan(a: torch.Tensor, b: torch.Tensor) -> str:
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (m, k) @ b (k, n) -> (m, n) in the operands' (common) dtype."""
     if a.device.type == "cpu":
-        tiled_matmul.plain_calls += 1
+        _count.bump(tiled_matmul, "plain_calls")
         return tiled_matmul_plain(a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"tiled_matmul kernel takes CUDA tensors on one "
@@ -76,7 +76,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             b.data_ptr(), out.data_ptr(), m, n, k,
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, f"tiled_matmul kernel launch ({which})")
-    tiled_matmul.launches += 1
+    _count.bump(tiled_matmul, "launches")
     return out
 
 

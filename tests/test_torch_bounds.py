@@ -2,9 +2,7 @@
 package's.
 
 The cases of ``test_bounds.py`` run against ``repro_torch`` unchanged
-(``torch_refcases``), except
-``test_explain_precount_false_shows_symbolic_certificate``, which needs
-``Query.explain`` (the AOT slice, ROADMAP queue A item 5).  Then the
+(``torch_refcases``).  Then the
 ``bounds_soundness`` profile of ``test_join_fuzz.py`` runs through both
 packages on the same seeded cases: each observed output size lies in
 its derived interval, the intervals of the two packages are equal, and a
@@ -29,9 +27,7 @@ from repro_torch.frames import weldrel as t_weldrel
 from test_join_fuzz import make_case
 from torch_refcases import port_cases
 
-port_cases("test_bounds", globals(),
-           leave_out=("test_explain_precount_false_shows_symbolic_"
-                      "certificate",))
+port_cases("test_bounds", globals())
 
 REF = SimpleNamespace(weldrel=r_weldrel, runtime=r_runtime,
                       bounds=r_bounds)

@@ -293,10 +293,10 @@ class _Launches(TorchDispatchMode):
 
     def wrap(self, fn, launches):
         @functools.wraps(fn)  # keeps the counters the wrapper bumps
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):  # kwargs: the tuned grid cap
             self.inside += 1
             try:
-                return fn(*args)
+                return fn(*args, **kwargs)
             finally:
                 self.inside -= 1
                 self.count += 0 if self.inside else launches(*args)

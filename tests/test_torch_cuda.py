@@ -66,10 +66,17 @@ from repro_torch.kernels import fused_adamw as t_aw
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import map_chain as t_mc
 from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import segment_reduce as t_sr
 from repro_torch.kernels import tiled_matmul as t_tm
 from torch_mapchain_cases import GEN_CASES, column, gen_lambda, plain_env
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _private_autotune_cache(tmp_path, monkeypatch):
+    """Tunings made on the card by a test go to a private cache file."""
+    monkeypatch.setenv("WELD_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
 
 
 @pytest.fixture(scope="module")
@@ -1058,8 +1065,10 @@ def private_state(tmp_path, monkeypatch):
 
 def test_traced_join_records_each_routed_kernel(gpu, private_state):
     """A traced m:1 join on the card writes one ledger record per routed
-    kernel; each ``measured_ns`` (the call bracketed by synchronizes) is
-    at least the CUDA-event time of the same call (``event_ns``)."""
+    kernel, naming the impl and the card; each ``measured_ns`` (the card's
+    time inside the call's kernel entries) is at most the CUDA-event
+    time of the whole call (``event_ns``), which is at most its host span
+    between synchronizes (``host_ns``)."""
     from repro_torch import obs
     from repro_torch.frames import weldrel
 
@@ -1085,8 +1094,66 @@ def test_traced_join_records_each_routed_kernel(gpu, private_state):
                                          "kernel.hash_probe"]
     for r, sp in zip(recs, spans):
         assert r["measured_ns"] == sp.tags["measured_ns"]
-        assert 0 < sp.tags["event_ns"] <= r["measured_ns"]
+        assert 0 < r["measured_ns"] <= sp.tags["event_ns"] <= r["host_ns"]
         assert r["predicted_ns"] > 0
+        assert r["impl"] == "cuda"
+        assert r["device"] == torch.cuda.get_device_name()
+
+
+def _card_filter_sum(mode, n=1 << 26):
+    """A filtered sum on the card (the filter_reduce_sum route), and
+    numpy's."""
+    from repro_torch.frames import weldrel
+
+    rng = np.random.RandomState(12)
+    x = rng.rand(n)
+    t = weldrel.Table({"x": x})
+    st: dict = {}
+    got = weldrel.Query(t).filter(t.col("x") < 0.5).agg(
+        {"s": (t.col("x"), "+")}, kernelize=mode, collect_stats=st)
+    return got, float(x[x < 0.5].sum()), st
+
+
+def test_cpu_records_never_price_the_card(gpu, private_state):
+    """Ledger lines of the plain versions on the CPU, and lines naming no
+    impl, however slow, leave the card's gate on its roofline."""
+    from repro_torch.core import obs
+    from repro_torch.core.kernelplan import calibrate
+
+    for impl, device in (("ref", "cpu"), (None, None)):
+        for _ in range(3):
+            obs.ledger.record("filter_reduce_sum", "float64", 1 << 26, None,
+                              int(5e9), impl=impl, device=device)
+    calibrate.invalidate()
+    got, want, st = _card_filter_sum("auto")
+    (cost,) = st["kernelplan"]["costs"]
+    assert cost["source"] == "roofline" and cost["routed"]
+    assert got["s"] == pytest.approx(want, rel=1e-9)
+    calibrate.invalidate()
+
+
+def test_calibrated_gate_on_the_card_keeps_a_faster_kernel(
+        gpu, private_state, monkeypatch):
+    """One traced run on the card calibrates the gate from the card's
+    time inside the kernel entries: at 2^26 rows the filtered sum's
+    kernel beats the generic lowering's roofline, and stays routed."""
+    from repro_torch.core import obs, runtime
+    from repro_torch.core.kernelplan import calibrate
+
+    monkeypatch.setenv(calibrate.ENV_MIN_SAMPLES, "1")
+    obs.enable()
+    try:
+        _card_filter_sum("always")
+    finally:
+        obs.disable()
+        obs.clear()
+    calibrate.invalidate()
+    runtime.clear_cache()
+    got, want, st = _card_filter_sum("auto")
+    (cost,) = st["kernelplan"]["costs"]
+    assert cost["source"] == "measured" and cost["routed"], cost
+    assert got["s"] == pytest.approx(want, rel=1e-9)
+    calibrate.invalidate()
 
 
 def _card_groupby(kernelize="always"):
@@ -1214,3 +1281,189 @@ def test_a_kernel_own_failure_on_the_card_raises_as_it_is(
         assert "misaligned" in str(ei.value)
     assert quarantine.entries() == {}
     assert not (private_state / "kernel_health.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# the autotuner on the card: every grid cap a tune space holds, the tuner's
+# cache, a tuned plan's repeatability, the server, and a refusal while
+# tuning
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cap", t_fr.GRID_CAPS)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_filter_reduce_every_grid_cap_matches_the_plain_version(cap, dtype,
+                                                                gpu):
+    """B1 and B2 at each candidate cap of their tune space, within the
+    route's tolerance of the plain version (``_held_to_plain``) and
+    bitwise the same twice."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(cap)
+    n = 3_000_017
+    x = torch.rand((3, n), generator=gen, device=gpu, dtype=dtype)
+    p = torch.rand(n, generator=gen, device=gpu) < 0.5
+    _held_to_plain(t_fr.filter_reduce_sum(x[0], p, max_blocks=cap),
+                   t_fr.filter_reduce_sum(x[0], p, max_blocks=cap),
+                   t_ref.filter_reduce_sum(x[0], p), dtype)
+    _held_to_plain(t_fr.filter_reduce_sum_multi(x, p, max_blocks=cap),
+                   t_fr.filter_reduce_sum_multi(x, p, max_blocks=cap),
+                   t_ref.filter_reduce_sum_multi(x, p), dtype)
+
+
+@pytest.mark.parametrize("cap", t_sr.GRID_CAPS)
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_segment_every_grid_cap_matches_the_plain_version(cap, dtype, gpu):
+    """B4 and B5 at each candidate cap, on continuous values at the
+    group-by's 4,096 keys, within the route's tolerance."""
+    k, n = 4096, 1_000_003
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(cap + 1)
+    seg = _segment_ids("uniform", k, n, gen, gpu)
+    vals = torch.rand((n, 2), generator=gen, device=gpu, dtype=dtype)
+    _held_to_plain(t_sr.segment_sum_vectors(seg, vals, k, max_blocks=cap),
+                   t_sr.segment_sum_vectors(seg, vals, k, max_blocks=cap),
+                   t_ref.segment_sum_vectors(seg, vals, k), dtype)
+    col = vals[:, 0].contiguous()
+    _held_to_plain(t_sr.segment_sum(seg, col, k, max_blocks=cap),
+                   t_sr.segment_sum(seg, col, k, max_blocks=cap),
+                   t_ref.segment_sum(seg, col, k), dtype)
+
+
+def test_map_chain_every_grid_cap_is_bitwise_the_same(card):
+    """B3 is elementwise: every candidate cap gives the same bits."""
+    cols, fn, _, _ = GEN_CASES["arith_f64"]
+    lam = gen_lambda(cols, fn)
+    rng = np.random.RandomState(3)
+    data = [torch.from_numpy(column(rng, dt, 3_000_017, kind)).to(card)
+            for dt, kind in cols]
+    plain = t_mc.stage_plain(lam, {}, card)
+    outs = [t_mc.map_elementwise(plain, data, lam=lam, max_blocks=cap)
+            for cap in t_mc.GRID_CAPS]
+    for cap, o in zip(t_mc.GRID_CAPS, outs):
+        assert torch.equal(o.view(torch.int64), outs[-1].view(torch.int64)), cap
+
+
+@pytest.mark.parametrize("name", ["filter_reduce_sum", "vecmerger_segment_sum",
+                                  "dict_group_sum", "map_elementwise"])
+def test_tuning_on_the_card_times_every_candidate_then_hits_the_cache(
+        name, gpu, monkeypatch):
+    from repro_torch.core.kernelplan import autotune, registry
+
+    autotune.clear_cache(disk=False)
+    spec = registry.get(name)
+    meta = {"n": 1 << 20, "k": 4096, "dtype": np.float64}
+    timed = []
+    real = autotune._time_candidate
+    monkeypatch.setattr(autotune, "_time_candidate",
+                        lambda go: timed.append(1) or real(go))
+    params, cached = autotune.tune(spec, meta, impl=None)
+    assert not cached and params["max_blocks"] in spec.tune_space["max_blocks"]
+    assert len(timed) == len(spec.tune_space["max_blocks"])
+    ent = autotune.entry(name, np.float64, 1 << 20, None, k=4096)
+    assert ent["us"] > 0 and ent["us"] <= ent["default_us"]
+    (key,) = autotune._load()
+    assert key.endswith("|cuda|" + torch.cuda.get_device_name())
+    timed.clear()
+    again, cached = autotune.tune(spec, meta, impl=None)
+    assert cached and again == params and not timed
+    autotune.clear_cache(disk=False)
+
+
+def test_a_tuned_plan_is_bitwise_repeatable(gpu, private_state):
+    """The group-by under "always" tunes its grid cap at first encounter;
+    the next run (a compile-cache hit) and a recompile (a tuning-cache
+    hit) give the same bits."""
+    from repro_torch.core import runtime
+    from repro_torch.core.kernelplan import autotune
+
+    autotune.clear_cache(disk=False)
+    run, _, want = _card_groupby()
+    first, st = run()
+    (ev,) = st["kernelplan"]["autotune"]
+    assert ev["kernel"] == "dict_group_sum" and not ev["cached"]
+    second, st2 = run()
+    assert st2["cache.hit"]
+    runtime.clear_cache()
+    third, st3 = run()
+    assert st3["kernelplan"]["autotune"][0]["cached"]
+    assert st3["kernelplan"]["autotune"][0]["params"] == ev["params"]
+    for got in (second, third):
+        assert list(got) == list(first)
+        assert np.array_equal(np.array(list(got.values())).view(np.int64),
+                              np.array(list(first.values())).view(np.int64))
+    np.testing.assert_allclose([first[k] for k in sorted(first)],
+                               want[sorted(first)], rtol=1e-9)
+    autotune.clear_cache(disk=False)
+
+
+def test_query_server_on_four_workers_is_bitwise_the_serial_run(
+        gpu, private_state):
+    from repro_torch.core import runtime
+    from repro_torch.core.serve import QueryServer
+    from repro_torch.frames import weldrel
+
+    rng = np.random.RandomState(5)
+    n, k = 1 << 20, 1000
+    probe = {"k": rng.randint(0, 2 * k, n).astype(np.int64),
+             "x": rng.rand(n)}
+    build = {"k": np.arange(k, dtype=np.int64), "w": rng.rand(k)}
+    dup = {"k": np.repeat(np.arange(k // 2, dtype=np.int64), 3),
+           "w": rng.rand(3 * (k // 2))}
+
+    def m1():
+        return weldrel.Query(weldrel.Table(probe)).stage().join(
+            weldrel.Table(build), on="k", validate="m:1")
+
+    def mn():
+        return weldrel.Query(weldrel.Table(probe)).stage().join(
+            weldrel.Table(dup), on="k")
+
+    def agg():
+        t = weldrel.Table(probe)
+        return weldrel.Query(t).filter(t.col("x") < 0.5).stage().agg(
+            {"s": (t.col("x"), "+")})
+
+    def group():
+        t = weldrel.Table(probe)
+        return weldrel.Query(t).stage().group_agg(
+            [t.col("k")], {"s": (t.col("x"), "+")}, capacity=2 * k)
+
+    makers = [m1, mn, agg, group]
+
+    def flat(v):
+        if isinstance(v, weldrel.Table):
+            return [np.asarray(weldrel._host(c)).tobytes()
+                    for _, c in sorted(v.cols.items())]
+        return repr(v)
+
+    with QueryServer(workers=1, kernelize="always") as one:
+        serial = [flat(one.run(m())) for m in makers]
+    runtime.clear_cache()
+    t_ops.reset_counts()
+    with QueryServer(workers=4, kernelize="always") as srv:
+        outs = srv.map([makers[i % 4]() for i in range(16)])
+        st = srv.stats()
+    assert st["cache.misses"] == 4 and st["serve.completed"] == 16
+    assert all(p == 0 for _, p in t_ops.counts().values())
+    for i, got in enumerate(outs):
+        assert flat(got) == serial[i % 4], i
+
+
+def test_a_c_entry_refusal_while_tuning_raises_and_records_nothing(
+        gpu, monkeypatch):
+    """A candidate whose launch the C entry refuses is a fault to see,
+    not a point to drop: ``tune`` raises and caches nothing."""
+    import dataclasses
+
+    from repro_torch.core.kernelplan import autotune, registry
+
+    autotune.clear_cache(disk=False)
+    spec = dataclasses.replace(
+        registry.get("dict_group_sum"),
+        make_bench=lambda meta, params, impl: (
+            lambda: _misaligned_launch(None, params, None, impl)))
+    with pytest.raises(RuntimeError, match="misaligned"):
+        autotune.tune(spec, {"n": 1 << 16, "k": 64, "dtype": np.float64},
+                      impl="cuda")
+    assert autotune._load() == {}
+

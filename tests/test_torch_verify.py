@@ -2,10 +2,8 @@
 checkpoints against the JAX package's.
 
 The cases of ``test_verify.py`` run against ``repro_torch`` unchanged
-(``torch_refcases``), except two:
+(``torch_refcases``), except one:
 
-* ``test_explain_has_verify_section`` needs ``Query.explain``, which
-  waits for the AOT slice (ROADMAP, queue A item 5);
 * ``test_mutation_harness_recall`` captures its corpus under the default
   ``"auto"``, where the two packages' gates route apart at 64 rows (the
   port routes the join's kernels, the reference does not).  It is held
@@ -29,8 +27,7 @@ from repro_torch.frames import weldrel as t_weldrel
 from torch_refcases import port_cases
 
 port_cases("test_verify", globals(),
-           leave_out=("test_explain_has_verify_section",
-                      "test_mutation_harness_recall"))
+           leave_out=("test_mutation_harness_recall",))
 
 
 def _corpus(weldrel, mode, impl):
@@ -88,8 +85,9 @@ def test_diagnostic_codes_match_the_reference():
 
 def test_every_port_evaluation_verifies_each_pass_and_the_plan():
     """With ``WELD_VERIFY=1`` (the suite's default) one compile verifies
-    the input, each pass of every fixpoint round, and the planned
-    program."""
+    the input, each pass of every fixpoint round, the planned program
+    and the tuned one (the autotuner's checkpoint, as the reference's
+    runtime takes it)."""
     rng = np.random.RandomState(3)
     left = t_weldrel.Table({"k": rng.randint(0, 8, 64).astype(np.int64),
                             "lv": rng.rand(64)})
@@ -99,6 +97,7 @@ def test_every_port_evaluation_verifies_each_pass_and_the_plan():
     t_weldrel.Query(left).join(right, on="k", kernelize="always",
                                collect_stats=st)
     phases = [p for p, _ in st["verify.phases"]]
-    assert phases[0] == "input" and phases[-1] == "kernelplan"
+    assert phases[0] == "input" and phases[-2:] == ["kernelplan",
+                                                    "autotune"]
     assert any(p.startswith("pass.") for p in phases)
     assert st["verify.runs"] == len(phases)

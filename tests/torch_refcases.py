@@ -49,10 +49,24 @@ def _drop(src: str, leave_out) -> str:
     return "".join("\n" if i in cut else ln for i, ln in enumerate(lines))
 
 
-def port_cases(name: str, namespace: dict, leave_out=()) -> None:
-    """Execute the port's copy of ``tests/<name>.py`` in ``namespace``."""
+def _cases_but(src: str, only) -> tuple:
+    """The names of the top-level test functions not in ``only``."""
+    names = {n.name for n in ast.parse(src).body
+             if isinstance(n, ast.FunctionDef) and n.name.startswith("test")}
+    missing = set(only) - names
+    if missing:
+        raise ValueError(f"no such cases to keep: {sorted(missing)}")
+    return tuple(sorted(names - set(only)))
+
+
+def port_cases(name: str, namespace: dict, leave_out=(), only=None) -> None:
+    """Execute the port's copy of ``tests/<name>.py`` in ``namespace``;
+    ``only`` keeps just the named cases (and every helper and fixture)."""
     path = _TESTS / f"{name}.py"
-    src = _drop(path.read_text(), leave_out)
+    text = path.read_text()
+    if only is not None:
+        leave_out = tuple(leave_out) + _cases_but(text, only)
+    src = _drop(text, leave_out)
     for pat, new in _RENAMES:
         src = pat.sub(new, src)
     fname = f"{path} (on repro_torch)"
