@@ -13,7 +13,7 @@ call with a grid cap the tuner chose, and each "auto" decision its
 ``source``), builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` and then
 
-1. runs sixteen phases through the entry points a user calls — TPC-H Q6
+1. runs seventeen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -72,15 +72,26 @@ call with a grid cap the tuner chose, and each "auto" decision its
    layer's forward and its recompute, losses and gnorms finite, the
    parameters moved; and a 2-layer f32 copy through ``build_train_step``
    on the card against the CPU, bitwise repeatable on the card and
-   bitwise equal across a ``Checkpointer`` save and restore);
+   bitwise equal across a ``Checkpointer`` save and restore); and the
+   LM stack's other families (``lm_families``: DeepSeek-MoE 16B,
+   DBRX 132B cut to 2 of its 40 layers, Zamba2 1.2B, xLSTM 350M,
+   Whisper large-v3 over 1,500 frames, Llama 3.2 Vision 90B cut to one
+   super-block of 5 layers; full width, bf16, batch 2, each through
+   ``serve``: flash_attention launched once for each attention call of
+   the structure, all on the Hopper route, each call — causal and the
+   encoder's and cross-attentions' non-causal ones, Sq > Skv included —
+   against ``ref.attention``, decode against prefill, two runs bitwise
+   equal, and an f32 depth-cut copy on the card against the CPU);
 2. holds each of the thirteen kernels against its plain PyTorch version
    on the card at the phases' shapes, for every dtype its planner spec
    takes (segment_sum also past 4,096 keys, at the gate's 20,000-key
    join build, which its kernel sums in windows; the map chain on the Black-Scholes and logreg bodies the
    phases routed and on an f32 body; group_probe also against 4,096 and
    65,536 keys; flash_attention at the prefill's
-   and the train micro-batch's shapes (timed beside v1 on the same
-   operands and SDPA), a ragged S, Sq < Skv and in f32, each element
+   and the train micro-batch's shapes and two non-causal shapes of
+   ``lm_families`` (Whisper's encoder, the vision cross-attention with
+   Sq > Skv; timed beside v1 on the same operands and SDPA, and in f32
+   on v1), a ragged S, Sq < Skv and in f32, each element
    within a limit tied to its own size, which two planted faults built
    from copies of the Hopper kernel's source must break; fused_adamw at the embedding table's size for
    every p/g dtype pair and t in {1, 5}, and at an odd size), runs it
@@ -173,13 +184,20 @@ class Sizes:
     train_accum: int = 2
     train_steps: int = 3
     train_cross: tuple = (2, 2, 128, 2)
+    #: lm_families: the families served, each with its cuts (FAMILIES)
+    families: tuple = None
     #: fused_adamw's hold: an odd size beside the largest parameter
     adamw_odd: int = 16_384 * 3 + 7
     #: flash_attention's hold: the prefill's (B, H, Hkv, S, D), a ragged S
-    #: and the Sq of the Sq < Skv case
+    #: and the Sq of the Sq < Skv case; and two non-causal shapes of
+    #: lm_families (B, H, Hkv, Sq, Skv, D): Whisper's encoder (1,500
+    #: frames: 11 kv tiles of 128 and one of 92) and the vision model's
+    #: cross-attention (a 2,048-token prompt over 1,600 image tokens)
     attn_shape: tuple = (4, 24, 8, 2048, 128)
     attn_ragged: int = 1999
     attn_sq: int = 256
+    attn_whisper: tuple = (2, 20, 20, 1500, 1500, 64)
+    attn_vlm: tuple = (2, 64, 8, 2048, 1600, 128)
     timing_reps: int = 10
 
 
@@ -2040,7 +2058,7 @@ def phase_matmul(mp: MainPath) -> None:
           "matmul.f32[always]: two runs differ bitwise")
 
 
-# -- the LM serving path ---------------------------------------------------------
+# -- the LM serving path ------------------------------------------------------
 
 #: attention, kernel against the plain version (the hold and each layer
 #: of lm_serve): the per-element limit of ``flash_attention.tolerance``
@@ -2320,6 +2338,425 @@ def phase_lm_serve(torch, sizes: Sizes, seed: int, launches: dict,
         "decode_step_device_busy_ms": busy_d, "prefill_top": top_p,
         "decode_top": top_d,
     }
+
+
+# -- the LM stack's other families --------------------------------------------
+
+#: lm_families: (arch, config replacements of the card run (the depth
+#: cuts), batch, prompt, generated, prompt tokens decoded teacher-forced
+#: against prefill, the f32 copy's config replacements, (batch, prompt,
+#: generated) of the f32 copy).  Full width throughout; depth is cut
+#: where the bf16 weights do not fit the card (dbrx 264 GB whole, the
+#: vision model 180 GB) and, for the f32 copy, to what the CPU serves in
+#: seconds.  The SSM families decode 128 tokens: a prefill's length is a
+#: multiple of their chunk (128).
+FAMILIES = (
+    ("deepseek-moe-16b", {}, 2, 512, 16, 8, {"n_layers": 2}, (2, 32, 3)),
+    ("dbrx-132b", {"n_layers": 2}, 2, 512, 16, 8, {"n_layers": 1},
+     (2, 32, 3)),
+    ("zamba2-1.2b", {}, 2, 512, 16, 128, {"n_layers": 2}, (2, 32, 3)),
+    ("xlstm-350m", {}, 2, 512, 16, 128, {"n_layers": 8}, (2, 32, 3)),
+    ("whisper-large-v3", {}, 2, 448, 16, 8,
+     {"n_layers": 2, "n_enc_layers": 2}, (2, 32, 3)),
+    ("llama-3.2-vision-90b", {"n_layers": 5}, 2, 2048, 16, 8,
+     {"n_layers": 2, "cross_attn_every": 2}, (2, 32, 3)),
+)
+#: the families whose decode against prefill is held in f32 at full width
+#: and depth (to CROSS_F32_REL), their bf16 divergence logged beside it.
+#: In bf16 two paths to the same logits round apart (a product's shape
+#: changes its summation order), and these random-weight stacks carry
+#: such roundings much further than the dense model of lm_serve: on the
+#: CPU, where a prefill's rounding depends on its length, the same prompt
+#: prefilled alone and as the prefix of a longer one — no decode
+#: involved — differs by as much as decode and prefill do
+#: (``repro_torch.launch.decode_drift``), while in f32 decode and prefill
+#: agree to CROSS_F32_REL
+DECODE_F32_FAMILIES = ("hybrid", "ssm")
+#: the vision model's cross-attention gates, drawn at 0 by the reference's
+#: init (which would leave the cross-attention out of every logit): set to
+#: this before serving
+VLM_GATE = 0.5
+
+
+def family_attention_calls(cfg) -> int:
+    """flash_attention launches of one prefill: every layer's attention
+    (MoE, vision: 4 self + 1 cross a super-block), the shared block's
+    once a group (hybrid), none (xLSTM), encoder + 2 x decoder (Whisper)."""
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def _family_inputs(torch, cfg, seed: int, batch: int, prompt: int, dev):
+    """What ``serve`` draws for its prefill, in its order."""
+    from repro_torch.launch.serve import prompt_batch
+
+    return prompt_batch(cfg, np.random.RandomState(seed), batch, prompt, dev)
+
+
+def _family_decode_err(torch, model, params, batch_in, prompt: int,
+                       n_dec: int, routing=None) -> tuple:
+    """Teacher-forced decode of the prompt's last ``n_dec`` tokens after a
+    prefill of the rest, against the prefill of the whole prompt: (max
+    |diff| of the last logits, max |logit|, rows whose argmax agrees).
+    With ``routing`` (MoE, a ``_MoeRouting`` entered by the caller) the
+    full prefill's expert choices are recorded, and the prefix's prefill
+    and each decode step either take them (``routing.pin``) or choose
+    their own, counted where they differ (``routing.flips``)."""
+    from repro_torch.launch import serve as lm
+
+    b = batch_in["tokens"].shape[0]
+    toks = batch_in["tokens"]
+    with torch.inference_mode():
+        if routing is not None:
+            routing.begin(record=True)
+        full, _ = model.prefill(params, batch_in)
+        if routing is not None:
+            routing.begin(window=(0, prompt - n_dec))
+        _, cache = model.prefill(params, dict(
+            batch_in, tokens=toks[:, :prompt - n_dec]))
+        cache = lm._pad_cache_to(cache, model.cache_spec(b, prompt))
+        for t in range(prompt - n_dec, prompt):
+            if routing is not None:
+                routing.begin(window=(t, t + 1))
+            step, cache = model.decode_step(params, cache,
+                                            toks[:, t:t + 1], t)
+    full, step = full[:, 0], step[:, 0]
+    err = float((step - full).abs().max())
+    agree = int((step.argmax(-1) == full.argmax(-1)).sum())
+    return err, float(full.abs().max()), agree
+
+
+class _MoeRouting:
+    """Wraps ``Moe.route`` while it is entered (launching nothing of its
+    own): counts the slots dropped past capacity; and, for the decode
+    check, records each MoE layer's expert choices in a prefill
+    (``begin(record=True)``), then, for a later forward over the token
+    window ``begin(window=(lo, hi))``, pins each layer to the recorded
+    choices of those tokens (``pin``) or counts the (layer, token) whose
+    own choice differs (``flips``)."""
+
+    def __init__(self, moe_mod, pin: bool = False):
+        self.moe, self.pin = moe_mod, pin
+        self.dropped, self.slots = [], 0
+        self.recorded, self.flips, self.compared = [], 0, 0
+        self.mode, self.window, self.calls = None, None, 0
+
+    def begin(self, record: bool = False, window=None):
+        self.mode = "record" if record else "window"
+        if record:
+            self.recorded = []
+        self.window, self.calls = window, 0
+
+    def __enter__(self):
+        orig = self.orig = self.moe.Moe.route
+
+        def route(mod, xt, ids=None):
+            k = mod.cfg.top_k
+            if self.mode == "window":
+                rec = self.recorded[self.calls]
+                want = rec[:, self.window[0]:self.window[1]].reshape(-1, k)
+                if self.pin:
+                    ids = want
+            r = orig(mod, xt, ids=ids)
+            if self.mode == "record":
+                b = self.batch
+                self.recorded.append(r.ids.view(b, -1, k))
+            elif self.mode == "window" and not self.pin:
+                same = (r.ids.sort(-1).values == want.sort(-1).values).all(-1)
+                self.flips += int((~same).sum())
+                self.compared += same.numel()
+            self.calls += 1
+            self.dropped.append((~r.keep).sum())
+            self.slots += r.keep.numel()
+            return r
+
+        self.moe.Moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.Moe.route = self.orig
+        self.mode = None
+
+    def count(self) -> int:
+        return int(sum(int(d) for d in self.dropped))
+
+
+def phase_lm_families(torch, sizes: Sizes, seed: int, launches: dict,
+                      dev="cuda") -> list:
+    """Serve each family of ``sizes.families`` in bf16 through
+    ``repro_torch.launch.serve`` at full width (depth cut where the
+    weights do not fit): each prefill launches flash_attention as often as
+    the structure has attention calls, all on the Hopper route, no plain
+    version serves a call; each captured attention call, causal or not,
+    within its limit of ``ref.attention``; teacher-forced decode against
+    prefill; two runs bitwise equal; and an f32 depth-cut copy on the card
+    against the same weights on the CPU.  Each model is freed before the
+    next is drawn."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as lm
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    dev = torch.device(dev)
+    rows = []
+    for (arch, cut, b, prompt, gen_len, n_dec, f32_cut,
+         (cb, cprompt, cgen)) in sizes.families or FAMILIES:
+        cfg = dataclasses.replace(get_config(arch, smoke=sizes.lm_smoke),
+                                  **cut)
+        name = cfg.name
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = model.init(gen)
+            if cfg.family == "vlm":
+                for k in params:
+                    if k.endswith(".gate"):
+                        params[k].fill_(VLM_GATE)
+        torch.cuda.synchronize()
+        n_params = model.param_count(params)
+        want_fa = family_attention_calls(cfg)
+        log(f"lm_families {name}: {cfg.family}, {cfg.n_layers} layers"
+            + (f" (cut from {get_config(arch).n_layers})" if cut else "")
+            + f" d_model={cfg.d_model} heads={cfg.n_heads}/"
+            f"{cfg.n_kv_heads} {cfg.dtype}: {n_params} parameters "
+            f"({model.active_param_count()} active) drawn in "
+            f"{time.perf_counter() - t0:.3f} s; batch {b} x prompt {prompt}"
+            f" + {gen_len}; {want_fa} attention calls a prefill")
+
+        def drive(what, capture=None):
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            if capture is None:
+                out = lm.serve(cfg, batch=b, prompt_len=prompt,
+                               gen_len=gen_len, seed=seed, verbose=False,
+                               params=params)
+            else:
+                with capture:
+                    out = lm.serve(cfg, batch=b, prompt_len=prompt,
+                                   gen_len=gen_len, seed=seed,
+                                   verbose=False, params=params)
+            torch.cuda.synchronize()
+            counts = ops.counts()
+            for k, (n, _) in counts.items():
+                launches[k] += n
+            n_fa = counts["flash_attention"][0]
+            sm90 = fa.flash_attention.launches_sm90
+            launches[SM90] += sm90
+            check(n_fa == want_fa,
+                  f"lm_families {name} {what}: flash_attention launched "
+                  f"{n_fa} times in one prefill, the structure has "
+                  f"{want_fa} attention calls")
+            check(sm90 == n_fa,
+                  f"lm_families {name} {what}: {n_fa - sm90} of {n_fa} bf16 "
+                  f"flash_attention launches missed the Hopper route")
+            check(all(p == 0 for _, p in counts.values()),
+                  f"lm_families {name} {what}: plain versions served "
+                  f"calls: {counts}")
+            check(tuple(out["tokens"].shape) == (b, gen_len)
+                  and bool(torch.isfinite(out["logits"]).all()),
+                  f"lm_families {name} {what}: tokens "
+                  f"{out['tokens'].shape} or logits not finite")
+            step_ms = out["decode_s"] / max(gen_len - 1, 1) * 1e3
+            log(f"lm_families {name} {what}: prefill_ms="
+                f"{out['prefill_s'] * 1e3:.3f} decode_ms_per_step="
+                f"{step_ms:.3f} tok_per_s={out['tok_per_s']:.1f} "
+                f"flash_attention launches={n_fa} (sm90 route {sm90}) "
+                f"tokens[0][:8]={out['tokens'][0][:8].tolist()}")
+            return out
+
+        cap = _Capture(ops)
+        drops = _MoeRouting(moe_mod)
+        with drops:
+            first = drive("run 1 (attention captured)", cap)
+        check(len(cap.calls) == want_fa,
+              f"lm_families {name}: {len(cap.calls)} attention calls "
+              f"captured, want {want_fa}")
+        worst = worst_ratio = 0.0
+        kinds = {}
+        for i, (q, k, v, out, kw) in enumerate(cap.calls):
+            err, ratio, *_ = _attention_held(torch, out, q, k, v,
+                                             kw["causal"], kw["group"])
+            check(ratio <= 1.0,
+                  f"lm_families {name}: attention call {i} (causal "
+                  f"{kw['causal']}, Sq {q.shape[2]}, Skv {k.shape[2]}) "
+                  f"differs from ref.attention by {err}, {ratio} x its "
+                  f"limit")
+            key = (bool(kw["causal"]), q.shape[2], k.shape[2])
+            kinds[key] = kinds.get(key, 0) + 1
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        log(f"lm_families {name}: {len(cap.calls)} attention calls (causal, "
+            f"Sq, Skv: count) {sorted(kinds.items())} match ref.attention, "
+            f"max |kernel - plain| {worst:.3e}, at most {worst_ratio:.4f} "
+            f"of the per-element limit")
+        del cap
+        if cfg.family == "moe":
+            log(f"lm_families {name}: run 1 dropped {drops.count()} of "
+                f"{drops.slots} MoE slots (capacity factor "
+                f"{cfg.capacity_factor})")
+
+        second = drive("run 2")
+        check(np.array_equal(first["tokens"], second["tokens"])
+              and torch.equal(first["logits"], second["logits"]),
+              f"lm_families {name}: runs 1 and 2 differ")
+        log(f"lm_families {name}: runs 1 and 2 bitwise equal (tokens and "
+            f"logits)")
+        del first
+
+        # decode against prefill.  MoE: at a capacity factor where no slot
+        # can drop (a prefill of the batch drops slots past an expert's
+        # capacity, which one decoded token a row never reaches), and
+        # with each layer's experts pinned to the full prefill's choices:
+        # top-k is discontinuous, so bf16 rounding that differs between
+        # the two paths can flip a near-tied choice (counted unpinned)
+        batch_in = _family_inputs(torch, cfg, seed, b, prompt, dev)
+        dec_model, dec_note, pinned = model, "", None
+        if cfg.family == "moe":
+            dec_model = build_model(dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+            free = _MoeRouting(moe_mod)
+            free.batch = b
+            with free:
+                own_err, own_scale, own_agree = _family_decode_err(
+                    torch, dec_model, params, batch_in, prompt, n_dec, free)
+            pinned = _MoeRouting(moe_mod, pin=True)
+            pinned.batch = b
+            dec_note = (f" at capacity factor {cfg.n_experts / cfg.top_k}"
+                        f" with the experts pinned to the prefill's (each "
+                        f"layer choosing its own: {free.flips} of "
+                        f"{free.compared} (layer, token) choices differ, "
+                        f"max |diff| {own_err:.4e} of "
+                        f"{own_scale:.4f}, argmax equal in {own_agree}/{b}; "
+                        f"not held)")
+        if pinned is None:
+            dec_err, scale, agree = _family_decode_err(
+                torch, dec_model, params, batch_in, prompt, n_dec)
+        else:
+            with pinned:
+                dec_err, scale, agree = _family_decode_err(
+                    torch, dec_model, params, batch_in, prompt, n_dec,
+                    pinned)
+        bf16_held = cfg.family not in DECODE_F32_FAMILIES
+        if bf16_held:
+            check(dec_err <= DECODE_BF16_REL * scale,
+                  f"lm_families {name}: decode differs from prefill by "
+                  f"{dec_err} (> {DECODE_BF16_REL} x {scale}){dec_note}")
+        log(f"lm_families {name}: teacher-forced decode of the last {n_dec}"
+            f" prompt tokens vs prefill{dec_note}: max |diff| "
+            f"{dec_err:.4e} (max |logit| {scale:.4f}, "
+            + (f"tolerance {DECODE_BF16_REL} of it" if bf16_held else
+               "not held in bf16: held in f32 below")
+            + f"), argmax equal in {agree}/{b}")
+        del batch_in, params, dec_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        dec_f32 = None
+        if not bf16_held:
+            # the same decode check at full width and depth in f32
+            full32 = dataclasses.replace(cfg, dtype="float32",
+                                         param_dtype="float32")
+            model32 = build_model(full32)
+            with torch.inference_mode():
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(seed)
+                params32 = model32.init(gen)
+            dec_f32, scale32, agree32 = _family_decode_err(
+                torch, model32, params32, _family_inputs(
+                    torch, full32, seed, b, prompt, dev), prompt, n_dec)
+            check(dec_f32 <= CROSS_F32_REL * max(scale32, 1.0),
+                  f"lm_families {name}: f32 decode differs from prefill by "
+                  f"{dec_f32} (> {CROSS_F32_REL} x {scale32})")
+            log(f"lm_families {name}: the same in f32 at full depth: max "
+                f"|diff| {dec_f32:.4e} (max |logit| {scale32:.4f}, "
+                f"tolerance {CROSS_F32_REL} of it), argmax equal in "
+                f"{agree32}/{b}")
+            del model32, params32
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the same code on both devices: a depth-cut f32 copy, one set of
+        # weights drawn on the card and copied to the host
+        small = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32", **f32_cut)
+        small_model = build_model(small)
+        with torch.inference_mode():
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + 1)
+            card_params = small_model.init(gen)
+            if small.family == "vlm":
+                for k in card_params:
+                    if k.endswith(".gate"):
+                        card_params[k].fill_(VLM_GATE)
+            cpu_params = {k: t.cpu() for k, t in card_params.items()}
+        t0 = time.perf_counter()
+        repro_torch.set_default_device("cpu")
+        try:
+            on_cpu = lm.serve(small, batch=cb, prompt_len=cprompt,
+                              gen_len=cgen, seed=seed, verbose=False,
+                              params=cpu_params)
+        finally:
+            repro_torch.set_default_device(dev)
+        cpu_s = time.perf_counter() - t0
+        ops.reset_counts()
+        on_card = lm.serve(small, batch=cb, prompt_len=cprompt, gen_len=cgen,
+                           seed=seed, verbose=False, params=card_params)
+        torch.cuda.synchronize()
+        n_fa, plain = ops.counts()["flash_attention"]
+        launches["flash_attention"] += n_fa
+        want_small = family_attention_calls(small)
+        check(n_fa == want_small and plain == 0
+              and fa.flash_attention.launches_sm90 == 0,
+              f"lm_families {name} f32 on the card: flash_attention {n_fa} "
+              f"launches (want {want_small}; "
+              f"{fa.flash_attention.launches_sm90} on the Hopper route), "
+              f"{plain} plain calls")
+        err = float((on_card["logits"].cpu() - on_cpu["logits"]).abs().max())
+        cscale = float(on_cpu["logits"].abs().max())
+        check(np.array_equal(on_card["tokens"], on_cpu["tokens"])
+              and err <= CROSS_F32_REL * max(cscale, 1.0),
+              f"lm_families {name}: f32 card vs CPU: tokens equal "
+              f"{np.array_equal(on_card['tokens'], on_cpu['tokens'])}, max "
+              f"|diff| {err} (tolerance {CROSS_F32_REL} x {cscale})")
+        cut_s = ", ".join(f"{k}={v}" for k, v in f32_cut.items())
+        log(f"lm_families {name}: f32 copy ({cut_s}), "
+            f"batch {cb} x prompt {cprompt} + {cgen}: card vs CPU tokens "
+            f"equal, max |logit diff| {err:.3e} (max |logit| {cscale:.4f}, "
+            f"tolerance {CROSS_F32_REL} of it), {n_fa} v1 launches; CPU run "
+            f"{cpu_s:.1f} s")
+        del card_params, cpu_params, on_card, on_cpu, small_model, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rows.append({
+            "arch": name, "family": cfg.family, "layers": cfg.n_layers,
+            "cut": cut, "params": n_params, "batch": b, "prompt": prompt,
+            "gen": gen_len, "attention_calls": want_fa,
+            "prefill_ms": second["prefill_s"] * 1e3,
+            "decode_ms_per_step": second["decode_s"] / max(gen_len - 1, 1)
+            * 1e3,
+            "tok_per_s": second["tok_per_s"],
+            "attention_max_err": worst,
+            "attention_max_limit_share": worst_ratio,
+            "moe_dropped": drops.count() if cfg.family == "moe" else None,
+            "decode_vs_prefill_err": dec_err, "decode_scale": scale,
+            "decode_held": "bf16" if bf16_held else "f32",
+            "decode_vs_prefill_f32_err": dec_f32,
+            "cross_device_f32_err": err, "f32_cut": f32_cut,
+            "f32_cpu_s": cpu_s,
+        })
+        del second
+    return rows
 
 
 
@@ -3651,11 +4088,13 @@ def _planted_faults(torch, builds, kern, q, k, v, group: int) -> dict:
 def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
                           dev="cuda") -> list:
     """flash_attention against its plain version on the card: at the
-    serving prefill's shape and the train micro-batch's (both timed on the
-    Hopper route beside v1 on the same operands and SDPA as the library
-    yardstick), a ragged S, Sq < Skv, and f32 (v1); each case twice,
-    bitwise equal.  At the prefill's shape the bf16 limit must also reject
-    each planted fault (``ATTN_FAULTS``)."""
+    serving prefill's shape and the train micro-batch's, and without the
+    mask at Whisper's encoder and the vision cross-attention (Sq > Skv)
+    (each timed on the Hopper route beside v1 on the same operands and
+    SDPA as the library yardstick, the last two also in f32 on v1), a
+    ragged S, Sq < Skv, and f32 (v1); each case twice, bitwise equal.  At
+    the prefill's shape the bf16 limit must also reject each planted fault
+    (``ATTN_FAULTS``)."""
     import tempfile
 
     import torch.nn.functional as F
@@ -3667,21 +4106,30 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 20)
     bsz, h, hk, s, d = sizes.attn_shape
-    group = h // hk
-    cases = [  # (case, dtype, B, Sq, Skv, causal, timed)
-        ("prefill", torch.bfloat16, bsz, s, s, True, True),
-        ("train", torch.bfloat16, sizes.train_batch // sizes.train_accum,
-         s, s, True, True),
-        ("ragged", torch.bfloat16, bsz, sizes.attn_ragged,
-         sizes.attn_ragged, True, False),
-        ("sq_lt_skv", torch.bfloat16, bsz, sizes.attn_sq, s, True, False),
-        ("f32", torch.float32, bsz, s, s, True, True),
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (case, dtype, B, H, Hkv, Sq, Skv, D, causal, timed)
+    cases = [
+        ("prefill", bf16, bsz, h, hk, s, s, d, True, True),
+        ("train", bf16, sizes.train_batch // sizes.train_accum, h, hk, s, s,
+         d, True, True),
+        ("ragged", bf16, bsz, h, hk, sizes.attn_ragged, sizes.attn_ragged,
+         d, True, False),
+        ("sq_lt_skv", bf16, bsz, h, hk, sizes.attn_sq, s, d, True, False),
+        ("f32", f32, bsz, h, hk, s, s, d, True, True),
     ]
+    for case, (nb, hh, hkk, sq, skv, dd) in (
+            ("whisper_enc", sizes.attn_whisper),
+            ("vlm_cross", sizes.attn_vlm)):
+        cases += [(case, bf16, nb, hh, hkk, sq, skv, dd, False, True),
+                  (case + "_f32", f32, nb, hh, hkk, sq, skv, dd, False,
+                   False)]
     per_case = []
     tmp = tempfile.TemporaryDirectory(prefix="weld-faults-")
     builds = _start_fault_builds(Path(tmp.name))
     try:
-        for case, dt, nb, sq, skv, causal, timed in cases:
+        for case, dt, nb, h, hk, sq, skv, d, causal, timed in cases:
+            group = h // hk
+
             def draw(heads, n, mul):
                 x = torch.randn((nb, n, heads, d), generator=gen,
                                 device=dev)
@@ -3771,6 +4219,7 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
             proc.stdout.close()
         tmp.cleanup()
     main, train = per_case[0], per_case[1]
+    by_case = {r["case"]: r for r in per_case}
     v1_launches = launches["flash_attention"] - launches[SM90]
     check(v1_launches > 0, "flash_attention: v1 (f32) never launched on the "
                            "main path")
@@ -3787,6 +4236,9 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
         "dtype": "bfloat16", "v1_ms": main["v1_ms"],
         "train": {k: train[k] for k in ("ms", "v1_ms", "plain_ms",
                                         "library_ms", "bound_ms")},
+        **{case: {k: by_case[case][k] for k in (
+            "shape", "ms", "v1_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")} for case in ("whisper_enc", "vlm_cross")},
         "v1": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "launches": v1_launches},
         "per_dtype": per_case, "planted_faults": faults,
@@ -3990,6 +4442,10 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.cuda.empty_cache()
     lm_train = phase_lm_train(torch, sizes, seed, mp.launches)
     elapsed("phase_lm_train", t_all)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_lm_families(torch, sizes, seed, mp.launches)
+    elapsed("phase_lm_families", t_all)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches, mp.tuned)
@@ -4015,7 +4471,8 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.cuda.empty_cache()
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "lm_train": lm_train, "gate": gate, "pipeline": pipeline,
+            "lm_train": lm_train, "lm_families": families, "gate": gate,
+            "pipeline": pipeline,
             "serve": serve,
             "total_s": time.perf_counter() - t_all}
 

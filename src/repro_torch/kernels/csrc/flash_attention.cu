@@ -45,7 +45,9 @@
 //    67 TFLOP/s = 1.54 ms.
 // The head dimension is padded with zeros to 64, 128 or 256 in shared
 // memory (the padded columns add exact zeros); D must be a multiple of 8
-// (16-byte loads) up to 256, and Sq <= Skv.  The bf16 route with D 64 or
+// (16-byte loads) up to 256, and Sq <= Skv under the causal mask (without
+// it any Sq: every q tile walks every kv tile, the last one masked by
+// kj < skv).  The bf16 route with D 64 or
 // 128 has a Hopper kernel of its own (flash_attention_sm90.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -616,8 +618,8 @@ extern "C" int weld_flash_attention(int dtype, const void* q, const void* k,
                                     int d, int causal, float scale,
                                     void* stream) {
   if (batch < 1 || heads < 1 || group < 1 || heads % group != 0 || sq < 1 ||
-      skv < sq || d < 8 || d > 256 || d % 8 != 0 || heads > 65535 ||
-      batch > 65535 || (dtype != 0 && dtype != 1)) {
+      skv < 1 || (causal && skv < sq) || d < 8 || d > 256 || d % 8 != 0 ||
+      heads > 65535 || batch > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;

@@ -675,8 +675,10 @@ cudaError_t run(const CUtensorMap& qm, const CUtensorMap& km,
 // q (B, H, Sq, D), k and v (B, H / group, Skv, D), o (B, H, Sq, D), all
 // bf16, each with the element strides of its batch, head and sequence
 // dimensions in `strides` (q, k, v, o in turn: 12 values, each a multiple of
-// 8) and a unit-stride head dimension; D is 64 or 128, 1 <= Sq <= Skv, every
-// pointer 16-byte aligned.  Launches on `stream`, allocates nothing, does
+// 8) and a unit-stride head dimension; D is 64 or 128, Sq and Skv at least
+// 1 and, under the causal mask, Sq <= Skv (without it an item walks every
+// kv tile, the partial last one masked by kj < skv), every pointer 16-byte
+// aligned.  Launches on `stream`, allocates nothing, does
 // not synchronise.  Returns 0, a CUDA error of the launch, or
 // WELD_TMA_ERROR + r when cuTensorMapEncodeTiled returned CUresult r
 // (WELD_TMA_ERROR alone: the driver has no such entry point).
@@ -689,7 +691,7 @@ extern "C" int weld_flash_attention_sm90(const void* q, const void* k,
                                          void* stream) {
   const int qtiles = (sq + kBQ - 1) / kBQ;
   if (batch < 1 || heads < 1 || group < 1 || heads % group != 0 || sq < 1 ||
-      skv < sq || (d != 64 && d != 128) ||
+      skv < 1 || (causal && skv < sq) || (d != 64 && d != 128) ||
       static_cast<long long>(qtiles) * heads * batch > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -35,7 +35,10 @@ kernel.  A backward kernel written by hand is later work.
 
 The kernels take bf16 (tensor cores, p rounded to bf16 before the PV
 product as the TPU kernel does) or f32 (CUDA cores, full f32), a head
-dimension that is a multiple of 8 up to 256, and ``Sq <= Skv``; anything
+dimension that is a multiple of 8 up to 256, and, under the causal mask,
+``Sq <= Skv`` (the mask aligns the q rows to the last Sq kv positions;
+without the mask any Sq and Skv, as the reference's kernel takes: a
+cross-attention's text may be longer than what it attends to); anything
 else raises (:func:`plan`).  They read q, k and v through their strides
 (the ``"sm90"`` route through TMA tensor maps built from them), so the
 (B, T, H, D) activations of a layer go in as (B, H, T, D) views without a
@@ -105,10 +108,10 @@ def kernel(dtype: torch.dtype, d: int) -> str:
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         group: int = 1) -> str:
+         group: int = 1, causal: bool = True) -> str:
     """Check the operands of a kernel launch (dtype, shapes, group, head
-    dimension, ``Sq <= Skv``; not the device) and return their
-    :func:`route`.  Raises ``TypeError`` or ``ValueError`` on what no
+    dimension, ``Sq <= Skv`` under ``causal``; not the device) and return
+    their :func:`route`.  Raises ``TypeError`` or ``ValueError`` on what no
     kernel takes."""
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -130,9 +133,12 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 8 or not 8 <= d <= MAX_D:
         raise ValueError(f"flash_attention kernel takes a head dimension "
                          f"that is a multiple of 8 up to {MAX_D}, got {d}")
-    if not 1 <= sq <= skv:
-        raise ValueError(f"flash_attention kernel takes 1 <= Sq <= Skv, "
-                         f"got Sq={sq}, Skv={skv}")
+    if sq < 1 or skv < 1:
+        raise ValueError(f"flash_attention kernel takes Sq, Skv >= 1, got "
+                         f"Sq={sq}, Skv={skv}")
+    if causal and sq > skv:
+        raise ValueError(f"flash_attention kernel takes Sq <= Skv under the "
+                         f"causal mask, got Sq={sq}, Skv={skv}")
     return route(q.dtype, d)
 
 
@@ -182,7 +188,7 @@ def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
             or v.device != q.device:
         raise ValueError(f"flash_attention kernel takes CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    which = plan(q, k, v, group)
+    which = plan(q, k, v, group, causal)
     squeeze = q.ndim == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]

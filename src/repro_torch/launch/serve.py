@@ -1,15 +1,17 @@
-"""Serving driver: batched prefill + greedy decode with a static KV cache —
-the port of the JAX package's ``launch/serve.py``.
+"""Serving driver: batched prefill + greedy decode with a static KV/state
+cache — the port of the JAX package's ``launch/serve.py``.
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
         --batch 4 --prompt-len 2048 --gen-len 32
 
 runs on the CUDA card (``--device cpu`` asks for the CPU), every prefill
-attention through the hand-written flash-attention kernel.  Prompts come
-from ``np.random.RandomState(seed)`` as in the reference, so both draw
-the same prompts; the weights are drawn from a ``torch.Generator`` seeded
-with ``seed`` (the reference's distributions, not its bits) unless
-``params`` are given.
+attention through the hand-written flash-attention kernel.  Every family
+serves: the encoder-decoder's batch also carries ``frames`` (B, n_frames,
+d_model), the vision model's ``images`` (B, n_image_tokens, d_vision).
+Prompts (and frames and images) come from ``np.random.RandomState(seed)``
+in the reference's order, so both draw the same inputs; the weights are
+drawn from a ``torch.Generator`` seeded with ``seed`` (the reference's
+distributions, not its bits) unless ``params`` are given.
 """
 from __future__ import annotations
 
@@ -26,25 +28,39 @@ from ..models import build_model
 
 
 def _pad_cache_to(cache, full_spec):
-    """Place the prefill's kv into a max_seq-sized decode cache: each
-    leaf is padded with zeros along the one (sequence) axis on which it
-    differs from its spec."""
+    """Place the prefill's cache into a max_seq-sized decode cache: a
+    tree of any depth, each leaf padded with zeros along the one
+    (sequence) axis on which it differs from its spec; a leaf shaped as
+    its spec (a recurrent state, a cross-attention's k and v) passes
+    through."""
+    if isinstance(cache, dict):
+        return {k: _pad_cache_to(v, full_spec[k]) for k, v in cache.items()}
+    if tuple(cache.shape) == tuple(full_spec.shape):
+        return cache
+    idx = [i for i, (a, b) in enumerate(zip(cache.shape, full_spec.shape))
+           if a != b]
+    if len(idx) != 1 or cache.dim() != len(full_spec.shape):
+        raise ValueError(f"cache leaf {tuple(cache.shape)} differs from "
+                         f"{tuple(full_spec.shape)} on more than one axis")
+    big = cache.new_zeros(full_spec.shape)
+    big.narrow(idx[0], 0, cache.shape[idx[0]]).copy_(cache)
+    return big
 
-    def place(small, spec):
-        if tuple(small.shape) == tuple(spec.shape):
-            return small
-        idx = [i for i, (a, b) in enumerate(zip(small.shape, spec.shape))
-               if a != b]
-        if len(idx) != 1:
-            raise ValueError(f"cache leaf {tuple(small.shape)} differs from "
-                             f"{tuple(spec.shape)} on more than one axis")
-        big = small.new_zeros(spec.shape)
-        big.narrow(idx[0], 0, small.shape[idx[0]]).copy_(small)
-        return big
 
-    return {fam: {name: place(leaf, full_spec[fam][name])
-                  for name, leaf in leaves.items()}
-            for fam, leaves in cache.items()}
+def prompt_batch(cfg, rng: np.random.RandomState, batch: int,
+                 prompt_len: int, dev) -> Dict[str, torch.Tensor]:
+    """A prefill's batch drawn from ``rng`` in the reference's order: the
+    tokens, then the frames (encdec) or the images (vlm)."""
+    out = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.randn(
+            batch, cfg.n_frames, cfg.d_model)).to(cfg.act_dtype).to(dev)
+    if cfg.family == "vlm":
+        out["images"] = torch.from_numpy(rng.randn(
+            batch, cfg.n_image_tokens, cfg.d_vision)).to(
+                cfg.act_dtype).to(dev)
+    return out
 
 
 def _sync(dev: torch.device) -> None:
@@ -75,9 +91,7 @@ def serve(arch: Union[str, ModelConfig], *, smoke: bool = True,
             params = {k: v.to(dev) for k, v in params.items()}
 
         max_seq = prompt_len + gen_len
-        tokens = torch.from_numpy(
-            rng.randint(0, cfg.vocab, (batch, prompt_len)).astype(np.int32))
-        batch_in = {"tokens": tokens.to(dev)}
+        batch_in = prompt_batch(cfg, rng, batch, prompt_len, dev)
 
         _sync(dev)
         t0 = time.perf_counter()

@@ -30,6 +30,7 @@ from ..data import TokenPipeline
 from ..device import default_device, set_default_device
 from ..distributed.straggler import StepMonitor
 from ..models import build_model
+from ..models.api import check_trained
 from ..optim import adamw_init, adamw_update_tree, clip_by_global_norm
 from ..optim.schedule import cosine_warmup
 from .serve import _sync
@@ -101,10 +102,11 @@ def train(arch: Union[str, ModelConfig], *, smoke: bool = True,
     if (dp or 1) > 1 or tp > 1:
         raise NotImplementedError(
             f"dp={dp}, tp={tp}: training on a mesh is not ported yet "
-            f"(ROADMAP, queue A item 10: the distributed slice)")
+            f"(ROADMAP, queue A item 9: the distributed slice)")
     dev = default_device()
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch,
                                                                 smoke=smoke)
+    check_trained(cfg)
     model = build_model(cfg)
     step_fn = build_train_step(model, accum=accum, peak_lr=peak_lr,
                                total_steps=steps)

@@ -4,19 +4,23 @@ package's ``models/api.py``):
     model = build_model(cfg)
     params = model.init(gen)                  # or convert.params_from_jax
     loss = model.loss_fn(params, batch)
-    loss, grads = model.loss_and_grad(params, batch)
+    loss, grads = model.loss_and_grad(params, batch)   # the dense family
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
-``params`` is a dict of tensors named as ``DenseLM``'s parameters.  The
-model is built on the ``meta`` device and holds no weights of its own:
-an entry point binds the ``params`` it is given (without copying them)
-and binds again when another dict comes or an entry of the bound dict
-is replaced; an update in place (``params[name].copy_(...)``) is seen as
-it is.  ``loss_and_grad`` runs the module on the caller's tensors
-instead (``torch.func.functional_call``), so that the gradient reaches
-them; it leaves the bound dict as it was.  Only the dense family is
-ported.
+Every family of the reference is served: dense and MoE
+(``transformer.DenseLM``), the Mamba2 hybrid (``ssm.Zamba2LM``), xLSTM
+(``xlstm.XLSTMLM``), encoder-decoder (``encdec.EncDecLM``: the batch also
+carries ``frames``) and vision (``vlm.VisionLM``: ``images``).
+``params`` is a dict of tensors named as the family's module names its
+parameters.  The model is built on the ``meta`` device and holds no
+weights of its own: an entry point binds the ``params`` it is given
+(without copying them) and binds again when another dict comes or an
+entry of the bound dict is replaced; an update in place
+(``params[name].copy_(...)``) is seen as it is.  ``loss_and_grad`` runs
+the module on the caller's tensors instead (``torch.func.functional_call``),
+so that the gradient reaches them; it leaves the bound dict as it was.
+Only the dense family trains (:data:`TRAINED`).
 """
 from __future__ import annotations
 
@@ -24,32 +28,51 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
 from ..configs.base import ModelConfig
+from .encdec import EncDecLM
+from .ssm import Zamba2LM
 from .transformer import DenseLM
+from .vlm import VisionLM
+from .xlstm import XLSTMLM
 
-#: the families that wait for later slices (ROADMAP, queue A item 9)
-_LATER = ("moe", "hybrid", "ssm", "encdec", "vlm")
+#: the families whose training is ported (``loss_and_grad``, ``launch.train``)
+TRAINED = ("dense",)
 
 
 def build_model(cfg: ModelConfig) -> "Model":
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "moe"):
         return Model(cfg, DenseLM(cfg))
-    if cfg.family in _LATER:
+    if fam == "hybrid":
+        return Model(cfg, Zamba2LM(cfg))
+    if fam == "ssm":
+        return Model(cfg, XLSTMLM(cfg))
+    if fam == "encdec":
+        return Model(cfg, EncDecLM(cfg))
+    if fam == "vlm":
+        return Model(cfg, VisionLM(cfg))
+    raise ValueError(f"unknown family {fam}")
+
+
+def check_trained(cfg: ModelConfig) -> None:
+    """Raise unless the config's family trains on the port."""
+    if cfg.family not in TRAINED:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP, queue A "
-            f"item 9: the LM stack's other families)")
-    raise ValueError(f"unknown family {cfg.family}")
+            f"training the {cfg.family!r} family is not ported yet (ROADMAP, "
+            f"queue A item 8: training on the new families); it serves "
+            f"(prefill, decode_step) and computes loss_fn")
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, impl: DenseLM):
+    def __init__(self, cfg: ModelConfig, impl: nn.Module):
         self.cfg = cfg
         self.impl = impl
         self._bound: Optional[Dict[str, torch.Tensor]] = None
         self._bound_values: tuple = ()
 
-    def _bind(self, params: Dict[str, torch.Tensor]) -> DenseLM:
+    def _bind(self, params: Dict[str, torch.Tensor]) -> nn.Module:
         values = tuple(params.values())
         if params is not self._bound or len(values) != len(
                 self._bound_values) or any(
@@ -74,7 +97,9 @@ class Model:
         """(loss, grads): the training loss and its gradient, a dict named
         like ``params`` with each gradient in its parameter's dtype (the
         reference's ``jax.value_and_grad(model.loss_fn)``).  ``params`` are
-        not changed and need not require grad."""
+        not changed and need not require grad.  The dense family only
+        (:func:`check_trained`)."""
+        check_trained(self.cfg)
         names = list(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with torch.enable_grad():
@@ -101,3 +126,15 @@ class Model:
         tensors = (self.impl.parameters() if params is None
                    else params.values())
         return sum(math.prod(t.shape) for t in tensors)
+
+    def active_param_count(self) -> int:
+        """For MoE: the parameters a token touches (the 6·N_active·D
+        roofline), the routed experts it does not choose left out."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.family != "moe":
+            return total
+        per_expert = 3 * cfg.d_model * cfg.expert_d_ff
+        n_moe_layers = cfg.n_layers - cfg.first_k_dense
+        return total - n_moe_layers * (cfg.n_experts - cfg.top_k) \
+            * per_expert

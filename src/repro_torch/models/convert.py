@@ -1,23 +1,30 @@
 """Carry the JAX package's parameters across to the port.
 
-The reference keeps a dense LM's layers stacked on a leading axis
+The reference keeps each family's layers stacked on a leading axis
 (``{"embed": {"table"}, "final_norm": {...}, "dense_layers": {"attn":
-{"wq": (L, d, H, hd), ...}, ...}}``); the port keeps one block per layer.
-:func:`params_from_jax` takes that tree with numpy leaves (what
+{"wq": (L, d, H, hd), ...}, ...}}``; the vision model's ``self_layers``
+on two, (n_super, self_per_super, ...)); the port keeps one module per
+layer.  :func:`params_from_jax` takes that tree with numpy leaves (what
 ``jax.device_get`` or ``np.asarray`` gives) and returns the port's
-parameter dict: the same values in the same shapes, the layer axis taken
-apart, each named after its tree path with the layer index put in
-(``dense_layers.3.attn.wq``).  :func:`state_from_jax` does the same for
-an AdamW state, whose moments stay f32.  Nothing here imports JAX.
+parameter dict: the same values in the same shapes, the layer axes taken
+apart, each named after its tree path with the layer indices put in
+(``dense_layers.3.attn.wq``, ``self_layers.0.2.mlp.wo``).  A stack is
+any ``nn.ModuleList`` child of the model (``dense_layers``,
+``moe_layers``, ``mamba_layers``, ``mlstm_layers``, ``slstm_layers``,
+``enc_layers``, ``dec_layers``, ``cross_layers``; ``self_layers`` a list
+of lists).  :func:`state_from_jax` does the same for an AdamW state,
+whose moments stay f32.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from .transformer import DenseLM
+from .api import build_model
 
 
 def _tensor(a) -> torch.Tensor:
@@ -38,9 +45,11 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def params_from_jax(cfg, tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's parameters (CPU tensors of ``cfg.param_dtype``) from the
-    reference's layer-stacked tree of the same config."""
-    return _named(cfg, tree, cfg.p_dtype)
+    """The port's parameters (CPU tensors, each in its parameter's dtype:
+    ``cfg.param_dtype``, and f32 where the reference keeps f32, as the
+    MoE router) from the reference's layer-stacked tree of the same
+    config."""
+    return _named(cfg, tree, None)
 
 
 def state_from_jax(cfg, opt_tree: Mapping) -> Dict:
@@ -53,20 +62,37 @@ def state_from_jax(cfg, opt_tree: Mapping) -> Dict:
                                  dtype=torch.int32)}
 
 
+def _stacks(impl: nn.Module) -> Dict[str, tuple]:
+    """Each stacked child of the model and its stack shape: a list of
+    blocks (n,), or of lists of blocks (n, m)."""
+    out = {}
+    for name, child in impl.named_children():
+        if isinstance(child, nn.ModuleList):
+            inner = child[0] if len(child) else None
+            out[name] = ((len(child), len(inner))
+                         if isinstance(inner, nn.ModuleList)
+                         else (len(child),))
+    return out
+
+
 def _named(cfg, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
     """A layer-stacked tree shaped like the config's parameters, taken
-    apart by layer, named as the port names them and cast to ``dtype``."""
-    want = {n: p for n, p in DenseLM(cfg).named_parameters()}
+    apart by layer, named as the port names them and cast to ``dtype``
+    (None: each parameter's own)."""
+    impl = build_model(cfg).impl
+    want = {n: p for n, p in impl.named_parameters()}
+    stacks = _stacks(impl)
     out = {}
     for name, leaf in _flatten(tree):
         t = _tensor(leaf)
         head, _, rest = name.partition(".")
-        if head == "dense_layers":
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {t.shape[0]} stacked layers, the "
-                                 f"config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                out[f"{head}.{i}.{rest}"] = t[i]
+        if head in stacks:
+            shape = stacks[head]
+            if tuple(t.shape[:len(shape)]) != shape:
+                raise ValueError(f"{name}: {tuple(t.shape[:len(shape)])} "
+                                 f"stacked layers, the config has {shape}")
+            for idx in itertools.product(*map(range, shape)):
+                out[".".join([head, *map(str, idx), rest])] = t[idx]
         else:
             out[name] = t
     if set(out) != set(want):
@@ -78,5 +104,5 @@ def _named(cfg, tree: Mapping, dtype) -> Dict[str, torch.Tensor]:
         if tuple(t.shape) != tuple(want[name].shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, the config "
                              f"gives {tuple(want[name].shape)}")
-        out[name] = t.to(dtype)
+        out[name] = t.to(dtype or want[name].dtype)
     return out

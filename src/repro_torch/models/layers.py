@@ -29,8 +29,8 @@ from torch import nn
 from ..kernels import ops
 
 # logical axis names (the reference's; a later distributed slice maps them)
-EMBED, MLP, HEADS, KV_HEADS, HEAD_DIM, VOCAB = (
-    "embed", "mlp", "heads", "kv_heads", "head_dim", "vocab")
+EMBED, MLP, HEADS, KV_HEADS, HEAD_DIM, VOCAB, EXPERTS = (
+    "embed", "mlp", "heads", "kv_heads", "head_dim", "vocab", "experts")
 
 #: the masked decode score, as the reference's
 NEG_INF = -1e30
@@ -52,7 +52,8 @@ def he_init(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
 
 class Initialised(nn.Module):
     """A module whose parameters ``draw`` fills: ``INIT`` maps a name to
-    "ones", "zeros" or the fan-in of a he_init draw (None = shape[0])."""
+    "ones", "zeros", a function of (shape, dtype, device) or the fan-in of
+    a he_init draw (None = shape[0])."""
 
     INIT: Dict[str, object] = {}
     SPECS: Dict[str, Tuple] = {}
@@ -64,6 +65,8 @@ class Initialised(nn.Module):
             return torch.ones(shape, dtype=dtype, device=gen.device)
         if how == "zeros":
             return torch.zeros(shape, dtype=dtype, device=gen.device)
+        if callable(how):
+            return how(shape, dtype, gen.device)
         return he_init(gen, shape, dtype, fan_in=how)
 
 
@@ -88,14 +91,15 @@ def layernorm(scale, bias, x, eps=1e-5):
 
 class Norm(Initialised):
     """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``) over d_model,
-    in f32, eps 1e-5."""
+    in f32, eps 1e-5: ``kind`` ("rmsnorm" or "layernorm"), by default
+    ``cfg.norm`` (the families' blocks that fix one kind pass it)."""
 
     INIT = {"scale": "ones", "bias": "zeros"}
     SPECS = {"scale": (EMBED,), "bias": (EMBED,)}
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, kind: str = None):
         super().__init__()
-        self.layer = cfg.norm == "layernorm"
+        self.layer = (kind or cfg.norm) == "layernorm"
         self.scale = _param((cfg.d_model,), cfg.p_dtype)
         if self.layer:
             self.bias = _param((cfg.d_model,), cfg.p_dtype)
@@ -194,16 +198,30 @@ class Attention(Initialised):
 
     def qkv(self, x, positions, rope: bool = True):
         cfg = self.cfg
-        q, k, v = _project(x, self.wq), _project(x, self.wk), \
-            _project(x, self.wv)
+        k, v = _project(x, self.wk), _project(x, self.wv)
         if cfg.qkv_bias:
-            q = q + self.bq.to(x.dtype)
             k = k + self.bk.to(x.dtype)
             v = v + self.bv.to(x.dtype)
         if rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        return self.query(x, positions, rope), k, v
+
+    def query(self, x, positions, rope: bool = True):
+        """q alone (a cross-attention's: its k and v come from another
+        sequence)."""
+        cfg = self.cfg
+        q = _project(x, self.wq)
+        if cfg.qkv_bias:
+            q = q + self.bq.to(x.dtype)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        return q
+
+    def cross_kv(self, src):
+        """A cross-attention's k and v, (B, S_src, Hkv, hd), from the
+        sequence ``src`` it attends to: its projections without bias, as
+        the reference's encoder-decoder and vision models take them."""
+        return _project(src, self.wk), _project(src, self.wv)
 
     def out(self, ctx, dtype):
         """ctx (b, t, H, hd) -> (b, t, d_model) through wo."""
@@ -212,37 +230,48 @@ class Attention(Initialised):
         return torch.matmul(ctx.reshape(b, t, -1),
                             wo.reshape(-1, wo.shape[-1]))
 
-    def prefill(self, x, causal: bool = True, rope: bool = True):
+    def prefill(self, x, causal: bool = True, rope: bool = True, kv=None):
         """Full-sequence attention.  Returns (out, (k, v)), k and v as
-        (B, T, Hkv, hd)."""
+        (B, Skv, Hkv, hd).  ``kv``: the (k, v) of another sequence (a
+        cross-attention, the reference's ``kv_override``), any Skv."""
         cfg = self.cfg
         b, t, _ = x.shape
         positions = torch.arange(t, device=x.device).expand(b, t)
-        q, k, v = self.qkv(x, positions, rope)
+        if kv is None:
+            q, k, v = self.qkv(x, positions, rope)
+        else:
+            q, (k, v) = self.query(x, positions, rope), kv
         group = cfg.n_heads // cfg.n_kv_heads
         # (B, T, H, D) -> (B, H, T, D) views for the kernel
         ctx = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, group=group,
-                            chunk=min(cfg.attn_chunk, t))
+                            chunk=min(cfg.attn_chunk, k.shape[1]))
         return self.out(ctx.transpose(1, 2), x.dtype), (k, v)
 
-    def decode(self, x, cache_k, cache_v, pos: int, rope: bool = True):
+    def decode(self, x, cache_k, cache_v, pos: int, rope: bool = True,
+               cross: bool = False):
         """One token at position ``pos``.  x: (B, 1, d); cache_k/cache_v:
-        (B, S, Hkv, hd), written in place at ``pos``.  Returns out."""
+        (B, S, Hkv, hd), written in place at ``pos`` — or, with ``cross``,
+        another sequence's k and v, all of them attended to and left as
+        they are.  Returns out."""
         cfg = self.cfg
         b = x.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
-        q, k, v = self.qkv(x, positions, rope)
-        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-        valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+        if cross:
+            q = self.query(x, positions, rope)
+        else:
+            q, k, v = self.qkv(x, positions, rope)
+            cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
         group = cfg.n_heads // cfg.n_kv_heads
         qg = q[:, 0].reshape(b, cfg.n_kv_heads, group, cfg.head_dim)
         scores = torch.einsum("bhgk,bshk->bhgs", qg.float(),
                               cache_k.float()) * (cfg.head_dim ** -0.5)
-        scores = torch.where(valid, scores,
-                             torch.tensor(NEG_INF, device=x.device))
+        if not cross:
+            valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+            scores = torch.where(valid, scores,
+                                 torch.tensor(NEG_INF, device=x.device))
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhgs,bshk->bhgk", probs, cache_v.float())
         ctx = ctx.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)

@@ -879,12 +879,58 @@ def test_flash_attention_sm90_reads_the_train_micro_batch_as_views(gpu):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("sq,skv,d,h,group", [
+    (300, 129, 64, 8, 4),        # Sq > Skv, Skv one row past a tile
+    (200, 37, 128, 6, 3),        # Skv under one tile
+    (1500, 1500, 64, 4, 1),      # the Whisper encoder's length: 11 full
+                                 # kv tiles of 128 and one of 92
+    (448, 1500, 64, 4, 1),       # Whisper's cross-attention, Sq < Skv
+    (2048, 1600, 128, 16, 8),    # the vision model's cross-attention
+])
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_flash_attention_without_the_mask_takes_any_sq(dtype, sq, skv, d, h,
+                                                       group, gpu):
+    """Non-causal calls with Sq past Skv (a cross-attention's text longer
+    than the sequence it attends to), on both routes: every q tile walks
+    every kv tile, the partial last one masked by kj < skv."""
+    q, k, v = _qkv(gpu, dtype, 2, h, group, sq, skv, d, seed=sq + 3 * skv)
+    _hold_attention(q, k, v, False, group)
+
+
+@pytest.mark.parametrize("entry", ("weld_flash_attention",
+                                   "weld_flash_attention_sm90"))
+def test_flash_attention_c_entries_refuse_causal_sq_past_skv(entry, gpu):
+    """The C entries check the contract themselves: causal Sq > Skv is
+    refused (cudaErrorInvalidValue) before any launch, the same call
+    without the mask is taken."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    q = torch.zeros((1, 2, 9, 64), dtype=torch.bfloat16, device=gpu)
+    k = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=gpu)
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *t_fa._strides(q), *t_fa._strides(k), *t_fa._strides(k),
+        *t_fa._strides(out))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    head = (0,) if entry == "weld_flash_attention" else ()
+    for causal, want in ((1, 1), (0, 0)):   # 1: cudaErrorInvalidValue
+        rc = getattr(lib, entry)(
+            *head, q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
+            strides, 1, 2, 1, 9, 8, 64, causal, 0.125, stream)
+        assert rc == want, (causal, rc)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype,d,sq,skv,what", [
     (torch.float16, 64, 8, 8, TypeError),
     (torch.float64, 64, 8, 8, TypeError),
     (torch.bfloat16, 12, 8, 8, ValueError),
     (torch.bfloat16, 264, 8, 8, ValueError),
     (torch.float32, 64, 9, 8, ValueError),
+    (torch.bfloat16, 64, 9, 8, ValueError),   # causal Sq > Skv, sm90 route
 ])
 def test_flash_attention_refuses_what_it_does_not_take(dtype, d, sq, skv,
                                                        what, gpu):

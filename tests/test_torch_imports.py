@@ -50,7 +50,11 @@ for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.core.kernelplan.quarantine",
              "repro_torch.core.kernelplan.autotune",
              "repro_torch.core.kernelplan.calibrate",
-             "repro_torch.core.serve", "repro_torch.kernels._count"):
+             "repro_torch.core.serve", "repro_torch.kernels._count",
+             "repro_torch.models.moe", "repro_torch.models.ssm",
+             "repro_torch.models.xlstm", "repro_torch.models.encdec",
+             "repro_torch.models.vlm", "repro_torch.configs.dbrx_132b",
+             "repro_torch.configs.whisper_large_v3"):
     assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

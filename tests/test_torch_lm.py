@@ -3,7 +3,8 @@
 * The plain attention versions (``ref.attention`` and, through
   ``ops.attention`` on CPU tensors, ``ref.chunked_attention``) against the
   JAX package's Pallas ``flash_attention`` run in interpret mode, over the
-  sweep of ``test_kernels.py`` plus a ragged ``Sq < Skv`` case: f32 to
+  sweep of ``test_kernels.py`` plus a ragged ``Sq < Skv`` case and
+  three non-causal ones (``Sq > Skv``, ragged Skv, GQA): f32 to
   rtol 2e-4, atol 2e-5 (the JAX package's own kernel test).  Two bf16
   cases hold the port's chunked version to the reference's chunked
   version (the same cast points: rtol 2**-7, one bf16 step, atol 1e-6)
@@ -48,6 +49,7 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as t_serve
+from repro_torch.launch import train as t_train
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 
@@ -72,6 +74,9 @@ SWEEP = [
     (2, 100, 100, 32, 1, False),  # non-causal + padding path
     (8, 96, 96, 16, 4, True),     # GQA group=4
     (6, 37, 101, 24, 3, True),    # ragged Sq < Skv, group 3
+    (4, 100, 37, 32, 2, False),   # non-causal Sq > Skv, Skv ragged, GQA 2
+    (8, 130, 70, 16, 4, False),   # non-causal Sq > Skv, GQA 4
+    (2, 50, 130, 32, 1, False),   # non-causal Sq < Skv, Skv ragged
 ]
 
 
@@ -139,6 +144,28 @@ def test_plain_attention_in_bf16(h, sq, skv, d, group):
     # the kernel rounds p to bf16 as well: the card test's limit
     plain = ref.attention(tq, tk, tv, causal=True, group=group)
     limit = t_fa.tolerance(tq, tk, tv, plain, causal=True, group=group)
+    err = np.abs(want_kernel - plain.float().numpy())
+    assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
+
+
+def test_plain_attention_in_bf16_without_the_mask_past_skv():
+    """bf16, non-causal, Sq > Skv (a cross-attention's text longer than
+    the image): the port's chunked version to the reference's, and the
+    interpret-mode kernel within the card's limit, as above."""
+    h, sq, skv, d, group = 8, 96, 40, 64, 4
+    q, k, v = _attn_inputs(23, h, sq, skv, d, group)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want_chunked = np.asarray(r_ref.chunked_attention(
+        jq, jk, jv, causal=False, group=group, chunk=32), np.float32)
+    want_kernel = np.asarray(r_fa.flash_attention(
+        jq, jk, jv, causal=False, group=group, bq=32, bk=32,
+        interpret=True), np.float32)
+    tq, tk, tv = _bf16(jq, jk, jv)
+    got = ops.attention(tq, tk, tv, causal=False, group=group, chunk=32)
+    np.testing.assert_allclose(got.float().numpy(), want_chunked,
+                               rtol=2.0 ** -7, atol=1e-6)
+    plain = ref.attention(tq, tk, tv, causal=False, group=group)
+    limit = t_fa.tolerance(tq, tk, tv, plain, causal=False, group=group)
     err = np.abs(want_kernel - plain.float().numpy())
     assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
 
@@ -247,7 +274,24 @@ def test_kernel_plan_refuses_what_no_kernel_takes(what, q, k, v, group, err):
     qt, kt = make(q), make(k)
     vt = kt if v is None else make(v)
     with pytest.raises(err):
-        t_fa.plan(qt, kt, vt, group=group)
+        t_fa.plan(qt, kt, vt, group=group, causal=True)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 64, "v1"), (torch.bfloat16, 72, "v1"),
+])
+def test_kernel_plan_takes_sq_past_skv_without_the_mask(dtype, d, want):
+    """Sq > Skv is refused under the causal mask only: without it (a
+    cross-attention) both routes take any Sq and Skv; an empty side is
+    refused either way."""
+    q = torch.zeros((2, 16, 2048, d), dtype=dtype)
+    k = torch.zeros((2, 2, 1600, d), dtype=dtype)
+    assert t_fa.plan(q, k, k, group=8, causal=False) == want
+    with pytest.raises(ValueError, match="causal"):
+        t_fa.plan(q, k, k, group=8, causal=True)
+    with pytest.raises(ValueError):
+        t_fa.plan(q, k[:, :, :0], k[:, :, :0], group=8, causal=False)
 
 
 def test_cpu_calls_count_no_launch_on_either_route():
@@ -423,12 +467,16 @@ def test_model_rebinds_a_replaced_parameter():
     assert torch.equal(doubled, want_doubled)
 
 
-def test_only_the_dense_family_is_ported():
-    assert list_configs() == sorted(ARCHS)
-    moe = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
-                              family="moe")
+def test_only_the_dense_family_trains():
+    """Every registered config builds; ``train`` and ``loss_and_grad``
+    refuse the families whose training is not ported (MoE here)."""
+    assert set(ARCHS) <= set(list_configs())
+    for arch in list_configs():
+        build_model(get_config(arch, smoke=True))
+    moe = get_config("deepseek-moe-16b", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe)
+        t_train.train(moe, steps=1, global_batch=2, seq_len=8,
+                      verbose=False)
 
 
 def test_params_from_jax_checks_the_tree():
