@@ -13,7 +13,7 @@ call with a grid cap the tuner chose, and each "auto" decision its
 ``source``), builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` and then
 
-1. runs seventeen phases through the entry points a user calls — TPC-H Q6
+1. runs eighteen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -81,7 +81,18 @@ call with a grid cap the tuner chose, and each "auto" decision its
    the structure, all on the Hopper route, each call — causal and the
    encoder's and cross-attentions' non-causal ones, Sq > Skv included —
    against ``ref.attention``, decode against prefill, two runs bitwise
-   equal, and an f32 depth-cut copy on the card against the CPU);
+   equal, and an f32 depth-cut copy on the card against the CPU); and
+   those families in training (``lm_families_train``: full width, bf16,
+   remat, 3 steps of 2 x 512 tokens — Whisper 2 x 448 over 1,500 frames
+   — DeepSeek-MoE cut to 6 layers, DBRX to 1, the vision model to one
+   super-block of 5, the token families through ``train``, Whisper and
+   the vision model through ``build_train_step`` with frames or images;
+   fused_adamw once a tensor a step, flash_attention the remat
+   structure's count, all on the Hopper route, its backward once a call,
+   the first step run twice bitwise equal, step ms, tokens/s, MFU, peak
+   memory and the device's idle share; and an f32 depth-cut copy on the
+   card against the CPU: two steps, or one ``loss_and_grad`` for DBRX and
+   the vision model);
 2. holds each of the thirteen kernels against its plain PyTorch version
    on the card at the phases' shapes, for every dtype its planner spec
    takes (segment_sum also past 4,096 keys, at the gate's 20,000-key
@@ -186,6 +197,9 @@ class Sizes:
     train_cross: tuple = (2, 2, 128, 2)
     #: lm_families: the families served, each with its cuts (FAMILIES)
     families: tuple = None
+    #: lm_families_train: the families trained, each with its cuts
+    #: (FAMILIES_TRAIN)
+    families_train: tuple = None
     #: fused_adamw's hold: an odd size beside the largest parameter
     adamw_odd: int = 16_384 * 3 + 7
     #: flash_attention's hold: the prefill's (B, H, Hkv, S, D), a ragged S
@@ -2378,19 +2392,6 @@ DECODE_F32_FAMILIES = ("hybrid", "ssm")
 VLM_GATE = 0.5
 
 
-def family_attention_calls(cfg) -> int:
-    """flash_attention launches of one prefill: every layer's attention
-    (MoE, vision: 4 self + 1 cross a super-block), the shared block's
-    once a group (hybrid), none (xLSTM), encoder + 2 x decoder (Whisper)."""
-    if cfg.family == "hybrid":
-        return -(-cfg.n_layers // cfg.attn_every)
-    if cfg.family == "ssm":
-        return 0
-    if cfg.family == "encdec":
-        return (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
-    return cfg.n_layers
-
-
 def _family_inputs(torch, cfg, seed: int, batch: int, prompt: int, dev):
     """What ``serve`` draws for its prefill, in its order."""
     from repro_torch.launch.serve import prompt_batch
@@ -2506,6 +2507,7 @@ def phase_lm_families(torch, sizes: Sizes, seed: int, launches: dict,
     from repro_torch.launch import serve as lm
     from repro_torch.models import build_model
     from repro_torch.models import moe as moe_mod
+    from repro_torch.kernels.launch_counts import attention_calls
 
     dev = torch.device(dev)
     rows = []
@@ -2526,7 +2528,7 @@ def phase_lm_families(torch, sizes: Sizes, seed: int, launches: dict,
                         params[k].fill_(VLM_GATE)
         torch.cuda.synchronize()
         n_params = model.param_count(params)
-        want_fa = family_attention_calls(cfg)
+        want_fa = attention_calls(cfg)[0]
         log(f"lm_families {name}: {cfg.family}, {cfg.n_layers} layers"
             + (f" (cut from {get_config(arch).n_layers})" if cut else "")
             + f" d_model={cfg.d_model} heads={cfg.n_heads}/"
@@ -2714,7 +2716,7 @@ def phase_lm_families(torch, sizes: Sizes, seed: int, launches: dict,
         torch.cuda.synchronize()
         n_fa, plain = ops.counts()["flash_attention"]
         launches["flash_attention"] += n_fa
-        want_small = family_attention_calls(small)
+        want_small = attention_calls(small)[0]
         check(n_fa == want_small and plain == 0
               and fa.flash_attention.launches_sm90 == 0,
               f"lm_families {name} f32 on the card: flash_attention {n_fa} "
@@ -2761,30 +2763,12 @@ def phase_lm_families(torch, sizes: Sizes, seed: int, launches: dict,
 
 
 #: the f32 depth-cut training copy, card against CPU: the losses to
-#: TRAIN_LOSS_RTOL, and each AdamW moment within TRAIN_GRAD_REL of its
-#: leaf's largest value (m is linear in the gradients, v quadratic: 2x);
-#: other summation orders only, TF32 off.  A parameter's last update is
-#: lr m^/(sqrt(v^) + eps), homogeneous of degree 0 in the gradients: a
-#: gradient error of TRAIN_GRAD_REL of the leaf's scale s moves it by at
-#: most about 2 TRAIN_GRAD_REL s / sqrt(v^) of lr, and never by more than
-#: ADAM_T2_BOUND lr, the largest |m^ / sqrt(v^)| at t = 2 (b1 0.9, b2 0.999:
-#: Cauchy-Schwarz over the two steps' gradients).  See _train_param_limit.
+#: TRAIN_LOSS_RTOL, each AdamW moment within TRAIN_GRAD_REL of its leaf's
+#: largest value (m is linear in the gradients, v quadratic: 2x), and the
+#: parameters within ``optim.adamw.second_step_limit`` of that gradient
+#: error; other summation orders only, TF32 off
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL = 1e-4
-ADAM_T2_BOUND = 1.0013
-
-
-def _train_param_limit(torch, p_cpu, v_cpu, lr: float, c2: float):
-    """The per-element limit of |p_card - p_cpu| after the depth-cut
-    copy's two steps (the first at lr 0, so both start the second from the
-    same parameters): lr min(2 ADAM_T2_BOUND, 2 TRAIN_GRAD_REL s /
-    (sqrt(v^) + eps)) + 2**-22 |p|, s the leaf's largest sqrt(v^), the
-    last term two f32 roundings of p."""
-    rms = torch.sqrt(v_cpu / c2)
-    s = float(rms.max())
-    step = torch.clamp(2 * TRAIN_GRAD_REL * s / (rms + 1e-8),
-                       max=2 * ADAM_T2_BOUND)
-    return lr * step + 2.0 ** -22 * p_cpu.abs()
 
 
 def _train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
@@ -2854,6 +2838,7 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     from repro_torch.models import build_model
     from repro_torch.optim import (adamw_init, adamw_update_tree,
                                    cosine_warmup)
+    from repro_torch.optim.adamw import second_step_limit
 
     dev = torch.device(dev)
     cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
@@ -3057,8 +3042,8 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
             scale = float(want.abs().max())
             worst[mom] = max(worst[mom], err / max(scale, 1e-30) / rel)
         want = cpu_p[k].to(dev)
-        limit = _train_param_limit(torch, want, cpu_o["v"][k].to(dev), lr,
-                                   c2)
+        limit = second_step_limit(want, cpu_o["v"][k].to(dev), lr, c2,
+                                  TRAIN_GRAD_REL)
         diff = (p1[k] - want).abs()
         worst["p"] = max(worst["p"], float((diff / limit).max()))
         worst["p_abs"] = max(worst["p_abs"], float(diff.max()))
@@ -3090,6 +3075,466 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
         "cross_device_loss_rel_err": loss_err,
         "cross_device_limit_shares": worst,
     }
+
+
+# ---------------------------------------------------------------------------
+# lm_families_train: the other families in training
+# ---------------------------------------------------------------------------
+
+
+#: lm_families_train: (arch, depth cut, batch, tokens a sequence, the f32
+#: copy's cut, the f32 copy's steps).  Full width, bf16, remat; the depth
+#: cut only where the training state (bf16 p and g, f32 m and v: 12 bytes
+#: a parameter, 16 for an f32 leaf) does not fit on the card: DeepSeek-MoE
+#: 6 of 28 layers (1 dense + 5 MoE, 38.8 GB), DBRX 1 of 40 (46.5 GB; 2
+#: would be 85.6 GB), Llama 3.2 Vision 5 of 100, one super-block, the
+#: least its structure allows (64.1 GB, and 8.4 GB more for the tied
+#: table's f32 copy and its f32 gradient).  The f32 copy runs its steps
+#: through build_train_step on the card and on the CPU; with 0 steps it
+#: holds one ``loss_and_grad`` instead: DBRX's and the vision model's
+#: copies have 3.9 and 2.8 billion parameters, whose plain AdamW on the
+#: host CPU would take minutes a step (the fused_adamw kernel is held on
+#: the card by hold_fused_adamw and in the other copies, and two steps of
+#: every family's smoke config, card against CPU, by
+#: ``tests/test_torch_cuda.py``)
+FAMILIES_TRAIN = (
+    ("deepseek-moe-16b", {"n_layers": 6}, 2, 512, {"n_layers": 2}, 2),
+    ("dbrx-132b", {"n_layers": 1}, 2, 512, {"n_layers": 1}, 0),
+    ("zamba2-1.2b", {}, 2, 512, {"n_layers": 2}, 2),
+    ("xlstm-350m", {}, 2, 512, {"n_layers": 8}, 2),
+    ("whisper-large-v3", {}, 2, 448, {"n_layers": 2, "n_enc_layers": 2},
+     2),
+    ("llama-3.2-vision-90b", {"n_layers": 5}, 2, 512,
+     {"n_layers": 2, "cross_attn_every": 2}, 0),
+)
+#: lm_families_train's steps a family, and its f32 copies' batch x tokens:
+#: one sequence, since the copies' CPU runs at full width (Whisper's
+#: encoder over 1,500 frames above all) are most of the phase's time
+FAMILIES_TRAIN_STEPS = 3
+FAMILIES_TRAIN_F32 = (1, 32)
+#: bf16 peak of the H100 SXM's tensor cores (dense), the MFU's divisor
+BF16_PEAK = 989e12
+
+
+def _family_train_flops(cfg, model, b: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 per parameter and position it
+    multiplies (the active experts only; the encoder's layers and the
+    cross-attentions' k and v projections at the frames or image tokens,
+    the vision projection at the image tokens, every other parameter at the
+    text tokens; the learned positions multiply nothing), plus 12 B hd H
+    Sq Skv a call for the attention (halved when causal), as
+    ``_train_flops``.  The SSM scans (Mamba2's, the mLSTM's) and the
+    sLSTM's pointwise recurrence are left out."""
+    fam = cfg.family
+    other = {"encdec": cfg.n_frames, "vlm": cfg.n_image_tokens}.get(fam, 0)
+    at_other = 0
+    for name, p in model.impl.named_parameters():
+        kv = name.rsplit(".", 1)[-1] in ("wk", "wv")
+        if fam == "encdec" and (name.startswith("enc_") or (
+                ".cross_attn." in name and kv)):
+            at_other += p.numel()
+        elif fam == "vlm" and (name == "img_proj" or (
+                name.startswith("cross_layers.") and kv)):
+            at_other += p.numel()
+    skip = model.impl.pos.numel() if fam == "encdec" else 0
+    at_text = model.active_param_count() - at_other - skip
+    flops = 6.0 * b * (at_text * seq + at_other * other)
+    unit = 12.0 * b * cfg.head_dim * cfg.n_heads
+    if fam in ("dense", "moe"):
+        flops += unit * cfg.n_layers * seq * seq / 2
+    elif fam == "hybrid":
+        flops += unit * -(-cfg.n_layers // cfg.attn_every) * seq * seq / 2
+    elif fam == "encdec":
+        n_enc = cfg.n_enc_layers or cfg.n_layers
+        flops += unit * (n_enc * other * other + cfg.n_layers * (
+            seq * seq / 2 + seq * other))
+    elif fam == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        flops += unit * (cfg.n_layers - n_super) * seq * seq / 2 \
+            + unit * n_super * seq * other
+    return flops
+
+
+def _family_batches(torch, cfg, seed: int, b: int, seq: int, steps: int,
+                    dev) -> list:
+    """``steps`` training batches: ``TokenPipeline``'s tokens and labels
+    for ``seed`` (what ``train`` draws), and for encdec and vision the
+    frames or images drawn from a numpy generator seeded with ``seed`` as
+    ``serve.prompt_batch`` draws them, in the activation dtype."""
+    from repro_torch.data import TokenPipeline
+
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=b,
+                         seed=seed)
+    rng = np.random.RandomState(seed)
+    key, shape = {"encdec": ("frames", (cfg.n_frames, cfg.d_model)),
+                  "vlm": ("images", (cfg.n_image_tokens, cfg.d_vision))}.get(
+                      cfg.family, (None, None))
+    out = []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(x).to(dev)
+                 for k, x in pipe.next_batch().items()}
+        if key:
+            batch[key] = torch.from_numpy(rng.randn(b, *shape)).to(
+                cfg.act_dtype).to(dev)
+        out.append(batch)
+    return out
+
+
+def _family_weights(torch, model, cfg, seed: int, dev) -> dict:
+    """The weights ``train`` draws for ``seed`` (on ``dev``), the vision
+    model's gates set to VLM_GATE (the reference's 0 would leave every
+    cross-attention weight's gradient at 0)."""
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen)
+        if cfg.family == "vlm":
+            for k in params:
+                if k.endswith(".gate"):
+                    params[k].fill_(VLM_GATE)
+    return params
+
+
+#: an exact digest of a tensor's bits: each element's bits (int16 or
+#: int32) times its position's weight, (index mod DIGEST_MOD) + 1, summed
+#: in int64 over chunks of DIGEST_CHUNK elements (no chunk's sum can
+#: overflow); two tensors with equal bits have equal digests
+DIGEST_MOD = 1021
+DIGEST_CHUNK = 1 << 22
+
+
+def _bits_digest(torch, t):
+    flat = t.detach().reshape(-1)
+    ints = flat.view(torch.int16 if flat.element_size() == 2
+                     else torch.int32)
+    sums = []
+    for lo in range(0, ints.numel(), DIGEST_CHUNK):
+        part = ints[lo:lo + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(lo, lo + part.numel(), device=part.device,
+                         dtype=torch.int64) % DIGEST_MOD + 1
+        sums.append((part * w).sum())
+    return torch.stack(sums) if sums else torch.zeros(0, dtype=torch.int64)
+
+
+def _state_digest(torch, params, opt) -> dict:
+    return {(part, k): _bits_digest(torch, t)
+            for part, tree in (("p", params), ("m", opt["m"]),
+                               ("v", opt["v"]))
+            for k, t in tree.items()}
+
+
+def _f32_family_copy(torch, cfg, f32_cut: dict, steps: int, seed: int,
+                     dev, launches: dict) -> dict:
+    """The same code on both devices: a depth-cut f32 copy of ``cfg`` from
+    one set of weights (drawn on the card, copied to the host) and one set
+    of batches, through ``build_train_step`` for ``steps`` steps (the first
+    at lr 0) on the card and on the CPU — losses to TRAIN_LOSS_RTOL, gnorms
+    to TRAIN_GRAD_REL, the moments and parameters as lm_train's copy — or,
+    with 0 steps, one ``loss_and_grad``: the loss to TRAIN_LOSS_RTOL and
+    every gradient within TRAIN_GRAD_REL of its leaf's largest |value|.
+    The card's launches: fused_adamw once a tensor a step, flash_attention
+    the remat structure's count, all on v1, no plain version."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import adamw_scalars
+    from repro_torch.launch import train as lm
+    from repro_torch.models import build_model
+    from repro_torch.kernels.launch_counts import attention_calls
+    from repro_torch.optim import adamw_init, cosine_warmup
+    from repro_torch.optim.adamw import second_step_limit
+
+    name = cfg.name
+    small = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                **f32_cut)
+    model = build_model(small)
+    cb, cseq = FAMILIES_TRAIN_F32
+    n_batches = max(steps, 1)
+    card_w = _family_weights(torch, model, small, seed + 2, dev)
+    host_w = {k: t.to("cpu", copy=True) for k, t in card_w.items()}
+    card_b = _family_batches(torch, small, seed + 3, cb, cseq, n_batches,
+                             dev)
+    host_b = [{k: x.cpu() for k, x in b.items()} for b in card_b]
+    step_fn = lm.build_train_step(model, warmup=1)
+
+    def run(params, batches):
+        if not steps:
+            loss, grads = model.loss_and_grad(params, batches[0])
+            return float(loss), grads, None
+        opt = adamw_init(params)
+        losses, gnorms = [], []
+        for batch in batches:
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+        return losses, gnorms, opt
+
+    ops.reset_counts()
+    card = run(card_w, card_b)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    backward = fa.flash_attention.backward_calls
+    for k, (n, _) in counts.items():
+        launches[k] += n
+    fwd, bwd = attention_calls(small, training=True)
+    want_adamw = steps * len(card_w)
+    check(counts["fused_adamw"] == (want_adamw, 0)
+          and counts["flash_attention"] == (fwd * n_batches, 0)
+          and backward == bwd * n_batches
+          and fa.flash_attention.launches_sm90 == 0,
+          f"lm_families_train {name} f32 on the card: counts {counts}, "
+          f"backward {backward} (want {bwd * n_batches}), "
+          f"{fa.flash_attention.launches_sm90} on the Hopper route")
+    t0 = time.perf_counter()
+    host = run(host_w, host_b)
+    cpu_s = time.perf_counter() - t0
+    cut_s = ", ".join(f"{k}={v}" for k, v in f32_cut.items())
+    what = (f"lm_families_train {name}: f32 copy ({cut_s}, "
+            f"{model.param_count()} parameters), batch {cb} x {cseq}")
+    if not steps:
+        (l_card, g_card, _), (l_cpu, g_cpu, _) = card, host
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        worst = 0.0
+        for k in g_cpu:
+            want = g_cpu[k].to(dev)
+            scale = float(want.abs().max())
+            err = float((g_card[k] - want).abs().max())
+            worst = max(worst, err / max(scale, 1e-30) / TRAIN_GRAD_REL)
+        check(loss_err <= TRAIN_LOSS_RTOL and worst <= 1.0,
+              f"{what}: card vs CPU loss rel err {loss_err}, gradients at "
+              f"{worst} of their limit")
+        log(f"{what}, one loss_and_grad: card vs CPU loss {l_card} / "
+            f"{l_cpu} (rel err {loss_err:.3e}, limit {TRAIN_LOSS_RTOL}); "
+            f"every gradient at most {worst:.4f} of its limit "
+            f"({TRAIN_GRAD_REL} of its leaf's largest |value|); CPU run "
+            f"{cpu_s:.1f} s")
+        return {"f32_cut": f32_cut, "f32_steps": 0,
+                "f32_loss_rel_err": loss_err, "f32_grad_limit_share": worst,
+                "f32_cpu_s": cpu_s}
+    (l_card, gn_card, o_card), (l_cpu, gn_cpu, o_cpu) = card, host
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(l_card, l_cpu))
+    gnorm_err = max(abs(a - c) / abs(c) for a, c in zip(gn_card, gn_cpu))
+    last_lr = float(cosine_warmup(steps - 1, peak_lr=3e-4, warmup=1,
+                                  total=1000))
+    lr, _, _, _, c2 = adamw_scalars(last_lr, steps, 0.9, 0.999)
+    worst = {"m": 0.0, "v": 0.0, "p": 0.0}
+    for k in host_w:
+        for mom, rel in (("m", TRAIN_GRAD_REL), ("v", 2 * TRAIN_GRAD_REL)):
+            want = o_cpu[mom][k].to(dev)
+            err = float((o_card[mom][k] - want).abs().max())
+            scale = float(want.abs().max())
+            worst[mom] = max(worst[mom], err / max(scale, 1e-30) / rel)
+        want = host_w[k].to(dev)
+        limit = second_step_limit(want, o_cpu["v"][k].to(dev), lr, c2,
+                                  TRAIN_GRAD_REL)
+        worst["p"] = max(worst["p"],
+                         float(((card_w[k] - want).abs() / limit).max()))
+    check(loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GRAD_REL
+          and max(worst.values()) <= 1.0,
+          f"{what}: card vs CPU loss rel err {loss_err}, gnorm rel err "
+          f"{gnorm_err}, shares of the limits {worst}")
+    log(f"{what}, {steps} steps: card vs CPU losses {l_card} / {l_cpu} "
+        f"(max rel err {loss_err:.3e}, limit {TRAIN_LOSS_RTOL}), gnorms max "
+        f"rel err {gnorm_err:.3e} (limit {TRAIN_GRAD_REL}); m, v at most "
+        f"{worst['m']:.4f}, {worst['v']:.4f} of their limits, parameters "
+        f"{worst['p']:.4f}; CPU run {cpu_s:.1f} s")
+    return {"f32_cut": f32_cut, "f32_steps": steps,
+            "f32_loss_rel_err": loss_err, "f32_gnorm_rel_err": gnorm_err,
+            "f32_limit_shares": worst, "f32_cpu_s": cpu_s}
+
+
+def phase_lm_families_train(torch, sizes: Sizes, seed: int, launches: dict,
+                            dev="cuda") -> list:
+    """Train each family of ``sizes.families_train`` in bf16 with remat at
+    full width (depth cut where the training state does not fit) for
+    FAMILIES_TRAIN_STEPS steps through the entry points: the
+    token families through ``repro_torch.launch.train.train``, Whisper and
+    the vision model through ``build_train_step`` on batches that carry
+    their frames or images.  Every loss and gnorm finite, the parameters
+    moved, ``fused_adamw`` launched once a tensor a step,
+    ``flash_attention`` the remat structure's count a step
+    (``kernels.launch_counts.attention_calls``) all on the Hopper route,
+    its backward once an attention call, no plain version; two runs of
+    the first step from one state bitwise equal (loss, gnorm, and the
+    digests of every parameter and moment; the second run's step profiled
+    for the device's idle share against the best step's wall); then the
+    f32 copy on the card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lm
+    from repro_torch.models import build_model
+    from repro_torch.kernels.launch_counts import attention_calls
+    from repro_torch.optim import adamw_init
+
+    dev = torch.device(dev)
+    steps = FAMILIES_TRAIN_STEPS
+    rows = []
+    for arch, cut, b, seq, f32_cut, f32_steps in (sizes.families_train
+                                                  or FAMILIES_TRAIN):
+        cfg = dataclasses.replace(get_config(arch, smoke=sizes.lm_smoke),
+                                  **cut)
+        name = cfg.name
+        model = build_model(cfg)
+        tensors = list(model.impl.parameters())
+        n_params, n_active = model.param_count(), model.active_param_count()
+        state = sum(p.numel() * (2 * p.element_size() + 8) for p in tensors)
+        fwd, bwd = attention_calls(cfg, training=True)
+        via_train = cfg.family not in lm.BATCH_KEYS
+        log(f"lm_families_train {name}: {cfg.family}, {cfg.n_layers} layers"
+            + (f" (cut from {get_config(arch).n_layers})" if cut else "")
+            + f" d_model={cfg.d_model} {cfg.param_dtype} remat={cfg.remat}: "
+            f"{n_params} parameters ({n_active} active) in {len(tensors)} "
+            f"tensors, training state {state / 1e9:.3f} GB; batch {b} x "
+            f"{seq} tokens, {steps} steps through "
+            + ("train()" if via_train else "build_train_step")
+            + f"; {fwd} flash_attention launches and {bwd} backwards a step")
+        batches = _family_batches(torch, cfg, seed, b, seq, steps, dev)
+        step_fn = lm.build_train_step(model, peak_lr=1e-3,
+                                      total_steps=steps)
+        params = _family_weights(torch, model, cfg, seed, dev)
+        before = {k: _bits_digest(torch, t) for k, t in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        if via_train:   # train() draws these weights and batches itself
+            del params
+            out = lm.train(cfg, steps=steps, global_batch=b, seq_len=seq,
+                           seed=seed, log_every=1, verbose=True)
+            params, losses, gnorms, step_s = (out["params"], out["losses"],
+                                              out["gnorms"], out["step_s"])
+            del out
+        else:   # train()'s loop on batches that carry frames or images
+            opt = adamw_init(params)
+            losses, gnorms, step_s = [], [], []
+            for s, batch in enumerate(batches):
+                t1 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, batch)
+                m = {k: float(v) for k, v in m.items()}
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                losses.append(m["loss"])
+                gnorms.append(m["gnorm"])
+                log(f"[train] step {s:5d} loss {m['loss']:.4f} gnorm "
+                    f"{m['gnorm']:.3f} lr {m['lr']:.2e}")
+            del opt
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = ops.counts()
+        backward = fa.flash_attention.backward_calls
+        sm90 = fa.flash_attention.launches_sm90
+        for k, (n, _) in counts.items():
+            launches[k] += n
+        launches[SM90] += sm90
+        n_fa = counts["flash_attention"][0]
+        check(all(np.isfinite(x) for x in losses + gnorms)
+              and all(x > 0 for x in gnorms),
+              f"lm_families_train {name}: losses {losses}, gnorms {gnorms}")
+        check(all(p == 0 for _, p in counts.values()),
+              f"lm_families_train {name}: plain versions served calls: "
+              f"{counts}")
+        check(counts["fused_adamw"][0] == len(tensors) * steps,
+              f"lm_families_train {name}: fused_adamw launched "
+              f"{counts['fused_adamw'][0]} times in {steps} steps, the "
+              f"model has {len(tensors)} tensors")
+        check(n_fa == fwd * steps and backward == bwd * steps,
+              f"lm_families_train {name}: flash_attention {n_fa} launches "
+              f"(want {fwd * steps}), {backward} backward calls (want "
+              f"{bwd * steps})")
+        check(sm90 == n_fa,
+              f"lm_families_train {name}: {n_fa - sm90} of {n_fa} bf16 "
+              f"flash_attention launches missed the Hopper route")
+        moved = sum(not torch.equal(before[k], _bits_digest(torch, t))
+                    for k, t in params.items())
+        check(moved > 0, f"lm_families_train {name}: no parameter moved")
+        del params, before
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens = b * seq
+        flops = _family_train_flops(cfg, model, b, seq)
+        step_ms = [x * 1e3 for x in step_s]
+        best = min(step_ms)
+        log(f"lm_families_train {name}: losses {losses} gnorms {gnorms}; "
+            f"{moved} of {len(tensors)} parameter tensors changed")
+
+        # two runs of the first step from one state: bitwise equal; the
+        # second's step alone profiled
+        seen = []
+
+        def first_step(profiled: bool):
+            params = _family_weights(torch, model, cfg, seed, dev)
+            opt = adamw_init(params)
+            out = []
+
+            def step():
+                out.append(step_fn(params, opt, batches[0]))
+
+            if profiled:
+                busy_top = _device_profile(torch, step, top=8)
+            else:
+                step()
+            params, opt, m = out[0]
+            seen.append((float(m["loss"]), float(m["gnorm"]),
+                         _state_digest(torch, params, opt)))
+            return busy_top if profiled else None
+
+        first_step(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        busy, top = first_step(True)
+        (la, ga, da), (lb, gb, db) = seen
+        check(la == lb and ga == gb
+              and all(torch.equal(da[k], db[k]) for k in da),
+              f"lm_families_train {name}: two runs of the first step "
+              f"differ: losses {la}/{lb}, gnorms {ga}/{gb}, "
+              f"{sum(not torch.equal(da[k], db[k]) for k in da)} digests")
+        check(la == losses[0] and ga == gnorms[0],
+              f"lm_families_train {name}: the first step's rerun differs "
+              f"from the run's ({la}/{losses[0]}, {ga}/{gnorms[0]})")
+        del seen, da, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        mfu = flops / (best * 1e-3) / BF16_PEAK
+        log(f"lm_families_train {name}: the first step run twice from one "
+            f"state bitwise equal (loss, gnorm, {len(tensors)} parameters "
+            f"and their moments)")
+        log(f"lm_families_train {name}: step_ms "
+            f"{[round(x, 3) for x in step_ms]} (best {best:.3f}), tokens/s "
+            f"{tokens / best * 1e3:.1f}, model FLOP utilisation {mfu:.4f} "
+            f"({flops:.4e} FLOPs a step over 989 TFLOP/s bf16 dense; SSM "
+            f"scans left out); launches a step: fused_adamw "
+            f"{counts['fused_adamw'][0] // steps}, flash_attention "
+            f"{n_fa // steps} (sm90 route {sm90 // steps}), attention "
+            f"backward {backward // steps}; peak memory "
+            f"{peak / 1e9:.3f} GB; wall {wall:.3f} s")
+        log(f"lm_families_train {name} profile: the first step device-busy "
+            f"{busy:.3f} ms against the best unprofiled step's {best:.3f} "
+            f"ms wall (idle share {1 - busy / best:.3f}); top: {top}")
+        del batches
+        f32 = _f32_family_copy(torch, cfg, f32_cut, f32_steps, seed, dev,
+                               launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append(dict({
+            "arch": name, "family": cfg.family, "layers": cfg.n_layers,
+            "cut": cut, "params": n_params, "active_params": n_active,
+            "tensors": len(tensors), "state_bytes": state, "batch": b,
+            "seq": seq, "steps": steps, "step_ms": step_ms,
+            "best_step_ms": best, "tokens_per_s": tokens / best * 1e3,
+            "mfu": mfu, "flops_per_step": flops, "peak_memory_bytes": peak,
+            "idle_share": 1 - busy / best, "step_device_busy_ms": busy,
+            "step_top": top, "losses": losses, "gnorms": gnorms,
+            "flash_attention_per_step": n_fa // steps,
+            "backward_per_step": backward // steps,
+            "fused_adamw_per_step": counts["fused_adamw"][0] // steps,
+        }, **f32))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4446,6 +4891,11 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.cuda.empty_cache()
     families = phase_lm_families(torch, sizes, seed, mp.launches)
     elapsed("phase_lm_families", t_all)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_train = phase_lm_families_train(torch, sizes, seed,
+                                             mp.launches)
+    elapsed("phase_lm_families_train", t_all)
     for name, n in mp.launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     kernels = hold_kernels(torch, sizes, seed, mp.launches, mp.tuned)
@@ -4471,7 +4921,8 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.cuda.empty_cache()
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "lm_train": lm_train, "lm_families": families, "gate": gate,
+            "lm_train": lm_train, "lm_families": families,
+            "lm_families_train": families_train, "gate": gate,
             "pipeline": pipeline,
             "serve": serve,
             "total_s": time.perf_counter() - t_all}

@@ -9,10 +9,16 @@ the straggler monitor.
 runs on the CUDA card (``--device cpu`` asks for the CPU): every
 attention forward through the hand-written flash-attention kernel, and
 every optimizer step through the hand-written fused-AdamW kernel, one
-launch per parameter tensor.  Batches come from ``TokenPipeline``, which
-yields the reference's tokens for the same seed; the weights are drawn
-from a ``torch.Generator`` seeded with ``seed`` (the reference's
-distributions, not its bits) unless ``params`` are given.  The
+launch per parameter tensor.  Every family trains (``--arch zamba2-1.2b``
+and the other registered configs).  ``train`` draws its batches from
+``TokenPipeline``, which yields the reference's tokens for the same seed
+and nothing else, so it refuses the encoder-decoder and vision families,
+whose loss also needs ``frames`` or ``images``, with a ``ValueError``
+before the first step (the reference fails on the missing key inside its
+loss); ``build_train_step`` trains them on batches that carry the key.
+The weights are drawn from a ``torch.Generator`` seeded with ``seed``
+(the reference's distributions, not its bits) unless ``params`` are
+given.  The
 reference's mesh (data and tensor parallelism, ZeRO-1 moments) is the
 distributed slice's: ``dp`` or ``tp`` above 1 raises.
 """
@@ -30,10 +36,12 @@ from ..data import TokenPipeline
 from ..device import default_device, set_default_device
 from ..distributed.straggler import StepMonitor
 from ..models import build_model
-from ..models.api import check_trained
 from ..optim import adamw_init, adamw_update_tree, clip_by_global_norm
 from ..optim.schedule import cosine_warmup
 from .serve import _sync
+
+#: the batch keys a family's loss needs beyond tokens and labels
+BATCH_KEYS = {"encdec": "frames", "vlm": "images"}
 
 
 def build_train_step(model, *, accum: int = 1, peak_lr: float = 3e-4,
@@ -46,7 +54,8 @@ def build_train_step(model, *, accum: int = 1, peak_lr: float = 3e-4,
     its first axis and their gradients summed in f32, then divided by
     ``accum``; the loss is the micro-batches' mean.  The gradients are
     clipped to ``max_grad_norm``, and AdamW runs at the cosine-warmup lr
-    of ``opt["step"]``.  params and opt are updated in place; metrics are
+    of ``opt["step"]``.  Every key of the batch is cut (``frames`` and
+    ``images`` too).  params and opt are updated in place; metrics are
     0-dim f32 tensors (loss and gnorm on the device, lr on the CPU)."""
 
     def lr_fn(step):
@@ -106,7 +115,13 @@ def train(arch: Union[str, ModelConfig], *, smoke: bool = True,
     dev = default_device()
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch,
                                                                 smoke=smoke)
-    check_trained(cfg)
+    need = BATCH_KEYS.get(cfg.family)
+    if need is not None:
+        raise ValueError(
+            f"train() draws its batches from TokenPipeline, which yields "
+            f"tokens and labels only; the {cfg.family!r} family's loss also "
+            f"needs {need!r} (the reference fails on the missing key inside "
+            f"its loss): drive build_train_step with batches that carry it")
     model = build_model(cfg)
     step_fn = build_train_step(model, accum=accum, peak_lr=peak_lr,
                                total_steps=steps)

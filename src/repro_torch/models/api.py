@@ -4,7 +4,7 @@ package's ``models/api.py``):
     model = build_model(cfg)
     params = model.init(gen)                  # or convert.params_from_jax
     loss = model.loss_fn(params, batch)
-    loss, grads = model.loss_and_grad(params, batch)   # the dense family
+    loss, grads = model.loss_and_grad(params, batch)
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
@@ -20,7 +20,9 @@ entry of the bound dict is replaced; an update in place
 (``params[name].copy_(...)``) is seen as it is.  ``loss_and_grad`` runs
 the module on the caller's tensors instead (``torch.func.functional_call``),
 so that the gradient reaches them; it leaves the bound dict as it was.
-Only the dense family trains (:data:`TRAINED`).
+Every family trains; a parameter the loss does not reach gets a zero
+gradient, as ``jax.value_and_grad`` gives it (an xLSTM cut to fewer
+layers than ``slstm_every`` draws an sLSTM parameter set it never runs).
 """
 from __future__ import annotations
 
@@ -37,9 +39,6 @@ from .transformer import DenseLM
 from .vlm import VisionLM
 from .xlstm import XLSTMLM
 
-#: the families whose training is ported (``loss_and_grad``, ``launch.train``)
-TRAINED = ("dense",)
-
 
 def build_model(cfg: ModelConfig) -> "Model":
     fam = cfg.family
@@ -54,15 +53,6 @@ def build_model(cfg: ModelConfig) -> "Model":
     if fam == "vlm":
         return Model(cfg, VisionLM(cfg))
     raise ValueError(f"unknown family {fam}")
-
-
-def check_trained(cfg: ModelConfig) -> None:
-    """Raise unless the config's family trains on the port."""
-    if cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (ROADMAP, "
-            f"queue A item 8: training on the new families); it serves "
-            f"(prefill, decode_step) and computes loss_fn")
 
 
 class Model:
@@ -97,9 +87,8 @@ class Model:
         """(loss, grads): the training loss and its gradient, a dict named
         like ``params`` with each gradient in its parameter's dtype (the
         reference's ``jax.value_and_grad(model.loss_fn)``).  ``params`` are
-        not changed and need not require grad.  The dense family only
-        (:func:`check_trained`)."""
-        check_trained(self.cfg)
+        not changed and need not require grad.  A parameter the loss does
+        not reach gets a zero gradient."""
         names = list(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with torch.enable_grad():

@@ -12,7 +12,11 @@ Skv the frames, either longer) — runs through ``ops.attention``, the
 flash-attention kernel on a CUDA tensor.  Decode keeps the reference's
 cache, ``{"self_k", "self_v", "cross_k", "cross_v"}``, each (L, B, S,
 Hkv, hd): the self entries written in place at ``pos``, the cross ones
-(the encoder's k and v from the prefill) read as they are.
+(the encoder's k and v from the prefill) read as they are.  Training
+differentiates ``loss_fn`` (the kernel's forward, the plain version's
+backward), each encoder and decoder layer checkpointed under
+``cfg.remat``; the learned positions get gradients on their first T rows
+only.
 """
 from __future__ import annotations
 
@@ -101,29 +105,35 @@ class EncDecLM(LMBase, L.Initialised):
         x = x + sinusoid(x.shape[1], self.cfg.d_model,
                          x.device).to(x.dtype)[None]
         for blk in self.enc_layers:
-            x = blk(x)
+            x = self._layer(blk, x)
         return self.enc_norm(x)
 
     def _dec_embed(self, tokens, pos0: int = 0):
         x = self._embed(tokens)
         return x + self.pos[pos0:pos0 + tokens.shape[1]].to(x.dtype)[None]
 
-    def _decoder(self, batch):
+    def _decoder(self, batch, keep_cache: bool):
+        """(x, (self (k, v), cross (k, v)) by layer), the caches empty
+        unless ``keep_cache``.  Each encoder layer and each decoder layer
+        runs under :meth:`_layer`, as the reference checkpoints both
+        scans' bodies (a decoder layer's recompute reads the encoder's
+        output, which it keeps)."""
         enc = self.encode(batch["frames"])
         x = self._dec_embed(batch["tokens"])
         caches = []
         for blk in self.dec_layers:
-            x, self_kv, cross_kv = blk.apply(x, enc)
-            caches.append((self_kv, cross_kv))
+            x, self_kv, cross_kv = self._layer(blk.apply, x, enc)
+            if keep_cache:
+                caches.append((self_kv, cross_kv))
         return self.dec_norm(x), caches
 
     def loss_fn(self, batch) -> torch.Tensor:
-        x, _ = self._decoder(batch)
+        x, _ = self._decoder(batch, False)
         return xent_loss(self.embed.unembed(x), batch["labels"])
 
     def prefill(self, batch):
         act = self.cfg.act_dtype
-        x, caches = self._decoder(batch)
+        x, caches = self._decoder(batch, True)
         logits = self.embed.unembed(x[:, -1:, :])
         cache = {}
         for name, part, i in (("self_k", 0, 0), ("self_v", 0, 1),

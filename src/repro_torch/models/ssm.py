@@ -234,24 +234,29 @@ class Zamba2LM(LMBase):
         return [(lo, min(every, self.cfg.n_layers - lo))
                 for lo in range(0, self.cfg.n_layers, every)]
 
-    def _forward(self, x):
-        """(x, ssm caches by layer, attention (k, v) by group)."""
+    def _forward(self, x, keep_cache: bool):
+        """(x, ssm caches by layer, attention (k, v) by group), the caches
+        empty unless ``keep_cache``.  Each Mamba2 block runs under
+        :meth:`_layer` and the shared attention block does not, as the
+        reference checkpoints its scan bodies and not the shared block."""
         ssm, attn = [], []
         for lo, size in self.groups():
             for blk in self.mamba_layers[lo:lo + size]:
-                x, c = blk.apply(x)
-                ssm.append(c)
+                x, c = self._layer(blk.apply, x)
+                if keep_cache:
+                    ssm.append(c)
             x, kv = self.shared_attn.apply(x)
-            attn.append(kv)
+            if keep_cache:
+                attn.append(kv)
         return self.final_norm(x), ssm, attn
 
     def loss_fn(self, batch) -> torch.Tensor:
-        x, _, _ = self._forward(self._embed(batch["tokens"]))
+        x, _, _ = self._forward(self._embed(batch["tokens"]), False)
         return xent_loss(self.embed.unembed(x), batch["labels"])
 
     def prefill(self, batch):
         act = self.cfg.act_dtype
-        x, ssm, attn = self._forward(self._embed(batch["tokens"]))
+        x, ssm, attn = self._forward(self._embed(batch["tokens"]), True)
         logits = self.embed.unembed(x[:, -1:, :])
         cache = {
             "ssm": {n: torch.stack([c[n] for c in ssm])

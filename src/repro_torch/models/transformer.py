@@ -4,16 +4,18 @@ dbrx: ``family == "moe"``, the first ``first_k_dense`` layers dense, the
 rest MoE), and the entry points of serving: prefill, decode_step and the
 cache; ``loss_fn`` runs the forward pass — the port of the JAX package's
 ``models/transformer.py``.  Also hosts what every family shares
-(:class:`LMBase`: parameter drawing, specs, the cache tree).
+(:class:`LMBase`: parameter drawing, specs, the cache tree, and
+``forward``, the loss and its gradient that training takes).
 
 The reference scans a layer-stacked parameter tree; here each layer is a
 ``Block`` of its own in ``dense_layers`` (and ``moe_layers``) and the
 scan is a Python loop.
-Training differentiates ``loss_fn`` (``forward``); with
+Training differentiates ``loss_fn`` (``forward``, every family's); with
 ``cfg.remat`` each layer of it runs under ``torch.utils.checkpoint``
 (non-reentrant), which keeps only the layer's input and recomputes the
 rest in the backward pass — the reference's ``jax.checkpoint`` of each
-layer body.  Parameter names follow
+layer body (each family checkpoints where its reference does).
+Parameter names follow
 the reference's tree paths with the layer index put in:
 ``dense_layers.<i>.attn.wq`` is layer i of ``dense_layers/attn/wq``.  The
 KV cache keeps the reference's layout, ``{"dense": {"k", "v"}}`` (and
@@ -79,6 +81,27 @@ class LMBase(nn.Module):
 
     def _embed(self, tokens):
         return self.embed.embed(tokens).to(self.cfg.act_dtype)
+
+    def _remat(self) -> bool:
+        """Whether ``loss_fn`` checkpoints: ``cfg.remat`` under autograd."""
+        return self.cfg.remat and torch.is_grad_enabled()
+
+    def _layer(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+        when :meth:`_remat`: the layer keeps only its inputs and recomputes
+        the rest in the backward pass."""
+        if self._remat():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def forward(self, batch, wrt: Sequence[torch.Tensor]):
+        """(loss, grads): the training loss and its gradient with respect
+        to ``wrt``, taken while they are bound (so that a checkpointed
+        layer's recompute reads them too).  A tensor the loss does not
+        reach gets zeros, as ``jax.value_and_grad`` gives it."""
+        loss = self.loss_fn(batch)
+        return loss, torch.autograd.grad(loss, wrt, allow_unused=True,
+                                         materialize_grads=True)
 
     def cache_init(self, batch: int, max_seq: int, device=None):
         return zeros_of(self.cache_spec(batch, max_seq), device)
@@ -153,50 +176,38 @@ class DenseLM(LMBase):
 
     # -- entry points -----------------------------------------------------------
 
+    def _forward(self, x, keep_cache: bool):
+        """(x after the final norm, the cache, the layers' summed MoE
+        load-balance loss); each layer under :meth:`_layer`, the cache
+        ``{}`` unless ``keep_cache``."""
+        act = self.cfg.act_dtype
+        cache, aux = {}, 0.0
+        for key, blocks in self._stacks():
+            ks, vs = [], []
+            for blk in blocks:
+                x, (k, v), a = self._layer(blk.apply, x)
+                aux = aux + a
+                if keep_cache:
+                    ks.append(k.to(act))
+                    vs.append(v.to(act))
+            if keep_cache:
+                cache[key] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return self.final_norm(x), cache, aux
+
     def loss_fn(self, batch) -> torch.Tensor:
         """Mean next-token cross-entropy; for MoE plus 0.01 times the
         layers' load-balance losses over n_layers, as the reference's."""
-        x = self._embed(batch["tokens"])
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        aux = 0.0
-        for _, blocks in self._stacks():
-            for blk in blocks:
-                if remat:   # keeps (out, aux), drops the layer's k and v
-                    x, a = checkpoint(
-                        lambda h, blk=blk: blk.apply(h)[::2], x,
-                        use_reentrant=False)
-                else:
-                    x, _, a = blk.apply(x)
-                aux = aux + a
-        logits = self.embed.unembed(self.final_norm(x))
-        loss = xent_loss(logits, batch["labels"])
+        x, _, aux = self._forward(self._embed(batch["tokens"]), False)
+        loss = xent_loss(self.embed.unembed(x), batch["labels"])
         if self.is_moe:
             loss = loss + 0.01 * aux / self.cfg.n_layers
         return loss
 
-    def forward(self, batch, wrt: Sequence[torch.Tensor]):
-        """(loss, grads): the training loss and its gradient with respect
-        to ``wrt``, taken while they are bound (so that a checkpointed
-        layer's recompute reads them too)."""
-        loss = self.loss_fn(batch)
-        return loss, torch.autograd.grad(loss, wrt)
-
     def prefill(self, batch):
         """Logits of the last position (B, 1, V) f32 and the prompt's cache
         (each (L, B, T, Hkv, hd) in the activation dtype)."""
-        act = self.cfg.act_dtype
-        x = self._embed(batch["tokens"])
-        cache = {}
-        for key, blocks in self._stacks():
-            ks, vs = [], []
-            for blk in blocks:
-                x, (k, v) = blk.prefill(x)
-                ks.append(k.to(act))
-                vs.append(v.to(act))
-            cache[key] = {"k": torch.stack(ks), "v": torch.stack(vs)}
-        x = self.final_norm(x)
-        logits = self.embed.unembed(x[:, -1:, :])
-        return logits, cache
+        x, cache, _ = self._forward(self._embed(batch["tokens"]), True)
+        return self.embed.unembed(x[:, -1:, :]), cache
 
     def decode_step(self, cache, tokens, pos: int):
         """tokens: (B, 1) current token; pos: its position.  Writes the

@@ -14,7 +14,11 @@ Skv the image tokens — a prompt longer than the image (Sq > Skv) is
 allowed — through ``ops.attention``, the flash-attention kernel on a
 CUDA tensor.  Cache: ``{"self": {"k", "v"}}`` (n_super,
 cross_attn_every - 1, B, S, Hkv, hd) and ``{"cross": {"k", "v"}}``
-(n_super, B, n_image_tokens, Hkv, hd).
+(n_super, B, n_image_tokens, Hkv, hd).  Training differentiates
+``loss_fn``, its checkpoints nested as the reference's under
+``cfg.remat``.  The reference draws every ``gate`` at 0, where each
+cross-attention weight's gradient is exactly 0; its tests and the card's
+run set the gates away from 0.
 """
 from __future__ import annotations
 
@@ -76,28 +80,41 @@ class VisionLM(LMBase, L.Initialised):
         act = self.cfg.act_dtype
         return torch.matmul(images.to(act), self.img_proj.to(act))
 
-    def _forward(self, batch):
-        """(x, self (k, v) by super-block and layer, cross (k, v))."""
+    def _super_block(self, x, img, blocks, cross, keep_cache: bool):
+        """(x, self (k, v) by layer, cross (k, v)) of one super-block: its
+        self blocks, each under :meth:`_layer`, then the cross block."""
+        kvs = []
+        for blk in blocks:
+            x, kv = self._layer(blk.prefill, x)
+            if keep_cache:
+                kvs.append(kv)
+        x, ckv = cross.apply(x, img)
+        return x, kvs, ckv
+
+    def _forward(self, batch, keep_cache: bool):
+        """(x, self (k, v) by super-block and layer, cross (k, v)), the
+        caches empty unless ``keep_cache``.  The checkpoints nest as the
+        reference's: each super-block under :meth:`_layer`, and inside it
+        each self block under one of its own (the cross block only under
+        the super-block's)."""
         x = self._embed(batch["tokens"])
         img = self._img_tokens(batch["images"])
         selfs, crosses = [], []
         for blocks, cross in zip(self.self_layers, self.cross_layers):
-            kvs = []
-            for blk in blocks:
-                x, kv = blk.prefill(x)
-                kvs.append(kv)
-            x, ckv = cross.apply(x, img)
-            selfs.append(kvs)
-            crosses.append(ckv)
+            x, kvs, ckv = self._layer(self._super_block, x, img, blocks,
+                                      cross, keep_cache)
+            if keep_cache:
+                selfs.append(kvs)
+                crosses.append(ckv)
         return self.final_norm(x), selfs, crosses
 
     def loss_fn(self, batch) -> torch.Tensor:
-        x, _, _ = self._forward(batch)
+        x, _, _ = self._forward(batch, False)
         return xent_loss(self.embed.unembed(x), batch["labels"])
 
     def prefill(self, batch):
         act = self.cfg.act_dtype
-        x, selfs, crosses = self._forward(batch)
+        x, selfs, crosses = self._forward(batch, True)
         logits = self.embed.unembed(x[:, -1:, :])
         cache = {
             "self": {n: torch.stack([torch.stack([kv[i].to(act)

@@ -9,7 +9,10 @@ before the exp), and the normaliser folded in as an extra value column
 (v' = [v, 1]), so h = num / max(|den|, 1) comes out of one recurrence.
 The sLSTM's time scan (the reference's ``lax.scan``) is a Python loop over
 T.  Decode carries the mLSTM state (B, hd, H, hd + 1) f32 and the sLSTM's
-c, n (f32) and h, updated in the cache in place.  The family runs no TPU
+c, n (f32) and h, updated in the cache in place.  Training differentiates
+``loss_fn``: the sLSTM's time loop runs under autograd, one small step a
+position; under ``cfg.remat`` each mLSTM block is checkpointed and the
+sLSTM blocks are not, as the reference's.  The family runs no TPU
 kernel.
 """
 from __future__ import annotations
@@ -195,23 +198,29 @@ class XLSTMLM(LMBase):
                 mi += 1
         return out
 
-    def _forward(self, x):
+    def _forward(self, x, keep_cache: bool):
+        """(x, mLSTM caches, sLSTM caches), the caches empty unless
+        ``keep_cache``.  Each mLSTM block runs under :meth:`_layer` and
+        the sLSTM blocks do not, as the reference checkpoints its mLSTM
+        scan bodies only."""
         cm, cs = [], []
         for kind, j in self._order():
             if kind == "m":
-                x, c = self.mlstm_layers[j].apply(x)
-                cm.append(c)
+                x, c = self._layer(self.mlstm_layers[j].apply, x)
+                if keep_cache:
+                    cm.append(c)
             else:
                 x, c = self.slstm_layers[j].apply(x)
-                cs.append(c)
+                if keep_cache:
+                    cs.append(c)
         return self.final_norm(x), cm, cs
 
     def loss_fn(self, batch) -> torch.Tensor:
-        x, _, _ = self._forward(self._embed(batch["tokens"]))
+        x, _, _ = self._forward(self._embed(batch["tokens"]), False)
         return xent_loss(self.embed.unembed(x), batch["labels"])
 
     def prefill(self, batch):
-        x, cm, cs = self._forward(self._embed(batch["tokens"]))
+        x, cm, cs = self._forward(self._embed(batch["tokens"]), True)
         logits = self.embed.unembed(x[:, -1:, :])
         cache = {"mlstm": {"state": torch.stack([c["state"] for c in cm])}}
         if cs:

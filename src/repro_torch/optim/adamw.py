@@ -65,6 +65,27 @@ def adamw_update_tree(params: Dict[str, torch.Tensor],
     return params, {"m": state["m"], "v": state["v"], "step": step}
 
 
+#: the largest |m^ / sqrt(v^)| of AdamW's second step at b1 0.9, b2 0.999
+#: (Cauchy-Schwarz over the two steps' gradients)
+T2_BOUND = 1.0013
+
+
+def second_step_limit(p, v, lr: float, c2: float, grad_rel: float):
+    """The per-element limit of |p_a - p_b| between two runs of two AdamW
+    steps from the same parameters, the first at lr 0 (so that both start
+    the second from the same parameters), whose gradients differ by at most
+    ``grad_rel`` of a leaf's scale; ``p`` and ``v`` of one run, ``lr`` and
+    the bias correction ``c2`` of the second step.  The step's update
+    lr m^ / (sqrt(v^) + eps) is homogeneous of degree 0 in the gradients:
+    such an error moves it by at most about 2 grad_rel s / sqrt(v^) of lr,
+    s the leaf's largest sqrt(v^), and never by more than T2_BOUND lr
+    either way; plus 2**-22 |p|, two f32 roundings of p."""
+    rms = torch.sqrt(v / c2)
+    step = torch.clamp(2 * grad_rel * float(rms.max()) / (rms + 1e-8),
+                       max=2 * T2_BOUND)
+    return lr * step + 2.0 ** -22 * p.abs()
+
+
 # ---------------------------------------------------------------------------
 # Weld-expressed AdamW (the paper-native form)
 # ---------------------------------------------------------------------------

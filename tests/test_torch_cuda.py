@@ -14,8 +14,10 @@ version on the same CUDA tensors; the LM's ``flash_attention`` against
 {64, 128} counted on the Hopper route, ``.launches_sm90``, the rest on
 v1); and the training path: ``fused_adamw`` against
 ``ref.adamw_update`` for every p/g dtype pair, the attention's gradient
-through ``FlashAttention`` against plain autograd, and two ``train``
-steps of a smoke config on the card against the same on the CPU.
+through ``FlashAttention`` against plain autograd (causal, and without
+the mask at Sq below and past Skv), two ``train`` steps of a smoke
+config on the card against the same on the CPU, and one
+``build_train_step`` step of each other family's smoke config.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -1084,6 +1086,128 @@ def test_train_steps_on_the_card_match_the_cpu(gpu):
     for name, p in on_cpu["params"].items():
         torch.testing.assert_close(on_card["params"][name].cpu(), p,
                                    rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("sq,skv", [(96, 200), (300, 128)])
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_attention_gradient_without_the_mask_at_sq_unlike_skv(dtype, sq,
+                                                              skv, gpu):
+    """The cross-attentions' case under autograd: non-causal, Sq below and
+    past Skv, the kernel's forward and the plain version's backward."""
+    b, h, group, d = 2, 4, 2, 64
+    q, k, v = _qkv(gpu, dtype, b, h, group, sq, skv, d, seed=sq + skv)
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(33)
+    w = torch.randn((b, h, sq, d), generator=gen, device=gpu).to(dtype)
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_() for x in (q, k, v)]
+        (fn(*ins).float() * w.float()).sum().backward()
+        return [x.grad for x in ins]
+
+    t_ops.reset_counts()
+    got = grads(lambda *x: t_ops.attention(*x, causal=False, group=group,
+                                           chunk=64))
+    torch.cuda.synchronize()
+    assert t_ops.counts()["flash_attention"] == (1, 0)
+    assert t_fa.flash_attention.backward_calls == 1
+    assert t_fa.flash_attention.launches_sm90 == (dtype == torch.bfloat16)
+    same = grads(lambda *x: t_ref.chunked_attention(
+        *x, causal=False, group=group, chunk=64))
+    dense = grads(lambda *x: t_ref.attention(*x, causal=False, group=group))
+    for a, b_, c in zip(got, same, dense):
+        assert a.dtype == dtype
+        assert torch.equal(a, b_)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+        else:
+            scale = float(c.float().abs().max())
+            assert float((a.float() - c.float()).abs().max()) \
+                <= 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("arch", ("deepseek-moe-16b", "dbrx-132b",
+                                  "zamba2-1.2b", "xlstm-350m",
+                                  "whisper-large-v3",
+                                  "llama-3.2-vision-90b"))
+def test_family_train_step_on_the_card_matches_the_cpu(arch, gpu):
+    """Two ``build_train_step`` steps of each family's smoke config in f32,
+    remat on, from one set of weights and two batches (the vision gates
+    set away from the reference's 0), warmup 1: the first step at lr 0, so
+    that both devices start the second, at the peak lr, from the same
+    parameters.  The losses to rtol 1e-5, the gnorms and m to 1e-4 (v, the
+    gradients squared, to 2e-4) of the largest |value|, and the parameters
+    within ``optim.adamw.second_step_limit`` of that gradient error, the
+    limits of ``chip_smoke.py``'s f32 copies; flash_attention's launches
+    and backward calls the remat structure's
+    (``kernels.launch_counts.attention_calls``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.launch_counts import attention_calls
+    from repro_torch.kernels.ref import adamw_scalars
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import second_step_limit
+
+    grad_rel = 1e-4
+    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=True)
+    model = build_model(cfg)
+    weights = model.init(torch.Generator().manual_seed(5))
+    for name in weights:
+        if name.endswith(".gate"):
+            weights[name].fill_(0.5)
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(2):
+        batch = {k: rng.randint(0, cfg.vocab, (2, 32)).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.randn(2, cfg.n_frames,
+                                        cfg.d_model).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["images"] = rng.randn(2, cfg.n_image_tokens,
+                                        cfg.d_vision).astype(np.float32)
+        batches.append(batch)
+    step = build_train_step(model, warmup=1)
+
+    def run(dev):
+        params = {k: v.to(dev, copy=True) for k, v in weights.items()}
+        opt = adamw_init(params)
+        metrics = []
+        for batch in batches:
+            params, opt, m = step(params, opt, {
+                k: torch.from_numpy(x).to(dev) for k, x in batch.items()})
+            metrics.append({k: float(x) for k, x in m.items()})
+        return params, opt, metrics
+
+    p_cpu, o_cpu, m_cpu = run(torch.device("cpu"))
+    t_ops.reset_counts()
+    p_card, o_card, m_card = run(gpu)
+    torch.cuda.synchronize()
+    counts = t_ops.counts()
+    fwd, bwd = attention_calls(cfg, training=True)
+    assert counts["fused_adamw"] == (2 * len(weights), 0)
+    assert counts["flash_attention"] == (2 * fwd, 0)
+    assert t_fa.flash_attention.backward_calls == 2 * bwd
+    lrs = [m["lr"] for m in m_cpu]
+    assert lrs == [m["lr"] for m in m_card] and lrs[0] == 0 < lrs[1]
+    for key, rtol in (("loss", 1e-5), ("gnorm", grad_rel)):
+        np.testing.assert_allclose([m[key] for m in m_card],
+                                   [m[key] for m in m_cpu], rtol=rtol)
+    lr, _, _, _, c2 = adamw_scalars(lrs[1], 2, 0.9, 0.999)
+    for name, p in p_cpu.items():
+        for mom, rel in (("m", grad_rel), ("v", 2 * grad_rel)):
+            want = o_cpu[mom][name]
+            err = float((o_card[mom][name].cpu() - want).abs().max())
+            assert err <= rel * float(want.abs().max()), (name, mom)
+        limit = second_step_limit(p, o_cpu["v"][name], lr, c2, grad_rel)
+        diff = (p_card[name].cpu() - p).abs()
+        assert bool((diff <= limit).all()), (
+            name, float((diff / limit).max()))
+    assert any(not torch.equal(p_card[k].cpu(), w) for k, w in
+               weights.items()), "the second step moved no parameter"
 
 
 # ---------------------------------------------------------------------------

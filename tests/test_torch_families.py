@@ -18,8 +18,8 @@
 * Decode against prefill, teacher-forced, within the port.
 * ``list_configs`` equals the reference's; ``param_specs`` names every
   parameter with the reference's axes (less the stack axes);
-  ``active_param_count`` equals the reference's; ``train`` refuses the
-  families it does not train.
+  ``active_param_count`` equals the reference's.  (Their training is
+  held in ``test_torch_family_train.py``.)
 
 Inputs come from numpy seeds; JAX inputs carry explicit dtypes.
 """
@@ -41,7 +41,6 @@ from repro.models import build_model as r_build_model
 from repro.models import moe as r_moe
 from repro_torch.configs import get_config, list_configs
 from repro_torch.launch import serve as t_serve
-from repro_torch.launch import train as t_train
 from repro_torch.models import build_model
 from repro_torch.models import moe as t_moe
 from repro_torch.models.convert import params_from_jax
@@ -49,7 +48,7 @@ from repro_torch.models.convert import params_from_jax
 FAMILIES = ("deepseek-moe-16b", "dbrx-132b", "zamba2-1.2b", "xlstm-350m",
             "whisper-large-v3", "llama-3.2-vision-90b", "weld-bench")
 MOE = ("deepseek-moe-16b", "dbrx-132b")
-UNTRAINED = ("deepseek-moe-16b", "dbrx-132b", "zamba2-1.2b", "xlstm-350m",
+NEW_FAMILIES = ("deepseek-moe-16b", "dbrx-132b", "zamba2-1.2b", "xlstm-350m",
              "whisper-large-v3", "llama-3.2-vision-90b")
 #: of the largest |value| of what is compared
 REL = 1e-5
@@ -289,7 +288,7 @@ def test_moe_prefill_is_bitwise_repeatable(arch):
 # -- serving ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", UNTRAINED)
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_serve_tokens_equal_the_reference(arch):
     seed, batch, prompt, gen_len = 5, 2, 16, 6
     want = r_serve.serve(arch, smoke=True, batch=batch, prompt_len=prompt,
@@ -306,7 +305,7 @@ def test_serve_tokens_equal_the_reference(arch):
     assert bool(torch.isfinite(got["logits"]).all())
 
 
-@pytest.mark.parametrize("arch", UNTRAINED)
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
 def test_decode_matches_prefill(arch):
     """Teacher-forced decode after a prefill of half the prompt
     reproduces the prefill of the whole prompt (f32: 1e-4 of the largest
@@ -408,18 +407,6 @@ def test_active_param_count_equals_the_reference(arch):
         r_model = r_build_model(r_get_config(arch, smoke=smoke))
         assert model.param_count() == r_model.param_count()
         assert model.active_param_count() == r_model.active_param_count()
-
-
-@pytest.mark.parametrize("arch", UNTRAINED)
-def test_train_refuses_the_untrained_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.train(arch, steps=1, global_batch=2, seq_len=16,
-                      verbose=False)
-    cfg = get_config(arch, smoke=True)
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="training on the new"):
-        model.loss_and_grad(model.init(torch.Generator().manual_seed(0)),
-                            {})
 
 
 def test_params_from_jax_takes_a_doubly_stacked_tree():

@@ -45,11 +45,10 @@ from repro.kernels import ref as r_ref
 from repro.launch import serve as r_serve
 from repro.models import build_model as r_build_model
 from repro_torch import DeviceUnavailableError
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as t_serve
-from repro_torch.launch import train as t_train
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 
@@ -465,18 +464,6 @@ def test_model_rebinds_a_replaced_parameter():
     assert torch.equal(replaced, want)
     assert not torch.equal(replaced, doubled)
     assert torch.equal(doubled, want_doubled)
-
-
-def test_only_the_dense_family_trains():
-    """Every registered config builds; ``train`` and ``loss_and_grad``
-    refuse the families whose training is not ported (MoE here)."""
-    assert set(ARCHS) <= set(list_configs())
-    for arch in list_configs():
-        build_model(get_config(arch, smoke=True))
-    moe = get_config("deepseek-moe-16b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_train.train(moe, steps=1, global_batch=2, seq_len=8,
-                      verbose=False)
 
 
 def test_params_from_jax_checks_the_tree():
