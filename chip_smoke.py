@@ -13,7 +13,7 @@ call with a grid cap the tuner chose, and each "auto" decision its
 ``source``), builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` and then
 
-1. runs eighteen phases through the entry points a user calls — TPC-H Q6
+1. runs nineteen phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -72,7 +72,14 @@ call with a grid cap the tuner chose, and each "auto" decision its
    layer's forward and its recompute, losses and gnorms finite, the
    parameters moved; and a 2-layer f32 copy through ``build_train_step``
    on the card against the CPU, bitwise repeatable on the card and
-   bitwise equal across a ``Checkpointer`` save and restore); and the
+   bitwise equal across a ``Checkpointer`` save and restore); the same
+   training again on the data x model mesh (``lm_train_mesh``: an NCCL
+   process group of one rank, ``train(..., dp=1, tp=1)``: DTensor
+   parameters placed by the sharding rules, ZeRO-1 moments,
+   flash_attention on each rank's local heads and fused_adamw on its
+   local shards; losses and gnorms against ``lm_train``'s to rtol 2e-4,
+   atol 2e-5, the same launch counts, and ``compressed_psum`` through
+   the group against the quantizer's formula); and the
    LM stack's other families (``lm_families``: DeepSeek-MoE 16B,
    DBRX 132B cut to 2 of its 40 layers, Zamba2 1.2B, xLSTM 350M,
    Whisper large-v3 over 1,500 frames, Llama 3.2 Vision 90B cut to one
@@ -2904,6 +2911,8 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
         f"{wall:.3f} s")
 
     lrs = out["lrs"]
+    main_losses, main_gnorms = out["losses"], out["gnorms"]
+    fa_counts = (counts["flash_attention"][0], backward, sm90)
     params, opt = out["params"], out["opt"]
     del out
     with torch.no_grad():
@@ -3064,6 +3073,8 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     return {
         "arch": cfg.name, "params": n_params, "tensors": n_tensors,
         "batch": b, "seq": seq, "accum": accum, "steps": steps,
+        "losses": main_losses, "gnorms": main_gnorms,
+        "flash_attention": fa_counts,
         "step_ms": step_ms, "best_step_ms": best,
         "tokens_per_s": tokens / best * 1e3,
         "mfu": flops / (best * 1e-3) / 989e12, "flops_per_step": flops,
@@ -3075,6 +3086,154 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
         "cross_device_loss_rel_err": loss_err,
         "cross_device_limit_shares": worst,
     }
+
+
+# ---------------------------------------------------------------------------
+# lm_train_mesh: the same training on the (1, 1) data x model mesh
+# ---------------------------------------------------------------------------
+
+#: lm_train_mesh against lm_train: the reference test's tolerance for a
+#: (4, 2) mesh against (1, 1)
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5
+
+
+def phase_lm_train_mesh(torch, sizes: Sizes, seed: int, launches: dict,
+                        single: dict, dev="cuda") -> dict:
+    """``lm_train``'s run again through ``train(..., dp=1, tp=1)`` inside
+    an NCCL process group of one rank (a ``file://`` store in a temporary
+    directory), so on the mesh path: DTensor parameters placed by the
+    rules on the (1, 1) mesh over ("data", "model"), ZeRO-1 moments,
+    ``local_map`` into flash_attention, fused_adamw on local shards.
+    Each loss and gnorm against ``single`` (``lm_train``'s), the launch
+    counts against its, every parameter and moment a DTensor over a card
+    tensor with the rules' placements; then ``compressed_psum`` of a
+    card tensor through the group against the quantizer's formula."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lm
+    from repro_torch.models import build_model
+    from repro_torch.optim.compress import (compressed_psum,
+                                            dequantize_int8, quantize_int8)
+
+    dev = torch.device(dev)
+    cfg = get_config(sizes.lm_arch, smoke=sizes.lm_smoke)
+    b, seq, accum, steps = (sizes.train_batch, sizes.train_seq,
+                            sizes.train_accum, sizes.train_steps)
+    n_tensors = len(list(build_model(cfg).impl.parameters()))
+    store = tempfile.mkdtemp(prefix="weld-mesh-")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        out = lm.train(cfg, steps=steps, global_batch=b, seq_len=seq,
+                       accum=accum, seed=seed, dp=1, tp=1, log_every=1,
+                       verbose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = ops.counts()
+        backward = fa.flash_attention.backward_calls
+        sm90 = fa.flash_attention.launches_sm90
+        for name, (n, _) in counts.items():
+            launches[name] += n
+        launches[SM90] += sm90
+        check(all(p == 0 for _, p in counts.values()),
+              f"lm_train_mesh: plain versions served calls: {counts}")
+        check(counts["fused_adamw"][0] == n_tensors * steps,
+              f"lm_train_mesh: fused_adamw launched "
+              f"{counts['fused_adamw'][0]} times in {steps} steps, the "
+              f"model has {n_tensors} tensors")
+        check((counts["flash_attention"][0], backward, sm90)
+              == tuple(single["flash_attention"]),
+              f"lm_train_mesh: flash_attention (launches, backward, sm90) "
+              f"{(counts['flash_attention'][0], backward, sm90)}, lm_train's "
+              f"{tuple(single['flash_attention'])}")
+        check(sm90 == counts["flash_attention"][0],
+              f"lm_train_mesh: {counts['flash_attention'][0] - sm90} bf16 "
+              f"flash_attention launches missed the Hopper route")
+        pairs = list(zip(out["losses"] + out["gnorms"],
+                         single["losses"] + single["gnorms"]))
+        rel = max(abs(a - w) / abs(w) for a, w in pairs)
+        bitwise = all(a == w for a, w in pairs)
+        check(all(abs(a - w) <= MESH_ATOL + MESH_RTOL * abs(w)
+                  for a, w in pairs),
+              f"lm_train_mesh: losses {out['losses']} gnorms "
+              f"{out['gnorms']} against lm_train's {single['losses']} "
+              f"{single['gnorms']}")
+        from torch.distributed.tensor import DTensor
+
+        params, opt = out["params"], out["opt"]
+        mesh = next(iter(params.values())).device_mesh
+        pspecs, mspecs = lm.state_specs(build_model(cfg), mesh)
+        for what, tree, specs in (("parameter", params, pspecs),
+                                  ("m", opt["m"], mspecs),
+                                  ("v", opt["v"], mspecs)):
+            for k, t in tree.items():
+                check(isinstance(t, DTensor)
+                      and t.to_local().device.type == dev.type
+                      and tuple(t.placements)
+                      == sharding.placements(specs[k], mesh),
+                      f"lm_train_mesh: {what} {k} is {type(t).__name__} "
+                      f"{getattr(t, 'placements', None)}, the rules give "
+                      f"{specs[k]}")
+        check(tuple(mesh.mesh.shape) == (1, 1)
+              and mesh.mesh_dim_names == ("data", "model"),
+              f"lm_train_mesh: mesh {mesh}")
+        del params, opt
+        step_ms = [x * 1e3 for x in out["step_s"]]
+        best = min(step_ms)
+        tokens = b * seq
+        log(f"lm_train_mesh: NCCL world 1, mesh (1, 1) over (data, model); "
+            f"losses {out['losses']} gnorms {out['gnorms']}; against "
+            f"lm_train's: max rel diff {rel:.3e} (limit rtol {MESH_RTOL} "
+            f"atol {MESH_ATOL}), bitwise equal {bitwise}")
+        log(f"lm_train_mesh: step_ms {[round(x, 3) for x in step_ms]} "
+            f"(best {best:.3f}; lm_train's best "
+            f"{single['best_step_ms']:.3f}), tokens/s "
+            f"{tokens / best * 1e3:.1f}; launches a step: fused_adamw "
+            f"{counts['fused_adamw'][0] // steps}, flash_attention "
+            f"{counts['flash_attention'][0] // steps} (sm90 "
+            f"{sm90 // steps}), attention backward {backward // steps}; "
+            f"peak memory {peak / 1e9:.3f} GB (lm_train's "
+            f"{single['peak_memory_bytes'] / 1e9:.3f}); wall {wall:.3f} s")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # compressed_psum through the group: at world 1 the mean is the
+        # rank's own dequantized payload, the error its residual
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 4)
+        g = torch.randn((1 << 20,), generator=gen, device=dev,
+                        dtype=torch.float32)
+        err = torch.randn((1 << 20,), generator=gen, device=dev,
+                          dtype=torch.float32) * 1e-3
+        mean, new_err = compressed_psum(g, err, dist.group.WORLD)
+        corrected = g + err
+        q, scale = quantize_int8(corrected)
+        sent = dequantize_int8(q, scale)
+        check(mean.device.type == dev.type and torch.equal(mean, sent / 1)
+              and torch.equal(new_err, corrected - sent),
+              "lm_train_mesh: compressed_psum through NCCL differs from "
+              "the quantizer's formula")
+        log(f"lm_train_mesh: compressed_psum of 1,048,576 f32 through NCCL "
+            f"(world 1): mean and error bitwise equal to the quantizer's "
+            f"formula on the card (scale {float(scale):.6e})")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return {"losses_rel_diff": rel, "bitwise": bitwise, "step_ms": step_ms,
+            "best_step_ms": best, "tokens_per_s": tokens / best * 1e3,
+            "peak_memory_bytes": peak, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -4889,6 +5048,11 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     elapsed("phase_lm_train", t_all)
     gc.collect()
     torch.cuda.empty_cache()
+    lm_train_mesh = phase_lm_train_mesh(torch, sizes, seed, mp.launches,
+                                        lm_train)
+    elapsed("phase_lm_train_mesh", t_all)
+    gc.collect()
+    torch.cuda.empty_cache()
     families = phase_lm_families(torch, sizes, seed, mp.launches)
     elapsed("phase_lm_families", t_all)
     gc.collect()
@@ -4921,7 +5085,8 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     torch.cuda.empty_cache()
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
-            "lm_train": lm_train, "lm_families": families,
+            "lm_train": lm_train, "lm_train_mesh": lm_train_mesh,
+            "lm_families": families,
             "lm_families_train": families_train, "gate": gate,
             "pipeline": pipeline,
             "serve": serve,

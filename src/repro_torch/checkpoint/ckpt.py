@@ -16,6 +16,11 @@ Layout per step:  <dir>/step_<n>/
   * A state tree is nested dicts of tensors.  bf16 (which numpy lacks) is
     stored as its uint16 bits, with "bfloat16" as the dtype in the
     manifest, so a restore gives back the same bits.
+  * **on a mesh** — a DTensor leaf is gathered whole (``full_tensor``, a
+    collective every rank joins on its calling thread) and rank 0 writes;
+    a blocking save ends with a barrier.  ``restore`` reads on every rank
+    and distributes each leaf with the current mesh's placements, so a
+    checkpoint written on one mesh resumes on another (elastic restart).
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..distributed.sharding import distribute
 
 _BF16 = "bfloat16"
 
@@ -50,7 +58,19 @@ def _unflatten(template, leaves: Dict[str, Any], prefix: str = ""):
             for key, val in template.items()}
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _barrier() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    if hasattr(t, "full_tensor"):      # a DTensor: every rank gathers
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), _BF16
@@ -80,6 +100,10 @@ class Checkpointer:
         host = {k: _to_host(torch.as_tensor(v))
                 for k, v in _leaf_paths(state_tree).items()}
         meta = {"step": int(step), "extra": extra or {}}
+        if _rank() != 0:
+            if blocking:
+                _barrier()
+            return
 
         def write():
             try:
@@ -113,6 +137,7 @@ class Checkpointer:
 
         if blocking:
             write()
+            _barrier()
             self._raise_if_failed()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -149,11 +174,14 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: int, template_tree, device=None,
-                verify: bool = True) -> Tuple[Any, Dict]:
+                verify: bool = True, mesh=None,
+                specs: Optional[Mapping] = None) -> Tuple[Any, Dict]:
         """Rebuild ``template_tree``'s structure from disk: each leaf in
         the template leaf's dtype, on ``device`` (default: the template
-        leaf's device, the CPU for a ``meta`` leaf).  Returns (tree,
-        extra with "step")."""
+        leaf's device, the CPU for a ``meta`` leaf).  With a ``mesh``, each
+        leaf whose path ("params/embed.table", "opt/m/...") ``specs`` names
+        is distributed on it, on the mesh's device, with that spec's
+        placements.  Returns (tree, extra with "step")."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -170,6 +198,9 @@ class Checkpointer:
             dev = device if device is not None else (
                 "cpu" if leaf.device.type == "meta" else leaf.device)
             out[key] = t.to(device=dev, dtype=leaf.dtype)
+            if mesh is not None and specs is not None and key in specs:
+                out[key] = distribute({key: out[key].to(mesh.device_type)},
+                                      specs, mesh)[key]
         return (_unflatten(template_tree, out),
                 manifest["extra"] | {"step": manifest["step"]})
 

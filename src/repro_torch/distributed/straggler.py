@@ -8,8 +8,7 @@ policy lives on the host side:
     a rolling median (the signal real fleets page on);
   * policy hooks — on sustained straggle the trainer (a) snapshots via the
     async checkpointer and (b) requests an elastic re-shard excluding the
-    slow host (the reference's `elastic.remesh`, which the port's
-    distributed slice brings), the standard large-fleet mitigation.
+    slow host (`elastic.remesh`), the standard large-fleet mitigation.
     Data-shard handoff is covered because the pipeline state is part of
     the checkpoint.
 """

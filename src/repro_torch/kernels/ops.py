@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed import mesh_ops
 from . import _count
 from . import filter_reduce as _fr
 from . import flash_attention as _fa
@@ -192,10 +193,17 @@ def attention(q, k, v, causal: bool = True, group: int = 1, scale=None,
     """Online-softmax attention: q (H, Sq, D), k/v (H // group, Skv, D),
     or the same with a leading batch dimension; the causal mask is
     aligned to the last Sq kv positions.  ``chunk`` is the plain
-    version's kv chunk."""
-    _check_impl(impl, q)
-    return _fa.flash_attention(q, k, v, causal=causal, group=group,
-                               scale=scale, chunk=chunk)
+    version's kv chunk.  DTensors (on a mesh) are attended on each rank's
+    local tensors (``distributed.mesh_ops.attention``): no DTensor reaches
+    the kernel."""
+    def local(q, k, v):
+        _check_impl(impl, q)
+        return _fa.flash_attention(q, k, v, causal=causal, group=group,
+                                   scale=scale, chunk=chunk)
+
+    if mesh_ops.is_dtensor(q):
+        return mesh_ops.attention(local, q, k, v)
+    return local(q, k, v)
 
 
 # -- fused AdamW (the LM stack's optimizer step) ---------------------------------

@@ -26,9 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import mesh_ops
 from ..kernels import ops
 
-# logical axis names (the reference's; a later distributed slice maps them)
+# logical axis names (the reference's; ``distributed.sharding`` maps them)
 EMBED, MLP, HEADS, KV_HEADS, HEAD_DIM, VOCAB, EXPERTS = (
     "embed", "mlp", "heads", "kv_heads", "head_dim", "vocab", "experts")
 
@@ -128,7 +129,7 @@ class Embedding(Initialised):
         self.INIT = {"table": cfg.d_model}
 
     def embed(self, tokens):
-        return F.embedding(tokens, self.table)
+        return mesh_ops.embedding(tokens, self.table)
 
     def unembed(self, x):
         """Tied logits in f32 (an f32 copy of the table on every call, as

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import mesh_ops
 from . import layers as L
 
 
@@ -53,9 +54,14 @@ class ExpertFfn(L.Initialised):
 
     def forward(self, x):
         """x: (E, C, d) bucketed tokens -> (E, C, d)."""
-        h = torch.matmul(x, self.wi.to(x.dtype))
-        g = torch.matmul(x, self.wg.to(x.dtype))
-        return torch.matmul(F.silu(g) * h, self.wo.to(x.dtype))
+        return swiglu(x, self.wi, self.wg, self.wo)
+
+
+def swiglu(x, wi, wg, wo):
+    """Experts side by side: x (E, C, d), wi and wg (E, d, f), wo (E, f, d)."""
+    h = torch.matmul(x, wi.to(x.dtype))
+    g = torch.matmul(x, wg.to(x.dtype))
+    return torch.matmul(F.silu(g) * h, wo.to(x.dtype))
 
 
 class Routing(NamedTuple):
@@ -92,15 +98,20 @@ class Moe(L.Initialised):
                                     cfg.expert_d_ff)
 
     def route(self, xt, ids=None) -> Routing:
+        """:meth:`route_on` the layer's own router."""
+        return self.route_on(xt, self.router, ids)
+
+    def route_on(self, xt, router, ids=None) -> Routing:
         """The router in f32, top-k, and each slot's bucket.  xt: (N, d).
         ``ids`` (N, k), if given, are the experts chosen instead of the
         top-k (their gates the router's probabilities there): a caller
-        that holds two paths to one routing."""
+        that holds two paths to one routing.  ``router`` (d, E) is the
+        layer's own, or a rank's whole copy of it on a mesh."""
         cfg = self.cfg
         n_tok = xt.shape[0]
         e, k = cfg.n_experts, cfg.top_k
         cap = capacity(cfg, n_tok)
-        logits = torch.matmul(xt.float(), self.router.float())
+        logits = torch.matmul(xt.float(), router.float())
         probs = torch.softmax(logits, dim=-1)
         if ids is None:
             gates, ids = torch.topk(probs, k, dim=-1, sorted=True)
@@ -125,23 +136,47 @@ class Moe(L.Initialised):
                        aux)
 
     def forward(self, x):
-        """x: (B, T, d).  Returns (out, aux)."""
+        """x: (B, T, d).  Returns (out, aux).  On a mesh the experts run
+        expert-parallel (``mesh_ops.expert_parallel``)."""
+        weights = {f"{m}.{w}": getattr(getattr(self, m), w)
+                   for m in ("experts", "shared") if hasattr(self, m)
+                   for w in ("wi", "wg", "wo")}
+        if mesh_ops.is_dtensor(x):
+            return mesh_ops.expert_parallel(self._apply, x, self.router,
+                                            weights)
+        return self._apply(x, None, weights, 0, True)
+
+    def _apply(self, x, router, weights, e0: int, first: bool):
+        """The layer on plain tensors: every token of x (B, T, d), the
+        router (d, E) whole (None: the layer's own, through
+        :meth:`route`), and ``weights`` ("experts.wi", ...; the
+        shared experts' too) of the experts from ``e0`` on — all of them
+        on one device, one rank's shards on a mesh, where only the slots
+        of its own experts are summed (the others are another rank's) and
+        aux counts on the ``first`` rank only.  Returns (out, aux)."""
         cfg = self.cfg
         b, t, d = x.shape
         n_tok, k = b * t, cfg.top_k
         xt = x.reshape(n_tok, d)
-        r = self.route(xt)
-        # dropped slots go to one spare row past the buckets (any of them
-        # may land there; it is never read): no host sync on a count
-        rows = cfg.n_experts * r.cap
+        r = self.route(xt) if router is None else self.route_on(xt, router)
+        n_local = weights["experts.wi"].shape[0]
+        lo = e0 * r.cap
+        # this rank's kept slots: bucket rows [lo, lo + n_local * cap)
+        mine = r.keep & (r.bucket_idx >= lo) \
+            & (r.bucket_idx < lo + n_local * r.cap)
+        row = torch.where(mine, r.bucket_idx - lo, 0)
+        # every other slot goes to one spare row past the buckets (never
+        # read): no host sync on a count
+        rows = n_local * r.cap
         buckets = x.new_zeros((rows + 1, d))
-        buckets[torch.where(r.keep, r.bucket_idx, rows)] = xt[r.tok_idx]
-        outs = self.experts(buckets[:rows].view(cfg.n_experts, r.cap, d)) \
-            .reshape(rows, d)
+        buckets[torch.where(mine, row, rows)] = xt[r.tok_idx]
+        outs = swiglu(buckets[:rows].view(n_local, r.cap, d),
+                      weights["experts.wi"], weights["experts.wg"],
+                      weights["experts.wo"]).reshape(rows, d)
         # combine: slot s's weighted output, summed by token in a fixed order
         slot_gate = r.gates.reshape(-1)[r.order]
-        contrib = outs[r.bucket_idx] * torch.where(
-            r.keep, slot_gate, 0.0)[:, None].to(x.dtype)
+        contrib = outs[row] * torch.where(
+            mine, slot_gate, 0.0)[:, None].to(x.dtype)
         inv = torch.empty_like(r.order)
         inv[r.order] = torch.arange(n_tok * k, device=x.device)
         per_tok = contrib[inv].view(n_tok, k, d)   # token i's slots, top-k
@@ -152,6 +187,8 @@ class Moe(L.Initialised):
             combined = combined + per_tok[:, j]
         out = combined.view(b, t, d)
         if cfg.n_shared_experts:
-            sh = self.shared(xt.expand(cfg.n_shared_experts, n_tok, d))
+            n_sh = weights["shared.wi"].shape[0]
+            sh = swiglu(xt.expand(n_sh, n_tok, d), weights["shared.wi"],
+                        weights["shared.wg"], weights["shared.wo"])
             out = out + sh.sum(0).view(b, t, d)
-        return out, r.aux
+        return out, (r.aux if first else r.aux * 0.0)

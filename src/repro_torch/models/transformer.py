@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import mesh_ops
 from . import layers as L
 from .moe import Moe
 
@@ -36,7 +37,9 @@ from .moe import Moe
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy.  logits (B, T, V) f32; labels (B, T)."""
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    idx = labels[..., None].long()
+    # a vocab-sharded gather is a masked partial sum: reduce it at once
+    ll = mesh_ops.like(torch.gather(logits, -1, idx), idx)[..., 0]
     return torch.mean(logz - ll)
 
 

@@ -9,28 +9,45 @@ per tensor), on the CPU its plain version.  That is the reference's
 function, which XLA fuses inside the jitted step and eager PyTorch
 would not.  Parameters and moments are updated in place.
 
+On a mesh the parameters, gradients and moments are DTensors, the
+moments ZeRO-1 sharded over "data" as well: each parameter and its
+gradient are brought to its moments' placement, the kernel runs on every
+rank's local shards (one launch per parameter tensor per rank, as on
+one device), and the updated shard is gathered back into the parameter.
+
 ``adamw_update_weld`` is the Weld-IR form of one flat step, evaluated
 through the port's ``core.lazy`` (the reference keeps it for its
 benchmarks).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..distributed import mesh_ops, sharding
 from ..kernels import ops
 
 
-def adamw_init(params: Dict[str, torch.Tensor]) -> Dict:
+def adamw_init(params: Dict[str, torch.Tensor],
+               moment_specs: Optional[Dict] = None) -> Dict:
     """{"m": f32 zeros like each parameter, "v": the same, "step": a 0-dim
-    int32 CPU tensor}."""
-    def zeros(p):
+    int32 CPU tensor}.  On a mesh (DTensor parameters) ``moment_specs``
+    gives each moment's spec (``sharding.zero1_moment_shardings``: ZeRO-1
+    shards them over "data" too); the zeros are made shard by shard."""
+    def zeros(k, p):
+        if mesh_ops.is_dtensor(p):
+            from torch.distributed.tensor import zeros as dzeros
+
+            pl = (sharding.placements(moment_specs[k], p.device_mesh)
+                  if moment_specs is not None else p.placements)
+            return dzeros(p.shape, dtype=torch.float32,
+                          device_mesh=p.device_mesh, placements=pl)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-    return {"m": {k: zeros(p) for k, p in params.items()},
-            "v": {k: zeros(p) for k, p in params.items()},
+    return {"m": {k: zeros(k, p) for k, p in params.items()},
+            "v": {k: zeros(k, p) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32)}
 
 
@@ -38,12 +55,17 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float):
     """Scale every gradient by min(1, max_norm / ||grads||), the norm taken
     in f32 over all of them; each keeps its dtype.  Returns (grads, norm)
     — the grads scaled in place (the reference returns new arrays) and the
-    norm as a 0-dim f32 tensor on their device."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
+    norm as a 0-dim f32 tensor on their device.  DTensor gradients (on a
+    mesh, none of them ``Partial``) give the global norm, a full reduce,
+    and are scaled shard by shard."""
+    sq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+    if mesh_ops.is_dtensor(sq):
+        sq = sq.full_tensor()
+    gn = torch.sqrt(sq)
     scale = torch.clamp(torch.full_like(gn, max_norm)
                         / torch.clamp_min(gn, 1e-9), max=1.0)
     for g in grads.values():
+        g = mesh_ops.local(g)
         if g.dtype == torch.float32:
             g.mul_(scale)
         else:
@@ -60,8 +82,29 @@ def adamw_update_tree(params: Dict[str, torch.Tensor],
     advanced."""
     step = state["step"] + 1
     for k, p in params.items():
-        ops.adamw_update(p, grads[k], state["m"][k], state["v"][k], lr, step,
+        m, v = state["m"][k], state["v"][k]
+        if not mesh_ops.is_dtensor(p):
+            ops.adamw_update(p, grads[k], m, v, lr, step, b1=b1, b2=b2,
+                             eps=eps, wd=wd)
+            continue
+        # ZeRO-1: p and g to the moments' placement, the kernel on each
+        # rank's shards, p gathered back to its own placement
+        mesh, zpl = m.device_mesh, m.placements
+        same = zpl == p.placements
+        pl = (p if same else p.redistribute(mesh, zpl)).to_local()
+        gl = grads[k].redistribute(mesh, zpl).to_local()
+        pc, gc = pl.contiguous(), gl.contiguous()
+        ops.adamw_update(pc, gc, m.to_local(), v.to_local(), lr, step,
                          b1=b1, b2=b2, eps=eps, wd=wd)
+        if same:
+            if pc is not pl:
+                pl.copy_(pc)
+            continue
+        from torch.distributed.tensor import DTensor
+
+        full = DTensor.from_local(pc, mesh, zpl, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+        p.to_local().copy_(full.redistribute(mesh, p.placements).to_local())
     return params, {"m": state["m"], "v": state["v"], "step": step}
 
 

@@ -17,7 +17,9 @@ v1); and the training path: ``fused_adamw`` against
 through ``FlashAttention`` against plain autograd (causal, and without
 the mask at Sq below and past Skv), two ``train`` steps of a smoke
 config on the card against the same on the CPU, and one
-``build_train_step`` step of each other family's smoke config.
+``build_train_step`` step of each other family's smoke config; the mesh path at world 1 (an
+NCCL group of one rank) against the single-device path, and
+``compressed_psum`` through NCCL.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -1086,6 +1088,71 @@ def test_train_steps_on_the_card_match_the_cpu(gpu):
     for name, p in on_cpu["params"].items():
         torch.testing.assert_close(on_card["params"][name].cpu(), p,
                                    rtol=0, atol=1e-6)
+
+
+@pytest.fixture()
+def nccl_world_one(gpu, tmp_path):
+    """Starts an NCCL process group of one rank over a ``file://`` store
+    when called; destroys it after the test."""
+    import torch.distributed as dist
+
+    def start():
+        dist.init_process_group("nccl",
+                                init_method=f"file://{tmp_path}/store",
+                                rank=0, world_size=1)
+        return dist.group.WORLD
+
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_train_on_the_world_one_mesh_matches_one_device(nccl_world_one):
+    """The mesh path at world 1 (DTensor parameters, ZeRO-1 moments,
+    flash_attention on local heads, fused_adamw on local shards) against
+    the single-device path on the card: a 2-layer f32 config, 2 steps,
+    losses and gnorms to rtol 2e-4, atol 2e-5 and parameters to atol
+    1e-5 (the CPU mesh tests' limits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as t_train
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(3))
+    kw = dict(steps=2, global_batch=4, seq_len=64, accum=2, verbose=False,
+              params=params, peak_lr=3e-3)
+    single = t_train.train(cfg, **kw)
+    nccl_world_one()
+    t_ops.reset_counts()
+    mesh = t_train.train(cfg, dp=1, tp=1, **kw)
+    torch.cuda.synchronize()
+    counts = t_ops.counts()
+    assert counts["fused_adamw"] == (2 * len(params), 0)
+    assert counts["flash_attention"] == (2 * 2 * cfg.n_layers, 0)
+    np.testing.assert_allclose(mesh["losses"], single["losses"], rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(mesh["gnorms"], single["gnorms"], rtol=2e-4,
+                               atol=2e-5)
+    for k, p in single["params"].items():
+        torch.testing.assert_close(mesh["params"][k].full_tensor(), p,
+                                   rtol=0, atol=1e-5)
+
+
+def test_compressed_psum_through_nccl(nccl_world_one, gpu):
+    """At world 1 the mean is the rank's own dequantized payload and the
+    error its residual, bitwise, on the card."""
+    from repro_torch.optim.compress import (compressed_psum,
+                                            dequantize_int8, quantize_int8)
+
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(5)
+    g = torch.randn((4097,), generator=gen, device=gpu)
+    err = torch.randn((4097,), generator=gen, device=gpu) * 1e-3
+    mean, new_err = compressed_psum(g, err, nccl_world_one())
+    q, scale = quantize_int8(g + err)
+    sent = dequantize_int8(q, scale)
+    assert mean.device.type == "cuda"
+    assert torch.equal(mean, sent) and torch.equal(new_err, g + err - sent)
 
 
 @pytest.mark.parametrize("sq,skv", [(96, 200), (300, 128)])

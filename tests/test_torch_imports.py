@@ -27,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 91, names
+assert len(names) >= 96, names
 for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.models.transformer", "repro_torch.models.convert",
              "repro_torch.launch.serve", "repro_torch.kernels.fused_adamw",
@@ -54,7 +54,11 @@ for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.models.moe", "repro_torch.models.ssm",
              "repro_torch.models.xlstm", "repro_torch.models.encdec",
              "repro_torch.models.vlm", "repro_torch.configs.dbrx_132b",
-             "repro_torch.configs.whisper_large_v3"):
+             "repro_torch.configs.whisper_large_v3",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.elastic",
+             "repro_torch.distributed.mesh_ops", "repro_torch.launch.mesh",
+             "repro_torch.optim.compress"):
     assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")

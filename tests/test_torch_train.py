@@ -37,7 +37,8 @@ the CPU.
   round-trips its state and yields the reference's tokens,
   ``preprocess_weld`` works, ``adamw_update_weld`` matches, and the
   straggler monitor fires.
-* ``train`` with no device chosen refuses the CPU; a mesh raises.
+* ``train`` with no device chosen refuses the CPU; a mesh of more than
+  one rank without a process group raises, naming torchrun.
 
 Inputs come from numpy seeds; JAX inputs carry explicit dtypes (another
 test module in the process may have switched x64 on).
@@ -583,7 +584,10 @@ def test_train_without_a_device_refuses_the_cpu():
 
 @pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2)])
 def test_training_on_a_mesh_waits_for_the_distributed_slice(dp, tp):
-    with pytest.raises(NotImplementedError, match="distributed"):
+    """A mesh of more than one rank needs a process group: without one
+    ``train`` raises, naming torchrun (``test_torch_distributed_train.py``
+    trains on gloo meshes)."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
         t_train.train("llama3.2-3b", steps=1, dp=dp, tp=tp, verbose=False)
 
 
