@@ -13,7 +13,7 @@ call with a grid cap the tuner chose, and each "auto" decision its
 ``source``), builds the port's CUDA kernels from
 ``src/repro_torch/kernels/csrc`` and then
 
-1. runs nineteen phases through the entry points a user calls — TPC-H Q6
+1. runs twenty phases through the entry points a user calls — TPC-H Q6
    (Weld's and the hand-fused ``ops.filter_reduce_q6``) and a Q1-style
    four-aggregate query on an SF10-sized lineitem (59,986,052 rows), a
    4096-key group-by over the same row count, PageRank iterations (4,096
@@ -79,7 +79,16 @@ call with a grid cap the tuner chose, and each "auto" decision its
    flash_attention on each rank's local heads and fused_adamw on its
    local shards; losses and gnorms against ``lm_train``'s to rtol 2e-4,
    atol 2e-5, the same launch counts, and ``compressed_psum`` through
-   the group against the quantizer's formula); and the
+   the group against the quantizer's formula); the dry run (``dryrun``:
+   ``repro_torch.launch.dryrun`` traces ``lm_train``'s step with fake
+   tensors on the card's (1, 1) mesh of a "fake" process group, whose
+   predicted parameter and moment bytes must equal the live tensors' and
+   whose roofline terms may not exceed the measured best step, printed
+   beside ``flops_per_step`` and the measured peak memory; and a child
+   process, started before ``lm_train_mesh``, prices llama3.2-3b x
+   train_4k on the 16x16 mesh of 256 fake ranks, printing the
+   reference CLI's line; every figure a prediction from the H100's
+   published peaks); and the
    LM stack's other families (``lm_families``: DeepSeek-MoE 16B,
    DBRX 132B cut to 2 of its 40 layers, Zamba2 1.2B, xLSTM 350M,
    Whisper large-v3 over 1,500 frames, Llama 3.2 Vision 90B cut to one
@@ -150,11 +159,20 @@ from pathlib import Path
 
 import numpy as np
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and the non-tensor-core
-#: peaks (FP64, FP32; integer adds are priced at the FP32 rate).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float64": 34e12, "float32": 67e12, "int32": 67e12,
-            "int64": 67e12}
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HW_H100, family_train_flops, train_flops)
+
+#: the H100's published peaks (``roofline.analysis.HW_H100``): HBM3
+#: bandwidth and the non-tensor-core peaks (FP64, FP32; integer adds are
+#: priced at the FP32 rate), and the bf16 tensor cores' (dense), the MFU's
+#: divisor
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]
+PEAK_OPS = {"float64": HW_H100["peak_flops_f64"],
+            "float32": HW_H100["peak_flops_f32"],
+            "int32": HW_H100["peak_flops_f32"],
+            "int64": HW_H100["peak_flops_f32"]}
+BF16_PEAK = HW_H100["peak_flops_bf16"]
 
 #: flash_attention's launches on its Hopper route (bf16, D in {64, 128},
 #: csrc/flash_attention_sm90.cu), kept beside the wrappers' counts
@@ -2778,14 +2796,6 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL = 1e-4
 
 
-def _train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one step: 6 N per token, plus the causal attention's
-    12 L B S**2 d_head H / 2."""
-    return (6.0 * n_params * batch * seq
-            + 12.0 * cfg.n_layers * batch * seq * seq * cfg.head_dim
-            * cfg.n_heads / 2)
-
-
 def _attention_backward_ms(torch, cfg, batch: int, seq: int, reps: int,
                            dev) -> float:
     """CUDA-event ms of one layer's attention backward at a micro-batch's
@@ -2895,15 +2905,16 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
           f"launches (want {want_fa}), {backward} backward calls (want "
           f"{cfg.n_layers * accum * steps})")
     tokens = b * seq
-    flops = _train_flops(cfg, n_params, b, seq)
+    flops = train_flops(cfg, n_params, b, seq)
     step_ms = [s * 1e3 for s in out["step_s"]]
     best = min(step_ms)
     log(f"lm_train: losses {out['losses']} gnorms {out['gnorms']} lrs "
         f"{out['lrs']}")
     log(f"lm_train: step_ms {[round(x, 3) for x in step_ms]} (best "
         f"{best:.3f}), tokens/s {tokens / best * 1e3:.1f}, model FLOP "
-        f"utilisation {flops / (best * 1e-3) / 989e12:.4f} ({flops:.4e} "
-        f"FLOPs a step over 989 TFLOP/s bf16 dense); launches a step: "
+        f"utilisation {flops / (best * 1e-3) / BF16_PEAK:.4f} ({flops:.4e} "
+        f"FLOPs a step over {BF16_PEAK / 1e12:.0f} TFLOP/s bf16 dense); "
+        f"launches a step: "
         f"fused_adamw {counts['fused_adamw'][0] // steps}, flash_attention "
         f"{counts['flash_attention'][0] // steps} (sm90 route "
         f"{sm90 // steps}), attention backward "
@@ -2915,6 +2926,10 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
     fa_counts = (counts["flash_attention"][0], backward, sm90)
     params, opt = out["params"], out["opt"]
     del out
+    # the training state's bytes, which the dryrun phase predicts
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for mom in ("m", "v") for t in opt[mom].values())
     with torch.no_grad():
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -3077,12 +3092,13 @@ def phase_lm_train(torch, sizes: Sizes, seed: int, launches: dict,
         "flash_attention": fa_counts,
         "step_ms": step_ms, "best_step_ms": best,
         "tokens_per_s": tokens / best * 1e3,
-        "mfu": flops / (best * 1e-3) / 989e12, "flops_per_step": flops,
+        "mfu": flops / (best * 1e-3) / BF16_PEAK, "flops_per_step": flops,
         "peak_memory_bytes": peak, "changed_share": changed / n_params,
         "step_device_busy_ms": busy, "step_top": top,
         "optimizer_pass_ms": opt_ms, "optimizer_pass_bound_ms": opt_bound,
         "attention_backward_ms": bwd_ms,
         "attention_backward_share": bwd_share,
+        "param_bytes": param_bytes, "opt_bytes": opt_bytes,
         "cross_device_loss_rel_err": loss_err,
         "cross_device_limit_shares": worst,
     }
@@ -3237,6 +3253,232 @@ def phase_lm_train_mesh(torch, sizes: Sizes, seed: int, launches: dict,
 
 
 # ---------------------------------------------------------------------------
+# dryrun: the dry run's prediction against lm_train, and a production cell
+# ---------------------------------------------------------------------------
+
+#: the production cell the dryrun phase prices on the 16x16 mesh
+DRYRUN_CELL = ("llama3.2-3b", "train_4k")
+#: the dryrun child's limit, seconds
+DRYRUN_TIMEOUT = 600
+
+
+def start_dryrun_cell(sizes: Sizes, out: Path, dev: str = "cuda"):
+    """Start ``python -m repro_torch.launch.dryrun`` on :data:`DRYRUN_CELL`
+    in a child process (its own "fake" process group of 256 ranks, the
+    16x16 mesh, fake tensors on ``dev``), writing its JSON to ``out``.
+    Its fake tensors allocate nothing and it joins no other process
+    group; :func:`phase_dryrun` starts it after every timed phase before
+    it, so that its trace runs beside (a)'s and slows no measurement."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    arch, shape = DRYRUN_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shapes", shape, "--mesh", "single", "--out", str(out),
+           "--device", dev]
+    if sizes.lm_smoke:
+        cmd.append("--smoke")
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+#: time_dispatch: rounds each way, and launches a round
+DISPATCH_ROUNDS, DISPATCH_CALLS = 6, 200
+
+
+def time_dispatch(torch, single: dict) -> dict:
+    """Host microseconds a launch of B12's forward and of B13 costs
+    through its ``weld::`` operator (as the wrappers launch) and through
+    the operator's body called as a plain function, in turns (plain,
+    operator, operator, plain, ...): :data:`DISPATCH_CALLS` launches on
+    small operands (AdamW on 1,024 elements, bf16 p and f32 g; attention
+    at (1, 1, 64, 64) bf16, causal), host wall to a synchronize, the best
+    of :data:`DISPATCH_ROUNDS` rounds each way.  Uncounted
+    (``_count.aside``).  The difference, times ``lm_train``'s launches a
+    step (``single``), is what the operators add to its step."""
+    from repro_torch.kernels import _count
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_adamw as fw
+
+    dev = "cuda"
+    p = torch.zeros(1024, dtype=torch.bfloat16, device=dev)
+    g, m, v = (torch.zeros(1024, device=dev) for _ in range(3))
+    q, k, w = (torch.randn(1, 1, 64, 64, dtype=torch.bfloat16, device=dev)
+               for _ in range(3))
+    adam = (p, g, m, v, 0.0, 0.9, 0.1, 0.999, 1e-3, 1e-8, 0.0, 1.0, 1.0)
+    calls = {
+        "fused_adamw": {"plain": lambda: fw._kernel(*adam),
+                        "operator": lambda: torch.ops.weld.fused_adamw(
+                            *adam)},
+        "flash_attention": {
+            "plain": lambda: fa._kernel(q, k, w, True, 1, 0.125),
+            "operator": lambda: torch.ops.weld.flash_attention(
+                q, k, w, True, 1, 0.125)},
+    }
+    best = {name: {"plain": [], "operator": []} for name in calls}
+    with _count.aside():
+        for name, ways in calls.items():
+            for way in ways.values():
+                way()
+            torch.cuda.synchronize()
+            for r in range(DISPATCH_ROUNDS):
+                order = ("plain", "operator") if r % 2 == 0 \
+                    else ("operator", "plain")
+                for way in order:
+                    t0 = time.perf_counter()
+                    for _ in range(DISPATCH_CALLS):
+                        ways[way]()
+                    torch.cuda.synchronize()
+                    best[name][way].append(
+                        (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+    us = {name: {way: min(t) for way, t in ways.items()}
+          for name, ways in best.items()}
+    per_step = {"fused_adamw": single["tensors"],
+                "flash_attention": single["flash_attention"][0]
+                // single["steps"]}
+    added_ms = sum((us[n]["operator"] - us[n]["plain"]) * per_step[n]
+                   for n in us) / 1e3
+    log(f"dryrun dispatch [measured, host; card {card_line()}]: a launch "
+        f"through its operator against its body called plainly, best of "
+        f"{DISPATCH_ROUNDS} rounds of {DISPATCH_CALLS}: " + ", ".join(
+            f"{n} {us[n]['operator']:.2f} against {us[n]['plain']:.2f} us"
+            for n in us)
+        + f"; x lm_train's launches a step ({per_step}) = {added_ms:.3f} "
+        f"ms of its best step {single['best_step_ms']:.3f} ms; a decode "
+        f"step launches neither")
+    return {"us": us, "rounds_us": best, "launches_a_step": per_step,
+            "added_ms_a_train_step": added_ms}
+
+
+def phase_dryrun(torch, sizes: Sizes, single: dict, dev="cuda") -> dict:
+    """The dry run (``repro_torch.launch.dryrun``) against what the card
+    measured, and a production cell priced.
+
+    (a) ``lm_train``'s own step (``sizes.lm_arch``, ``train_batch`` x
+    ``train_seq`` tokens in ``train_accum`` micro-batches, remat as the
+    config) traced with fake tensors on the card's (1, 1) mesh, in a
+    "fake" process group of one rank: the predicted parameter and moment
+    bytes must equal those of ``lm_train``'s live tensors (``single``),
+    and ``lm_train``'s best measured step may not be shorter than the
+    roofline's compute or memory term (a count that says the card beat
+    its published peak is a wrong count).  (b) :data:`DRYRUN_CELL` on the
+    16x16 mesh, in a child process (:func:`start_dryrun_cell`) that runs
+    beside (a): it must trace, and its line is printed as the reference's
+    CLI prints it.  Every figure of (a) and (b) is a prediction from
+    published peaks or a count; on the card the phase first measures
+    what the launch operators cost (:func:`time_dispatch`)."""
+    dev = torch.device(dev)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    dispatch = time_dispatch(torch, single) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="weld-dryrun-"))
+    out = out_dir / "dryrun.json"
+    child = start_dryrun_cell(sizes, out, dev.type)
+    try:
+        res = _dryrun_both(torch, sizes, single, dev, card, child, out, t0)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res["dispatch"] = dispatch
+    return res
+
+
+def _dryrun_both(torch, sizes, single, dev, card, child, out, t0) -> dict:
+    """:func:`phase_dryrun`'s (a) and (b), ``child`` started."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.dryrun import dryrun_cell, status_line
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rec = dryrun_cell(sizes.lm_arch, "train_4k", mesh,
+                          smoke=sizes.lm_smoke,
+                          batch_override=sizes.train_batch,
+                          seq_override=sizes.train_seq,
+                          accum=sizes.train_accum, device=dev)
+    finally:
+        dist.destroy_process_group()
+    t_a = time.perf_counter() - t0
+    check(rec["ok"], f"dryrun (a): the trace failed: {rec.get('error')}\n"
+          f"{rec.get('traceback')}")
+    check(rec["param_bytes_per_dev"] == single["param_bytes"]
+          and rec["opt_bytes_per_dev"] == single["opt_bytes"],
+          f"dryrun (a): predicted parameter / moment bytes "
+          f"{rec['param_bytes_per_dev']} / {rec['opt_bytes_per_dev']}, "
+          f"lm_train's live tensors {single['param_bytes']} / "
+          f"{single['opt_bytes']}")
+    rl = rec["roofline"]
+    best = single["best_step_ms"]
+    c_ms, m_ms = rl["t_compute_s"] * 1e3, rl["t_memory_s"] * 1e3
+    check(best >= c_ms and best >= m_ms,
+          f"dryrun (a): lm_train's best step {best:.3f} ms is shorter than "
+          f"the roofline's compute term {c_ms:.3f} ms or memory term "
+          f"{m_ms:.3f} ms: the count is wrong")
+    flops = rec["cost"]["flops"]
+    peak = rec["memory_analysis"]["peak_size_in_bytes"]
+    measured_peak = single["peak_memory_bytes"]
+    log(f"dryrun (a) [predicted from {rl['peak_key']} and hbm_bw of "
+        f"HW_H100, published peaks; card {card}]: {sizes.lm_arch} "
+        f"{sizes.train_batch} x {sizes.train_seq} tokens, accum "
+        f"{sizes.train_accum}, (1, 1) mesh: parameter bytes "
+        f"{rec['param_bytes_per_dev']} and moment bytes "
+        f"{rec['opt_bytes_per_dev']} equal lm_train's live tensors; counted "
+        f"FLOPs {flops:.4e} ({rec['flops_by_dtype']}) beside "
+        f"flops_per_step {single['flops_per_step']:.4e} (x "
+        f"{flops / single['flops_per_step']:.3f}); counted bytes "
+        f"{rec['cost']['bytes']:.4e}; roofline compute {c_ms:.3f} ms, "
+        f"memory {m_ms:.3f} ms ({rl['bottleneck']}-bound), bound "
+        f"{rl['bound_s'] * 1e3:.3f} ms over the measured best step "
+        f"{best:.3f} ms = {rl['bound_s'] * 1e3 / best:.4f}; predicted peak "
+        f"memory {peak / 1e9:.3f} GB over lm_train's max_memory_allocated "
+        f"{measured_peak / 1e9:.3f} GB = {peak / measured_peak:.4f}; "
+        f"trace {rec['compile_s']:.1f} s ({t_a:.1f} s in all)")
+
+    t1 = time.perf_counter()
+    text, _ = child.communicate(timeout=DRYRUN_TIMEOUT)
+    t_b = time.perf_counter() - t1
+    arch, shape = DRYRUN_CELL
+    key = f"{arch}|{shape}|16x16"
+    lines = [ln for ln in text.splitlines() if ln.startswith(f"[dryrun] "
+                                                            f"{key} -> ")]
+    check(child.returncode == 0 and out.exists() and lines,
+          f"dryrun (b): the child failed ({child.returncode}):\n"
+          f"{text[-3000:]}")
+    cell = json.loads(out.read_text())[key]
+    check(cell.get("ok") and "roofline" in cell,
+          f"dryrun (b): {status_line(cell)}\n{cell.get('traceback')}")
+    rlb = cell["roofline"]
+    log(f"dryrun (b) [predicted from HW_H100's published peaks; card "
+        f"{card}]: {lines[-1]}")
+    log(f"dryrun (b): {key} on {cell['n_chips']} ranks: params "
+        f"{cell['n_params']}, parameter bytes a card "
+        f"{cell['param_bytes_per_dev']}, moment bytes "
+        f"{cell['opt_bytes_per_dev']}, counted FLOPs a card "
+        f"{cell['cost']['flops']:.4e}, bytes {cell['cost']['bytes']:.4e}, "
+        f"collective bytes {cell['collectives']['total']:.4e} "
+        f"({rlb['link_key']}), predicted peak memory "
+        f"{cell['memory_analysis']['peak_size_in_bytes'] / 1e9:.3f} GB, "
+        f"MODEL/counted FLOPs {cell['useful_flops_ratio']:.4f}; waited "
+        f"{t_b:.1f} s for the child; phase {time.perf_counter() - t0:.1f} "
+        f"s")
+    return {"lm_train": {k: rec[k] for k in (
+                "n_params", "param_bytes_per_dev", "opt_bytes_per_dev",
+                "cost", "flops_by_dtype", "collectives", "memory_analysis",
+                "roofline", "model_flops_global", "useful_flops_ratio",
+                "compile_s")},
+            "measured_best_step_ms": best,
+            "measured_peak_memory_bytes": measured_peak,
+            "production": {k: v for k, v in cell.items()
+                           if k != "traceback"},
+            "phase_s": time.perf_counter() - t0, "waited_s": t_b}
+
+
+# ---------------------------------------------------------------------------
 # lm_families_train: the other families in training
 # ---------------------------------------------------------------------------
 
@@ -3271,49 +3513,6 @@ FAMILIES_TRAIN = (
 #: encoder over 1,500 frames above all) are most of the phase's time
 FAMILIES_TRAIN_STEPS = 3
 FAMILIES_TRAIN_F32 = (1, 32)
-#: bf16 peak of the H100 SXM's tensor cores (dense), the MFU's divisor
-BF16_PEAK = 989e12
-
-
-def _family_train_flops(cfg, model, b: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 per parameter and position it
-    multiplies (the active experts only; the encoder's layers and the
-    cross-attentions' k and v projections at the frames or image tokens,
-    the vision projection at the image tokens, every other parameter at the
-    text tokens; the learned positions multiply nothing), plus 12 B hd H
-    Sq Skv a call for the attention (halved when causal), as
-    ``_train_flops``.  The SSM scans (Mamba2's, the mLSTM's) and the
-    sLSTM's pointwise recurrence are left out."""
-    fam = cfg.family
-    other = {"encdec": cfg.n_frames, "vlm": cfg.n_image_tokens}.get(fam, 0)
-    at_other = 0
-    for name, p in model.impl.named_parameters():
-        kv = name.rsplit(".", 1)[-1] in ("wk", "wv")
-        if fam == "encdec" and (name.startswith("enc_") or (
-                ".cross_attn." in name and kv)):
-            at_other += p.numel()
-        elif fam == "vlm" and (name == "img_proj" or (
-                name.startswith("cross_layers.") and kv)):
-            at_other += p.numel()
-    skip = model.impl.pos.numel() if fam == "encdec" else 0
-    at_text = model.active_param_count() - at_other - skip
-    flops = 6.0 * b * (at_text * seq + at_other * other)
-    unit = 12.0 * b * cfg.head_dim * cfg.n_heads
-    if fam in ("dense", "moe"):
-        flops += unit * cfg.n_layers * seq * seq / 2
-    elif fam == "hybrid":
-        flops += unit * -(-cfg.n_layers // cfg.attn_every) * seq * seq / 2
-    elif fam == "encdec":
-        n_enc = cfg.n_enc_layers or cfg.n_layers
-        flops += unit * (n_enc * other * other + cfg.n_layers * (
-            seq * seq / 2 + seq * other))
-    elif fam == "vlm":
-        n_super = cfg.n_layers // cfg.cross_attn_every
-        flops += unit * (cfg.n_layers - n_super) * seq * seq / 2 \
-            + unit * n_super * seq * other
-    return flops
-
-
 def _family_batches(torch, cfg, seed: int, b: int, seq: int, steps: int,
                     dev) -> list:
     """``steps`` training batches: ``TokenPipeline``'s tokens and labels
@@ -3616,7 +3815,7 @@ def phase_lm_families_train(torch, sizes: Sizes, seed: int, launches: dict,
         gc.collect()
         torch.cuda.empty_cache()
         tokens = b * seq
-        flops = _family_train_flops(cfg, model, b, seq)
+        flops = family_train_flops(cfg, model, b, seq)
         step_ms = [x * 1e3 for x in step_s]
         best = min(step_ms)
         log(f"lm_families_train {name}: losses {losses} gnorms {gnorms}; "
@@ -3666,7 +3865,8 @@ def phase_lm_families_train(torch, sizes: Sizes, seed: int, launches: dict,
         log(f"lm_families_train {name}: step_ms "
             f"{[round(x, 3) for x in step_ms]} (best {best:.3f}), tokens/s "
             f"{tokens / best * 1e3:.1f}, model FLOP utilisation {mfu:.4f} "
-            f"({flops:.4e} FLOPs a step over 989 TFLOP/s bf16 dense; SSM "
+            f"({flops:.4e} FLOPs a step over {BF16_PEAK / 1e12:.0f} TFLOP/s "
+            f"bf16 dense; SSM "
             f"scans left out); launches a step: fused_adamw "
             f"{counts['fused_adamw'][0] // steps}, flash_attention "
             f"{n_fa // steps} (sm90 route {sm90 // steps}), attention "
@@ -4235,7 +4435,8 @@ def _hold_dict_build(torch, dates, reps: int) -> dict:
 #: FP64 tensor-core (DMMA) and FP32 peaks of the H100 SXM data sheet: the
 #: least time the card could take for a product's 2mnk operations at full
 #: precision (TF32 would be faster but is not the same function)
-MATMUL_PEAK = {"float64": 67e12, "float32": 67e12}
+MATMUL_PEAK = {"float64": HW_H100["peak_flops_f64_tc"],
+               "float32": HW_H100["peak_flops_f32"]}
 
 
 def f32_body():
@@ -4562,14 +4763,6 @@ def hold_array_kernels(torch, sizes: Sizes, seed: int, launches: dict,
     return rows
 
 
-def _attention_pairs(sq: int, skv: int, causal: bool) -> int:
-    """(q, kv) pairs the mask leaves, per (batch, head)."""
-    if not causal:
-        return sq * skv
-    off = skv - sq
-    return sum(min(skv, i + off + 1) for i in range(sq))
-
-
 def _start_fault_builds(tmp: Path) -> list:
     """One ``nvcc`` per planted fault, all started together: a copy of
     csrc/flash_attention_sm90.cu with the fault, built with the library's
@@ -4793,11 +4986,12 @@ def hold_attention_kernel(torch, sizes: Sizes, seed: int, launches: dict,
 
                 nbytes = ((2 * nb * h * sq + 2 * nb * hk * skv) * d
                           * q.element_size())
-                peak = 989e12 if dt == torch.bfloat16 else PEAK_OPS["float32"]
+                peak = BF16_PEAK if dt == torch.bfloat16 \
+                    else PEAK_OPS["float32"]
                 row.update(_timed_row(
                     torch, f"flash_attention[{case}]", kern, plain, library,
                     sizes.timing_reps, nbytes,
-                    4 * nb * h * d * _attention_pairs(sq, skv, causal),
+                    4 * nb * h * d * fa.attention_pairs(sq, skv, causal),
                     peak))
                 if route == "sm90":
                     # v1 on the same operands, between two kernel timings
@@ -5053,6 +5247,10 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     elapsed("phase_lm_train_mesh", t_all)
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun = phase_dryrun(torch, sizes, lm_train)
+    elapsed("phase_dryrun", t_all)
+    gc.collect()
+    torch.cuda.empty_cache()
     families = phase_lm_families(torch, sizes, seed, mp.launches)
     elapsed("phase_lm_families", t_all)
     gc.collect()
@@ -5086,6 +5284,7 @@ def run(torch, sizes: Sizes, seed: int) -> dict:
     gate = run_gate_trace()
     return {"kernels": kernels, "phase_ms": mp.phase_ms, "lm_serve": lm,
             "lm_train": lm_train, "lm_train_mesh": lm_train_mesh,
+            "dryrun": dryrun,
             "lm_families": families,
             "lm_families_train": families_train, "gate": gate,
             "pipeline": pipeline,
@@ -5105,7 +5304,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     # a kernel health file or a cost ledger left on the machine must not
     # route a kernel away unseen: both start empty in a fresh directory;
     # and every compile verifies its IR after each pass and the planning

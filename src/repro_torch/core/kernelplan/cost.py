@@ -51,18 +51,7 @@ from math import ceil, log2
 from ...kernels import filter_reduce as _fr
 from ...kernels import hash_table as _ht
 from ...kernels import segment_reduce as _sr
-
-#: NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense rates): HBM3 at
-#: 3.35 TB/s; 67 TFLOP/s FP32 and 34 TFLOP/s FP64 on the CUDA cores,
-#: 67 TFLOP/s FP64 on the tensor cores.  Rates assume the card's full
-#: 700 W power limit.
-HW_H100 = {
-    "hbm_bw": 3.35e12,          # B/s
-    "peak_flops_f32": 67e12,    # FLOP/s
-    "peak_flops_f64": 34e12,    # FLOP/s
-    # the FP64 tensor cores (DMMA)
-    "peak_flops_f64_tc": 67e12,  # FLOP/s
-}
+from ...roofline.analysis import HW_H100
 
 #: route when kernel_s <= jnp_s * (1 + ROUTE_MARGIN): prefer the kernel
 #: on a near-tie (the reference's margin).

@@ -10,9 +10,9 @@ call, so the single-device path runs as it did.
 """
 from __future__ import annotations
 
-from typing import Callable
-
+import functools
 import sys
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +44,79 @@ def like(x, ref):
     if not is_dtensor(x):
         return x
     return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def splittable(x, dim: int, outer: int):
+    """``x`` ready for a reshape of its dimension ``dim`` into (outer, -1):
+    as it is off a mesh or where every mesh dimension that shards ``dim``
+    divides ``outer``; else with ``dim`` replicated over those mesh
+    dimensions (an all-gather; DTensor cannot unflatten a shard that
+    straddles the new outer dimension)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = x.device_mesh.mesh.shape
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and outer % sizes[i] else p for i, p in enumerate(x.placements)]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh,
+                                                              pl)
+
+
+def mergeable(x, first: int, last: int):
+    """``x`` ready for a reshape that merges its dimensions first..last
+    into one: as it is off a mesh, or where DTensor makes a strided shard
+    of the result (:func:`flattens_inner_shards`); else each of those
+    dimensions but the first that a mesh dimension shards is replicated
+    there (an all-gather)."""
+    if not is_dtensor(x) or flattens_inner_shards():
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard)
+          and first < p.dim % x.ndim <= last % x.ndim else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh,
+                                                              pl)
+
+
+@functools.cache
+def flattens_inner_shards() -> bool:
+    """Whether the installed torch's DTensor views a shard of an inner
+    dimension of a merge as a strided shard of the result.  Torch 2.13
+    does; 2.11 refuses the view ("Attempted to flatten multiple
+    dimensions ... without redistribution"), and :func:`mergeable` then
+    all-gathers first.  Decided once, by asking DTensor's view rule of a
+    (2, 4) tensor sharded on its dimension 1 over 2 ranks."""
+    try:
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._ops._view_ops import (
+            propagate_shape_and_sharding, view_groups)
+
+        _, out = propagate_shape_and_sharding(
+            [Shard(1)], (2, 4), view_groups((2, 4), (8,)), (2,),
+            strict_view=True)
+    except RuntimeError:
+        return False
+    return type(out[0]).__name__ == "_StridedShard"
+
+
+def grad_splittable(x, dim: int, outer: int):
+    """``x``, whose gradient comes back :func:`splittable` (identity off a
+    mesh): put it after a reshape that merged ``dim`` from (outer, -1),
+    whose backward splits the gradient's ``dim`` again."""
+    return _GradSplittable.apply(x, dim, outer) if is_dtensor(x) else x
+
+
+class _GradSplittable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, outer):
+        ctx.dim, ctx.outer = dim, outer
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return splittable(grad, ctx.dim, ctx.outer), None, None
 
 
 def attention(fn: Callable, q, k, v):

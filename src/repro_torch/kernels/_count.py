@@ -18,7 +18,8 @@ events, so the time a call's staged bodies take stays out of the
 reading.  Each entry's launches queue behind a ``torch.cuda._sleep`` of
 :data:`ENTRY_COVER_CYCLES` recorded before its start event, so the
 entry's own host path (checks, allocations, ``ctypes``) stays out too,
-up to a synchronize inside the entry.
+up to a synchronize inside the entry.  Under a fake mode (the dry run)
+an entry is not clocked.
 """
 from __future__ import annotations
 
@@ -85,7 +86,7 @@ def clocked(entry):
     @functools.wraps(entry)
     def timed(*args, **kwargs):
         marks = getattr(_local, "clock", None)
-        if marks is None:
+        if marks is None or _faking():
             return entry(*args, **kwargs)
         import torch
 
@@ -102,6 +103,14 @@ def clocked(entry):
         marks.append((start, stop))
         return out
     return timed
+
+
+def _faking() -> bool:
+    """Whether a fake mode is active (the dry run traces the entries on
+    fake tensors: nothing to time, and no event may be recorded)."""
+    from torch._guards import active_fake_mode
+
+    return active_fake_mode() is not None
 
 
 def clock_ns(marks) -> int:

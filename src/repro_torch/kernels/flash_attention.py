@@ -21,7 +21,11 @@ error is not caught.  A CPU tensor takes the plain version,
 ``ref.chunked_attention`` (what the reference's ``ops`` runs off the TPU).
 The wrapper counts every kernel launch in ``.launches``, the launches of
 the ``"sm90"`` route among them also in ``.launches_sm90``, and its
-plain-version calls in ``.plain_calls``.
+plain-version calls in ``.plain_calls``.  The launch goes through the
+operator ``torch.ops.weld.flash_attention`` (a ``torch.library.custom_op``):
+under a fake mode (the dry run) its fake form gives the output and
+nothing is launched or counted, and ``torch.utils.flop_counter`` counts
+it by the pairs its mask leaves (:func:`attention_pairs`).
 
 Gradients: on a CPU tensor autograd runs through the plain version.  On
 a CUDA tensor that needs a gradient the launch goes through
@@ -50,6 +54,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build, _count
 from . import ref
@@ -183,21 +188,31 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
-    """Check the operands and launch their route's kernel (counted)."""
+    """Check the operands and launch their route's kernel (counted),
+    through the ``weld::flash_attention`` op."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention kernel takes CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    which = plan(q, k, v, group, causal)
+    plan(q, k, v, group, causal)
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    return _kernel_op(q, k, v, causal, group, scale)
+
+
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, group: int, scale: float) -> torch.Tensor:
+    """The launch: the body of the operator ``weld::flash_attention``
+    (:data:`_kernel_op`), whose fake form gives the output's shape and
+    strides and launches and counts nothing (the dry run,
+    ``launch/dryrun.py``)."""
+    which = route(q.dtype, q.shape[-1])
     squeeze = q.ndim == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
     bsz, h, sq, d = q.shape
     skv = k.shape[2]
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
-    out = torch.empty((bsz, sq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    scale = float(scale if scale is not None else d ** -0.5)
+    out = _output(q)
     strides = (ctypes.c_longlong * 12)(
         *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3])
     lib = _build.library()
@@ -223,6 +238,43 @@ def _launch(q, k, v, causal, group, scale) -> torch.Tensor:
     if which == "sm90":
         _count.bump(flash_attention, "launches_sm90")
     return out[0] if squeeze else out
+
+
+def _output(q: torch.Tensor) -> torch.Tensor:
+    """The (B, H, Sq, D) output of a (B, H, Sq, D) q: a view of
+    (B, Sq, H, D) storage (the layout the kernels write)."""
+    bsz, h, sq, d = q.shape
+    return torch.empty((bsz, sq, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+_kernel_op = torch.library.custom_op("weld::flash_attention", _kernel,
+                                     mutates_args=())
+
+
+@_kernel_op.register_fake
+def _(q, k, v, causal, group, scale):
+    out = _output(q if q.ndim == 4 else q[None])
+    return out if q.ndim == 4 else out[0]
+
+
+def attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(q, kv) pairs the mask leaves, per (batch, head): the causal mask
+    aligns the Sq rows to the last Sq of the Skv positions
+    (``Sq <= Skv``)."""
+    if not causal:
+        return sq * skv
+    return sq * (skv - sq) + sq * (sq + 1) // 2
+
+
+@register_flop_formula(torch.ops.weld.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, group, scale, *args,
+           out_shape=None, **kwargs) -> int:
+    """4 D FLOPs a (q, kv) pair the mask leaves (2 D for q . k, 2 D for
+    p . v), for every (batch, head)."""
+    *lead, h, sq, d = q_shape
+    bsz = lead[0] if lead else 1
+    return 4 * bsz * h * d * attention_pairs(sq, k_shape[-2], causal)
 
 
 flash_attention.launches = 0

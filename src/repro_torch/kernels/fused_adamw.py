@@ -14,7 +14,10 @@ rounded to its own dtype at the end — the reference's
 ``_leaf_update_pallas`` (cast to f32, run the kernel, cast back) without
 the f32 copies.  p, m and v are updated **in place** and returned (the
 reference returns new arrays): a step over a 3.2 B-parameter model needs
-no second copy of its 38 GB of state.
+no second copy of its 38 GB of state.  The launch goes through the
+operator ``torch.ops.weld.fused_adamw`` (a ``torch.library.custom_op``
+that mutates p, m and v): under a fake mode (the dry run) nothing is
+launched or counted.
 """
 from __future__ import annotations
 
@@ -59,16 +62,35 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if not all(t.is_contiguous() for t in (p, g, m, v)):
         raise ValueError("fused_adamw kernel takes contiguous p, g, m, v")
     lr, omb1, omb2, c1, c2 = adamw_scalars(lr, step, b1, b2)
+    _kernel_op(p, g, m, v, lr, b1, omb1, b2, omb2, eps, wd, c1, c2)
+    return p, m, v
+
+
+def _kernel(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+            v: torch.Tensor, lr: float, b1: float, omb1: float, b2: float,
+            omb2: float, eps: float, wd: float, c1: float,
+            c2: float) -> None:
+    """The launch (counted), updating p, m and v: the body of the
+    operator ``weld::fused_adamw`` (:data:`_kernel_op`), whose fake form
+    launches and counts nothing (the dry run, ``launch/dryrun.py``)."""
     lib = _build.library()
     with torch.cuda.device(p.device):
         rc = lib.weld_fused_adamw(
             DTYPE_CODES[p.dtype], DTYPE_CODES[g.dtype], p.data_ptr(),
-            g.data_ptr(), m.data_ptr(), v.data_ptr(), n, lr, b1, omb1, b2,
-            omb2, eps, wd, c1, c2,
+            g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), lr, b1,
+            omb1, b2, omb2, eps, wd, c1, c2,
             torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(rc, "fused_adamw kernel launch")
     _count.bump(adamw_update, "launches")
-    return p, m, v
+
+
+_kernel_op = torch.library.custom_op("weld::fused_adamw", _kernel,
+                                     mutates_args=("p", "m", "v"))
+
+
+@_kernel_op.register_fake
+def _(p, g, m, v, lr, b1, omb1, b2, omb2, eps, wd, c1, c2):
+    return None
 
 
 adamw_update.launches = 0

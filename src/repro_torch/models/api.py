@@ -8,6 +8,10 @@ package's ``models/api.py``):
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, cache, tokens, pos)
 
+``input_specs(shape, kind)`` returns ``meta`` tensors standing in for
+every input (no allocation) and ``input_axes(kind)`` their logical axes:
+the dry run (``launch/dryrun.py``) traces against these.
+
 Every family of the reference is served: dense and MoE
 (``transformer.DenseLM``), the Mamba2 hybrid (``ssm.Zamba2LM``), xLSTM
 (``xlstm.XLSTMLM``), encoder-decoder (``encdec.EncDecLM``: the batch also
@@ -32,10 +36,10 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from .encdec import EncDecLM
 from .ssm import Zamba2LM
-from .transformer import DenseLM
+from .transformer import DenseLM, zeros_of
 from .vlm import VisionLM
 from .xlstm import XLSTMLM
 
@@ -110,6 +114,52 @@ class Model:
 
     def cache_axes(self):
         return self.impl.cache_axes()
+
+    # -- shape stand-ins ---------------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig, kind: str = None) -> Dict:
+        """``meta`` tensors for the batch dict of ``kind`` ("train" |
+        "prefill" | "decode"; default ``shape.kind``): the reference's
+        shapes and dtypes."""
+        cfg = self.cfg
+        kind = kind or shape.kind
+        b, t = shape.global_batch, shape.seq_len
+
+        def meta(dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if kind in ("train", "prefill"):
+            specs = {"tokens": meta((b, t))}
+            if kind == "train":
+                specs["labels"] = meta((b, t))
+            if cfg.family == "encdec":
+                specs["frames"] = meta((b, cfg.n_frames, cfg.d_model),
+                                       cfg.act_dtype)
+            if cfg.family == "vlm":
+                specs["images"] = meta((b, cfg.n_image_tokens, cfg.d_vision),
+                                       cfg.act_dtype)
+            return specs
+        if kind == "decode":
+            return {"tokens": meta((b, 1)), "pos": meta(()),
+                    "cache": zeros_of(self.cache_spec(b, t), "meta")}
+        raise ValueError(kind)
+
+    def input_axes(self, kind: str) -> Dict:
+        """Logical axes of each input (the batch axis sharded over data)."""
+        cfg = self.cfg
+        if kind in ("train", "prefill"):
+            axes = {"tokens": ("batch", None)}
+            if kind == "train":
+                axes["labels"] = ("batch", None)
+            if cfg.family == "encdec":
+                axes["frames"] = ("batch", None, None)
+            if cfg.family == "vlm":
+                axes["images"] = ("batch", None, None)
+            return axes
+        if kind == "decode":
+            return {"tokens": ("batch", None), "pos": (),
+                    "cache": self.cache_axes()}
+        raise ValueError(kind)
 
     def param_count(self, params=None) -> int:
         tensors = (self.impl.parameters() if params is None

@@ -170,7 +170,8 @@ def apply_rope(x, positions, theta: float = 10000.0):
 def _project(x, w):
     """x (b, t, d) @ w (d, *out) -> (b, t, *out) in x's dtype."""
     b, t, d = x.shape
-    y = torch.matmul(x, w.to(x.dtype).reshape(d, -1))
+    w = mesh_ops.mergeable(w.to(x.dtype), 1, -1)
+    y = torch.matmul(x, w.reshape(d, -1))
     return y.view(b, t, *w.shape[1:])
 
 
@@ -227,8 +228,8 @@ class Attention(Initialised):
     def out(self, ctx, dtype):
         """ctx (b, t, H, hd) -> (b, t, d_model) through wo."""
         b, t = ctx.shape[:2]
-        wo = self.wo.to(dtype)
-        return torch.matmul(ctx.reshape(b, t, -1),
+        wo = mesh_ops.mergeable(self.wo.to(dtype), 0, 1)
+        return torch.matmul(mesh_ops.mergeable(ctx, 2, 3).reshape(b, t, -1),
                             wo.reshape(-1, wo.shape[-1]))
 
     def prefill(self, x, causal: bool = True, rope: bool = True, kv=None):
@@ -266,7 +267,8 @@ class Attention(Initialised):
             cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
             cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
         group = cfg.n_heads // cfg.n_kv_heads
-        qg = q[:, 0].reshape(b, cfg.n_kv_heads, group, cfg.head_dim)
+        qg = mesh_ops.splittable(q[:, 0], 1, cfg.n_kv_heads).reshape(
+            b, cfg.n_kv_heads, group, cfg.head_dim)
         scores = torch.einsum("bhgk,bshk->bhgs", qg.float(),
                               cache_k.float()) * (cfg.head_dim ** -0.5)
         if not cross:

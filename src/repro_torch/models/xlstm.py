@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed import mesh_ops
 from . import layers as L
 from .ssm import chunk_scan
 from .transformer import LMBase, stacked_spec, xent_loss
@@ -83,7 +84,8 @@ class MLstm(L.Initialised):
         yv, state = chunk_scan(q.float(), k.float(), v1.float(), i_g,
                                torch.log(f_g + 1e-8), c, init)
         num, den = yv[..., :hd], yv[..., hd:]
-        h = (num / torch.clamp_min(den.abs(), 1.0)).reshape(b, t, d)
+        h = mesh_ops.grad_splittable(
+            (num / torch.clamp_min(den.abs(), 1.0)).reshape(b, t, d), 2, nh)
         return self._out(x, xn, h.to(x.dtype)), {"state": state}
 
     def decode(self, x, state):
@@ -128,7 +130,8 @@ class SLstm(L.Initialised):
         """One step.  xt: (B, 4d) precomputed W x; returns (c, n, h)."""
         nh, hd = _dims(self.cfg)
         b = xt.shape[0]
-        rec = torch.einsum("bhk,hkg->bhg", h_prev.reshape(b, nh, hd),
+        rec = torch.einsum("bhk,hkg->bhg", mesh_ops.splittable(
+            h_prev, 1, nh).reshape(b, nh, hd),
                            self.rh.to(h_prev.dtype)).reshape(b, 4 * nh * hd)
         pre = (xt + rec).float() + self.bias
         z, i, f, o = pre.chunk(4, dim=-1)

@@ -19,7 +19,11 @@ the mask at Sq below and past Skv), two ``train`` steps of a smoke
 config on the card against the same on the CPU, and one
 ``build_train_step`` step of each other family's smoke config; the mesh path at world 1 (an
 NCCL group of one rank) against the single-device path, and
-``compressed_psum`` through NCCL.
+``compressed_psum`` through NCCL; and the fake forms of the B12 and B13
+launches (the dry run's): their outputs' shapes and strides against the
+real launches', nothing launched or counted, and a dry run of a smoke
+step on the card counting the kernel's attention by the pairs its mask
+leaves.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -1024,6 +1028,90 @@ def test_fused_adamw_refuses_what_it_does_not_take(what, gpu):
     with pytest.raises(err):
         t_aw.adamw_update(p, g, m, v, 1e-3, 1)
     assert t_aw.adamw_update.launches == before
+
+
+# -- the fake forms of the two launches (the dry run) ---------------------------
+
+
+@pytest.mark.parametrize("dtype,d,shape,causal", [
+    (torch.bfloat16, 128, (2, 8, 2, 300, 300), True),    # sm90
+    (torch.bfloat16, 64, (None, 4, 4, 100, 160), True),  # sm90, no batch
+    (torch.float32, 64, (1, 6, 3, 96, 64), False),       # v1, Sq > Skv
+    (torch.bfloat16, 32, (2, 4, 1, 50, 70), True),       # v1 bf16
+])
+def test_fake_attention_launch_has_the_real_launchs_shape(dtype, d, shape,
+                                                          causal, gpu):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    b, h, hk, sq, skv = shape
+    lead = () if b is None else (b,)
+    q = torch.randn(lead + (h, sq, d), device=gpu).to(dtype)
+    k = torch.randn(lead + (hk, skv, d), device=gpu).to(dtype)
+    v = torch.randn_like(k)
+    before = t_fa.flash_attention.launches
+    real = t_ops.attention(q, k, v, causal=causal, group=h // hk)
+    torch.cuda.synchronize()
+    assert t_fa.flash_attention.launches == before + 1
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fake = t_ops.attention(fq, fk, fv, causal=causal, group=h // hk)
+    assert t_fa.flash_attention.launches == before + 1
+    assert (fake.shape, fake.stride(), fake.dtype, fake.device) == (
+        real.shape, real.stride(), real.dtype, real.device)
+
+
+def test_fake_adamw_launch_updates_nothing_and_counts_nothing(gpu):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    p, g, m, v = _adam_state(gpu, 4099, torch.bfloat16, torch.float32,
+                             seed=5)
+    before = t_aw.adamw_update.launches
+    with FakeTensorMode() as mode:
+        fp, fg, fm, fv = (mode.from_tensor(t) for t in (p, g, m, v))
+        out = t_aw.adamw_update(fp, fg, fm, fv, 1e-3, 2)
+    assert out[0] is fp and out[1] is fm and out[2] is fv
+    assert t_aw.adamw_update.launches == before
+    got = t_aw.adamw_update(p, g, m, v, 1e-3, 2)
+    torch.cuda.synchronize()
+    assert t_aw.adamw_update.launches == before + 1
+    assert all(a.shape == b.shape and a.dtype == b.dtype
+               for a, b in zip(out, got))
+
+
+def test_dry_run_on_the_card_counts_the_kernels_pairs(gpu):
+    """The dense smoke config's step traced with fake tensors on the card
+    and on the CPU, each on a (1, 1) mesh of a "fake" process group: the
+    card's forward attention is the kernel's op, counted by the pairs its
+    causal mask leaves, and its backward recomputes the plain version's
+    forward, which the CPU runs in the forward itself; so the card counts
+    the kernel's pairs on top of the CPU's count."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    cfg = get_config("llama3.2-3b", smoke=True)
+    b, s = 4, 32
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        recs = {}
+        for dev in ("cpu", "cuda"):
+            mesh = init_device_mesh(dev, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            recs[dev] = dryrun_cell("llama3.2-3b", "train_4k", mesh,
+                                    smoke=True, batch_override=b,
+                                    seq_override=s, device=dev)
+    finally:
+        dist.destroy_process_group()
+    assert all(r["ok"] for r in recs.values()), recs
+    unit = 4 * b * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    kernel = unit * t_fa.attention_pairs(s, s, True)
+    assert recs["cuda"]["cost"]["flops"] == recs["cpu"]["cost"]["flops"] \
+        + kernel
+    assert recs["cuda"]["param_bytes_per_dev"] \
+        == recs["cpu"]["param_bytes_per_dev"]
 
 
 # -- the attention's gradient ------------------------------------------------

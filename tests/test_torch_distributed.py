@@ -279,3 +279,60 @@ def test_local_mesh_refuses_a_shape_the_world_cannot_hold(tmp_path):
     res = torch_dist.launch("mesh_case", 2, tmp_path)
     assert res[0] == {"default": [2, 1], "tp2": [1, 2],
                       "refused": True}
+
+
+MERGE = """
+import json, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.distributed import mesh_ops
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+# a (d, kv heads, head_dim) projection sharded on head_dim over "model"
+w = distribute_tensor(torch.zeros(8, 2, 8), mesh, [Replicate(), Shard(2)])
+out = {"gate": mesh_ops.flattens_inner_shards()}
+try:
+    out["views"] = list(w.reshape(8, -1).shape)
+except RuntimeError:
+    out["views"] = None
+out["kept"] = mesh_ops.mergeable(w, 1, -1) is w
+mesh_ops.flattens_inner_shards = lambda: False
+g = mesh_ops.mergeable(w, 1, -1)
+out["gathered"] = [type(p).__name__ for p in g.placements]
+out["gathered_view"] = list(g.reshape(8, -1).shape)
+lead = distribute_tensor(torch.zeros(8, 4, 2), mesh, [Replicate(), Shard(1)])
+out["lead_kept"] = mesh_ops.mergeable(lead, 1, -1) is lead
+dist.destroy_process_group()
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def merge():
+    import json
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = torch_dist.SRC + os.pathsep + env.get("PYTHONPATH",
+                                                              "")
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(MERGE)],
+                         env=env, capture_output=True, text=True,
+                         timeout=torch_dist.TIMEOUT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def test_mergeable_keeps_a_shard_where_dtensor_views_it(merge):
+    # the gate says what the installed DTensor does with the view
+    assert merge["gate"] == (merge["views"] is not None)
+    if merge["gate"]:
+        assert merge["views"] == [8, 16]
+    assert merge["kept"] == merge["gate"]
+
+
+def test_mergeable_replicates_an_inner_shard_where_dtensor_cannot(merge):
+    assert merge["gathered"] == ["Replicate", "Replicate"]
+    assert merge["gathered_view"] == [8, 16]
+    # a shard of the merge's first dimension stays: no strided shard
+    assert merge["lead_kept"]

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``
-loads neither ``jax`` nor the JAX package, and an entry point with no
-device chosen refuses to run on a machine without CUDA.  Both checks
+loads neither ``jax`` nor the JAX package, every module of the JAX
+package has a counterpart, and an entry point with no device chosen
+refuses to run on a machine without CUDA.  Both checks
 run in a fresh interpreter, since other tests in this process import
 jax."""
 from __future__ import annotations
@@ -27,7 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 96, names
+assert len(names) >= 116, names
 for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.models.transformer", "repro_torch.models.convert",
              "repro_torch.launch.serve", "repro_torch.kernels.fused_adamw",
@@ -58,7 +59,9 @@ for want in ("repro_torch.kernels.flash_attention", "repro_torch.configs.base",
              "repro_torch.distributed.sharding",
              "repro_torch.distributed.elastic",
              "repro_torch.distributed.mesh_ops", "repro_torch.launch.mesh",
-             "repro_torch.optim.compress"):
+             "repro_torch.optim.compress", "repro_torch.launch.dryrun",
+             "repro_torch.roofline", "repro_torch.roofline.analysis",
+             "repro_torch.roofline.report"):
     assert want in names, want
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -68,6 +71,18 @@ assert not bad, bad
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: reference modules whose port carries another name
+RENAMED = {"core/backend/jaxgen.py": "core/backend/torchgen.py"}
+
+
+def test_every_reference_module_has_a_port():
+    ref = SRC / "repro"
+    missing = sorted(
+        str(rel) for rel in (p.relative_to(ref) for p in ref.rglob("*.py"))
+        if not (SRC / "repro_torch" / RENAMED.get(str(rel), str(rel))).exists())
+    assert not missing, missing
 
 
 def test_entry_point_without_a_device_refuses_the_cpu():
