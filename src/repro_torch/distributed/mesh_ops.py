@@ -7,6 +7,12 @@ where it cannot: a hand-written kernel takes local tensors
 (:func:`expert_parallel`), and a masked partial sum may be reduced only
 once (:func:`like`).  Off a mesh every helper is the identity or a plain
 call, so the single-device path runs as it did.
+
+Where the installed torch's DTensor cannot propagate an operation, the
+helper here does it another way that runs on torch 2.11 and 2.13 alike
+(:func:`batched`, :func:`pad`, :func:`cumsum`), never in the models.  Only :func:`mergeable`'s all-gather depends on the torch,
+by a probe of DTensor's own rule decided once
+(:func:`flattens_inner_shards`: true on 2.13, false on 2.11).
 """
 from __future__ import annotations
 
@@ -99,6 +105,122 @@ def flattens_inner_shards() -> bool:
     except RuntimeError:
         return False
     return type(out[0]).__name__ == "_StridedShard"
+
+
+def batched(fn: Callable, args, dims, out_dims):
+    """``fn(*args)``, where ``fn`` computes independently along the
+    dimensions ``dims[i]`` of ``args[i]`` (the same logical batch
+    dimensions, in one order, for every argument; ``None`` where an
+    argument has none, as a tensor shared by every head) and returns
+    them as its output's ``out_dims`` (one tuple an output where ``fn``
+    returns a tuple).  Decode attention's einsums and the chunked scan
+    of Mamba2 and mLSTM have (batch, head).
+
+    On a mesh whose every sharded dimension of the arguments is one of
+    their batch dimensions, ``fn`` runs under ``local_map`` on the local
+    tensors, forward and backward, so that no DTensor rule of its
+    operations is needed (torch 2.11 cannot flatten (batch, head) with
+    the heads sharded, as einsums do, nor flip, as a cumulative sum's
+    gradient does): each batch dimension stays sharded where it was, an
+    argument without it (``None``) is replicated there, and nothing is
+    gathered.  Where a mesh dimension shards another dimension (the
+    head dimension, where the heads do not divide "model"), DTensor runs
+    ``fn`` itself, which gathers nothing either.  A plain tensor among
+    the arguments is taken as replicated."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def batch_dim(p, a, d):
+        """Which of ``d`` (dimensions of ``a``) the placement ``p``
+        shards, or None."""
+        d = [None if x is None else x % a.ndim for x in d]
+        if isinstance(p, Shard) and p.dim % a.ndim in d:
+            return d.index(p.dim % a.ndim)
+        return None
+
+    if any(isinstance(p, Shard) and batch_dim(p, a, d) is None
+           for a, d in zip(args, dims) if is_dtensor(a)
+           for p in a.placements):
+        return fn(*args)
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    args = [a if is_dtensor(a) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args]
+    several = not isinstance(out_dims[0], int)
+    outs = out_dims if several else (out_dims,)
+    in_pl = [[] for _ in args]
+    out_pl = [[] for _ in outs]
+    for i in range(mesh.ndim):
+        js = {batch_dim(a.placements[i], a, d) for a, d in zip(args, dims)
+              if isinstance(a.placements[i], Shard)}
+        j = js.pop() if len(js) == 1 else None
+        for a, d, pl in zip(args, dims, in_pl):
+            pl.append(Replicate() if j is None or d[j] is None
+                      else Shard(d[j] % a.ndim))
+        for o, pl in zip(outs, out_pl):
+            pl.append(Replicate() if j is None else Shard(o[j]))
+    # a list is one output's placements (a tuple would be one per output)
+    return local_map(fn, out_placements=tuple(out_pl) if several
+                     else out_pl[0], in_placements=tuple(in_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def pad(x, pads):
+    """``F.pad(x, pads)`` with zeros.  On a mesh the zeros are
+    concatenated along each padded dimension (the same values; DTensor's
+    ``cat`` keeps the other dimensions' shards, where torch 2.11's
+    ``constant_pad_nd`` rule gives one placement and planning its
+    redistribution on a 2-D mesh raises ``IndexError``)."""
+    if not is_dtensor(x):
+        return F.pad(x, pads)
+    for k in range(len(pads) // 2):
+        if not (pads[2 * k] or pads[2 * k + 1]):
+            continue
+        dim = x.ndim - 1 - k
+        zero = torch.zeros_like(x.narrow(dim, 0, 1))
+
+        def zeros(n):
+            return [zero.expand(*x.shape[:dim], n, *x.shape[dim + 1:])] \
+                if n else []
+        x = torch.cat(zeros(pads[2 * k]) + [x] + zeros(pads[2 * k + 1]),
+                      dim=dim)
+    return x
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``.  Its gradient is the reversed cumulative
+    sum, which autograd takes as ``flip``, ``cumsum``, ``flip``; torch
+    2.11's DTensor has no rule for ``flip``, so on a mesh the gradient
+    takes the same three operations on the local tensor, ``dim``
+    replicated first where a mesh dimension shards it (the same
+    values)."""
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim)
+    return _CumSum.apply(x, dim)
+
+
+class _CumSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim % x.ndim
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        dim = ctx.dim
+        if grad.shape[dim] == 1:   # autograd's own trivial case
+            return grad, None
+        pl = [Replicate() if isinstance(p, Shard) and p.dim % grad.ndim
+              == dim else p for p in grad.placements]
+        if pl != list(grad.placements):
+            grad = grad.redistribute(grad.device_mesh, pl)
+        out = grad.to_local().flip(dim).cumsum(dim).flip(dim)
+        return DTensor.from_local(out, grad.device_mesh, grad.placements,
+                                  run_check=False, shape=grad.shape,
+                                  stride=grad.stride()), None
 
 
 def grad_splittable(x, dim: int, outer: int):

@@ -44,10 +44,14 @@
 //    operations: 4 D FLOP a pair, about 1.0e11 at the prefill shape over
 //    67 TFLOP/s = 1.54 ms.
 // The head dimension is padded with zeros to 64, 128 or 256 in shared
-// memory (the padded columns add exact zeros); D must be a multiple of 8
-// (16-byte loads) up to 256, and Sq <= Skv under the causal mask (without
-// it any Sq: every q tile walks every kv tile, the last one masked by
-// kj < skv).  The bf16 route with D 64 or
+// memory (the padded columns add exact zeros); D is any of 1 .. 256, and
+// Sq <= Skv under the causal mask (without it any Sq: every q tile walks
+// every kv tile, the last one masked by kj < skv).  Rows move in 16-byte
+// copies where every row of q, k, v and o starts on 16 bytes and D fills
+// whole 16-byte chunks (the VEC kernels); any other operands (qwen2's
+// smoke D 14, a (B, T, H, D) view of an odd H * D) move element by
+// element, zero-filled up to DP (VEC = false): the entry decides from the
+// pointers, strides and D at each launch.  The bf16 route with D 64 or
 // 128 has a Hopper kernel of its own (flash_attention_sm90.cu).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,22 +111,35 @@ __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// rows [r0, r0 + 64) of a (seq, D) slab into smem rows of `ld` elements by
-// asynchronous 16-byte copies, zero-filled past `rows` and past column d
-template <int DP>
+// rows [r0, r0 + 64) of a (seq, D) slab into smem rows of `ld` elements,
+// zero-filled past `rows` and past column d: by asynchronous 16-byte
+// copies (VEC), or element by element with plain loads and stores (a
+// bf16 is smaller than cp.async's least copy); the barrier before the
+// tile's use orders either
+template <int DP, bool VEC>
 __device__ __forceinline__ void load_tile16(__nv_bfloat16* dst, int ld,
                                             const __nv_bfloat16* src,
                                             int64_t ss, int r0, int rows,
                                             int d) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads16) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool in = r0 + r < rows && c < d;
-    const __nv_bfloat16* from = in ? src + (r0 + r) * ss + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * ld + c)),
-                 "l"(from), "r"(in ? 16 : 0));
+  if constexpr (VEC) {
+    constexpr int kChunks = DP / 8;  // 16-byte chunks a row
+    for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads16) {
+      const int r = idx / kChunks;
+      const int c = (idx % kChunks) * 8;
+      const bool in = r0 + r < rows && c < d;
+      const __nv_bfloat16* from = in ? src + (r0 + r) * ss + c : src;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(dst + r * ld + c)),
+                   "l"(from), "r"(in ? 16 : 0));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads16) {
+      const int r = idx / DP;
+      const int c = idx % DP;
+      dst[r * ld + c] = r0 + r < rows && c < d
+                            ? src[(r0 + r) * ss + c]
+                            : __float2bfloat16(0.f);
+    }
   }
 }
 
@@ -153,7 +170,20 @@ __device__ __forceinline__ void ldm_x4_trans(uint32_t* r, const void* ptr) {
       : "r"(smem_addr(ptr)));
 }
 
-template <int DP>
+// columns c, c + 1 (c < d, c even) of an output row: one 4-byte store
+// (VEC), else each column that lies inside the row on its own
+template <bool VEC>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int d,
+                                           float lo, float hi) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(lo, hi);
+  } else {
+    row[c] = __float2bfloat16(lo);
+    if (c + 1 < d) row[c + 1] = __float2bfloat16(hi);
+  }
+}
+
+template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads16)
 flash_bf16(const Params p) {
   constexpr int LD = DP + 8;   // smem row: 16 bytes of padding, so the 8
@@ -188,9 +218,9 @@ flash_bf16(const Params p) {
                             b * p.v_sb + hk * p.v_sh;
 
   const int ntiles = kv_tiles(p, q0, kBQ, kBK);
-  load_tile16<DP>(qs, LD, qg, p.q_ss, q0, p.sq, p.d);
-  load_tile16<DP>(stage0, LD, kg, p.k_ss, 0, p.skv, p.d);
-  load_tile16<DP>(stage0 + kBK * LD, LD, vg, p.v_ss, 0, p.skv, p.d);
+  load_tile16<DP, VEC>(qs, LD, qg, p.q_ss, q0, p.sq, p.d);
+  load_tile16<DP, VEC>(stage0, LD, kg, p.k_ss, 0, p.skv, p.d);
+  load_tile16<DP, VEC>(stage0 + kBK * LD, LD, vg, p.v_ss, 0, p.skv, p.d);
   cp_commit();
 
   const int wr = warp * 16;  // this warp's first row in the tile
@@ -214,8 +244,8 @@ flash_bf16(const Params p) {
     const int kv0 = j * kBK;
     if (j + 1 < ntiles) {
       __nv_bfloat16* next = stage0 + ((j + 1) % 2) * 2 * kBK * LD;
-      load_tile16<DP>(next, LD, kg, p.k_ss, kv0 + kBK, p.skv, p.d);
-      load_tile16<DP>(next + kBK * LD, LD, vg, p.v_ss, kv0 + kBK, p.skv,
+      load_tile16<DP, VEC>(next, LD, kg, p.k_ss, kv0 + kBK, p.skv, p.d);
+      load_tile16<DP, VEC>(next + kBK * LD, LD, vg, p.v_ss, kv0 + kBK, p.skv,
                       p.d);
       cp_commit();
       cp_wait<1>();  // everything but the tile just asked for
@@ -335,14 +365,10 @@ flash_bf16(const Params p) {
   for (int i = 0; i < DT; ++i) {
     const int c = i * 8 + 2 * t;
     if (c < p.d) {
-      if (row0 < p.sq) {
-        *reinterpret_cast<uint32_t*>(og + row0 * p.o_ss + c) =
-            pack_bf16(o[i][0] / d0, o[i][1] / d0);
-      }
-      if (row1 < p.sq) {
-        *reinterpret_cast<uint32_t*>(og + row1 * p.o_ss + c) =
-            pack_bf16(o[i][2] / d1, o[i][3] / d1);
-      }
+      if (row0 < p.sq) store_pair<VEC>(og + row0 * p.o_ss, c, p.d,
+                                       o[i][0] / d0, o[i][1] / d0);
+      if (row1 < p.sq) store_pair<VEC>(og + row1 * p.o_ss, c, p.d,
+                                       o[i][2] / d1, o[i][3] / d1);
     }
   }
 }
@@ -377,27 +403,39 @@ constexpr int kThreads32 = 256;
 __device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
 
 // rows [r0, r0 + 64) of a (seq, D) f32 slab into a 64 x DP tile by
-// asynchronous 16-byte copies (chunk c of row r at chunk swz(r, c)),
-// zero-filled past `rows` and past column d.  A thread copies one column
-// chunk of every kStep-th row, walking one source pointer (an unrolled
-// loop would keep each copy's 64-bit address in registers across the kv
-// loop).
-template <int DP>
+// asynchronous copies (chunk c of row r at chunk swz(r, c)), zero-filled
+// past `rows` and past column d.  VEC: 16-byte copies; a thread copies one
+// column chunk of every kStep-th row, walking one source pointer (an
+// unrolled loop would keep each copy's 64-bit address in registers across
+// the kv loop).  Else 4-byte copies, one an element.
+template <int DP, bool VEC>
 __device__ __forceinline__ void load_tile32(float* dst, const float* src,
                                             int64_t ss, int r0, int rows,
                                             int d) {
-  constexpr int kChunks = DP / 4;
-  constexpr int kStep = kThreads32 / kChunks;  // rows a pass of the block
-  const int c = threadIdx.x % kChunks;
-  const bool col_in = c * 4 < d;
-  int r = threadIdx.x / kChunks;
-  const float* from = src + (r0 + r) * ss + c * 4;
+  if constexpr (VEC) {
+    constexpr int kChunks = DP / 4;
+    constexpr int kStep = kThreads32 / kChunks;  // rows a pass of the block
+    const int c = threadIdx.x % kChunks;
+    const bool col_in = c * 4 < d;
+    int r = threadIdx.x / kChunks;
+    const float* from = src + (r0 + r) * ss + c * 4;
 #pragma unroll 1
-  for (; r < 64; r += kStep, from += kStep * ss) {
-    const bool in = col_in && r0 + r < rows;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * DP + swz(r, c) * 4)),
-                 "l"(in ? from : src), "r"(in ? 16 : 0));
+    for (; r < 64; r += kStep, from += kStep * ss) {
+      const bool in = col_in && r0 + r < rows;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_addr(dst + r * DP + swz(r, c) * 4)),
+                   "l"(in ? from : src), "r"(in ? 16 : 0));
+    }
+  } else {
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads32) {
+      const int r = idx / DP;
+      const int c = idx % DP;
+      const bool in = r0 + r < rows && c < d;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_addr(dst + r * DP + swz(r, c / 4) * 4 + c % 4)),
+                   "l"(in ? src + (r0 + r) * ss + c : src), "r"(in ? 4 : 0));
+    }
   }
 }
 
@@ -405,7 +443,7 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int DP>
+template <int DP, bool VEC>
 __global__ void __launch_bounds__(kThreads32, DP <= 128 ? 2 : 1)
 flash_f32(const Params p) {
   constexpr int kChunks = DP / 4;
@@ -428,8 +466,8 @@ flash_f32(const Params p) {
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile32<DP>(qs, qg, p.q_ss, q0, p.sq, p.d);
-  load_tile32<DP>(ks, kg, p.k_ss, 0, p.skv, p.d);
+  load_tile32<DP, VEC>(qs, qg, p.q_ss, q0, p.sq, p.d);
+  load_tile32<DP, VEC>(ks, kg, p.k_ss, 0, p.skv, p.d);
   cp_commit();
 
   // this thread's 4 q rows and 4 kv rows in the tiles, and the chunk
@@ -457,7 +495,7 @@ flash_f32(const Params p) {
     const int kv0 = j * kBK32;
     cp_wait<0>();
     __syncthreads();  // K(j) has landed; V(j - 1) and P(j - 1) are consumed
-    load_tile32<DP>(vs, vg, p.v_ss, kv0, p.skv, p.d);
+    load_tile32<DP, VEC>(vs, vg, p.v_ss, kv0, p.skv, p.d);
     cp_commit();
 
     float s[4][4];
@@ -532,7 +570,7 @@ flash_f32(const Params p) {
     cp_wait<0>();
     __syncthreads();  // V(j) has landed and P(j) is stored; K(j) is consumed
     if (j + 1 < ntiles) {
-      load_tile32<DP>(ks, kg, p.k_ss, kv0 + kBK32, p.skv, p.d);
+      load_tile32<DP, VEC>(ks, kg, p.k_ss, kv0 + kBK32, p.skv, p.d);
     }
     cp_commit();
 
@@ -563,10 +601,17 @@ flash_f32(const Params p) {
 #pragma unroll
     for (int hh = 0; hh < kOC; ++hh) {
       const int c = 4 * cg + 64 * hh;
-      if (c < p.d) {
-        *reinterpret_cast<float4*>(og + row * p.o_ss + c) = make_float4(
-            o[i][4 * hh] / den, o[i][4 * hh + 1] / den,
-            o[i][4 * hh + 2] / den, o[i][4 * hh + 3] / den);
+      if constexpr (VEC) {
+        if (c < p.d) {
+          *reinterpret_cast<float4*>(og + row * p.o_ss + c) = make_float4(
+              o[i][4 * hh] / den, o[i][4 * hh + 1] / den,
+              o[i][4 * hh + 2] / den, o[i][4 * hh + 3] / den);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < p.d) og[row * p.o_ss + c + e] = o[i][4 * hh + e] / den;
+        }
       }
     }
   }
@@ -583,13 +628,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool VEC>
 cudaError_t run(int dtype, const Params& p, int batch, int heads,
                 cudaStream_t s) {
   if (dtype == 0) {
     const dim3 grid((p.sq + kBQ - 1) / kBQ, heads, batch);
     const size_t smem = sizeof(__nv_bfloat16) * (kBQ + 4 * kBK) * (DP + 8);
-    return launch(flash_bf16<DP>, grid, kThreads16, smem, p, s);
+    return launch(flash_bf16<DP, VEC>, grid, kThreads16, smem, p, s);
   }
   const dim3 grid((p.sq + kBQ32 - 1) / kBQ32, heads, batch);
   const size_t smem =
@@ -597,20 +642,45 @@ cudaError_t run(int dtype, const Params& p, int batch, int heads,
   // the whole of the SM's unified memory as shared memory: two blocks of
   // 112 KB at DP = 128
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_f32<DP>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      flash_f32<DP, VEC>, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  return launch(flash_f32<DP>, grid, kThreads32, smem, p, s);
+  return launch(flash_f32<DP, VEC>, grid, kThreads32, smem, p, s);
+}
+
+// every row of every operand starts on 16 bytes and D fills whole 16-byte
+// chunks: the rows can move in 16-byte copies
+bool rows_on_16_bytes(int dtype, const void* const* ptrs,
+                      const long long* strides, int d) {
+  const int per = dtype == 0 ? 8 : 4;  // elements in 16 bytes
+  if (d % per != 0) return false;
+  for (int i = 0; i < 4; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  }
+  for (int i = 0; i < 12; ++i) {
+    if (strides[i] % per != 0) return false;
+  }
+  return true;
+}
+
+template <bool VEC>
+cudaError_t run_d(int dtype, const Params& p, int batch, int heads,
+                  cudaStream_t s) {
+  if (p.d <= 64) return run<64, VEC>(dtype, p, batch, heads, s);
+  if (p.d <= 128) return run<128, VEC>(dtype, p, batch, heads, s);
+  return run<256, VEC>(dtype, p, batch, heads, s);
 }
 
 }  // namespace
 
 // dtype: 0 = bf16, 1 = f32.  q (B, H, Sq, D), k and v (B, H / group, Skv,
 // D), o (B, H, Sq, D), each with the element strides of its batch, head and
-// sequence dimensions in `strides` (q, k, v, o in turn: 12 values) and a
-// unit-stride head dimension; every pointer and stride 16-byte aligned.
-// Launches on `stream`, allocates nothing, does not synchronise; returns the
-// CUDA error of the launch (0 = success).
+// sequence dimensions in `strides` (q, k, v, o in turn: 12 values; a
+// dimension of size 1 may be given any stride) and a unit-stride head
+// dimension of any D from 1 to 256.  Rows move in 16-byte copies where
+// rows_on_16_bytes holds, else element by element.  Launches on `stream`,
+// allocates nothing, does not synchronise; returns the CUDA error of the
+// launch (0 = success).
 extern "C" int weld_flash_attention(int dtype, const void* q, const void* k,
                                     const void* v, void* o,
                                     const long long* strides, int batch,
@@ -618,7 +688,7 @@ extern "C" int weld_flash_attention(int dtype, const void* q, const void* k,
                                     int d, int causal, float scale,
                                     void* stream) {
   if (batch < 1 || heads < 1 || group < 1 || heads % group != 0 || sq < 1 ||
-      skv < 1 || (causal && skv < sq) || d < 8 || d > 256 || d % 8 != 0 ||
+      skv < 1 || (causal && skv < sq) || d < 1 || d > 256 ||
       heads > 65535 || batch > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -631,13 +701,10 @@ extern "C" int weld_flash_attention(int dtype, const void* q, const void* k,
   p.group = group; p.sq = sq; p.skv = skv; p.d = d; p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d <= 64) {
-    err = run<64>(dtype, p, batch, heads, s);
-  } else if (d <= 128) {
-    err = run<128>(dtype, p, batch, heads, s);
-  } else {
-    err = run<256>(dtype, p, batch, heads, s);
-  }
+  const void* ptrs[4] = {q, k, v, o};
+  const cudaError_t err =
+      rows_on_16_bytes(dtype, ptrs, strides, d)
+          ? run_d<true>(dtype, p, batch, heads, s)
+          : run_d<false>(dtype, p, batch, heads, s);
   return static_cast<int>(err);
 }

@@ -38,8 +38,9 @@ backward of its own (its gradient is XLA's through
 kernel.  A backward kernel written by hand is later work.
 
 The kernels take bf16 (tensor cores, p rounded to bf16 before the PV
-product as the TPU kernel does) or f32 (CUDA cores, full f32), a head
-dimension that is a multiple of 8 up to 256, and, under the causal mask,
+product as the TPU kernel does) or f32 (CUDA cores, full f32), any head
+dimension from 1 to 256 (the reference's blocks take the whole D), and,
+under the causal mask,
 ``Sq <= Skv`` (the mask aligns the q rows to the last Sq kv positions;
 without the mask any Sq and Skv, as the reference's kernel takes: a
 cross-attention's text may be longer than what it attends to); anything
@@ -47,7 +48,10 @@ else raises (:func:`plan`).  They read q, k and v through their strides
 (the ``"sm90"`` route through TMA tensor maps built from them), so the
 (B, T, H, D) activations of a layer go in as (B, H, T, D) views without a
 copy, and they write the output in (B, Sq, H, D) storage, returned as a
-(B, H, Sq, D) view.
+(B, H, Sq, D) view.  The ``"v1"`` kernels move rows in 16-byte copies
+where every row starts on 16 bytes and D fills whole 16-byte chunks, and
+element by element otherwise (a D of 14, a view of an odd H * D): the C
+entry decides from the operands at each launch.
 """
 from __future__ import annotations
 
@@ -89,7 +93,8 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def _strides(t: torch.Tensor) -> list:
     """The (batch, head, seq) element strides of a 4-D operand, a
-    dimension of size 1 given the 16-byte stride a tensor map takes."""
+    dimension of size 1 (never stepped) given the 16-byte stride a tensor
+    map takes and the v1 kernels' 16-byte copies allow."""
     per = 16 // t.element_size()
     return [s if n > 1 else per for n, s in zip(t.shape[:3], t.stride()[:3])]
 
@@ -135,9 +140,9 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or h != hk * group:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k {tuple(k.shape)} do not match group={group}")
-    if d % 8 or not 8 <= d <= MAX_D:
+    if not 1 <= d <= MAX_D:
         raise ValueError(f"flash_attention kernel takes a head dimension "
-                         f"that is a multiple of 8 up to {MAX_D}, got {d}")
+                         f"from 1 to {MAX_D}, got {d}")
     if sq < 1 or skv < 1:
         raise ValueError(f"flash_attention kernel takes Sq, Skv >= 1, got "
                          f"Sq={sq}, Skv={skv}")
@@ -211,10 +216,13 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = q[None], k[None], v[None]
     bsz, h, sq, d = q.shape
     skv = k.shape[2]
-    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    # the "sm90" route's tensor maps need 16-byte strides (D 64 or 128
+    # has them once contiguous); "v1" takes any strides of a unit-stride D
+    q, k, v = (t if (_aligned(t) if which == "sm90" else t.stride(-1) == 1
+                     or d == 1) else t.contiguous() for t in (q, k, v))
     out = _output(q)
     strides = (ctypes.c_longlong * 12)(
-        *_strides(q), *_strides(k), *_strides(v), *out.stride()[:3])
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -269,14 +269,21 @@ class Attention(Initialised):
         group = cfg.n_heads // cfg.n_kv_heads
         qg = mesh_ops.splittable(q[:, 0], 1, cfg.n_kv_heads).reshape(
             b, cfg.n_kv_heads, group, cfg.head_dim)
-        scores = torch.einsum("bhgk,bshk->bhgs", qg.float(),
-                              cache_k.float()) * (cfg.head_dim ** -0.5)
-        if not cross:
-            valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
-            scores = torch.where(valid, scores,
-                                 torch.tensor(NEG_INF, device=x.device))
-        probs = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhgs,bshk->bhgk", probs, cache_v.float())
+
+        def attend(qg, cache_k, cache_v):
+            scores = torch.einsum("bhgk,bshk->bhgs", qg.float(),
+                                  cache_k.float()) * (cfg.head_dim ** -0.5)
+            if not cross:
+                valid = torch.arange(cache_k.shape[1], device=x.device) \
+                    <= pos
+                scores = torch.where(valid, scores,
+                                     torch.tensor(NEG_INF, device=x.device))
+            probs = torch.softmax(scores, dim=-1)
+            return torch.einsum("bhgs,bshk->bhgk", probs, cache_v.float())
+
+        # batch and kv head are batch dimensions of both einsums
+        ctx = mesh_ops.batched(attend, (qg, cache_k, cache_v),
+                               ((0, 1), (0, 2), (0, 2)), (0, 1))
         ctx = ctx.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
         return self.out(ctx, x.dtype)
 

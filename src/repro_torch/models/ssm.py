@@ -28,10 +28,13 @@ call.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import mesh_ops
 from . import layers as L
 from .transformer import LMBase, stacked_spec, xent_loss
 
@@ -64,7 +67,18 @@ def chunk_scan(qc, kc, vc, dt, da, chunk: int, state):
 
     qc, kc: (b, T, H, N) or (b, T, N) (shared by every head); vc: (b, T,
     H, P); dt, da: (b, T, H), all f32; state: (b, N, H, P) f32.  Returns
-    (y (b, T, H, P), final state)."""
+    (y (b, T, H, P), final state).  Batch and head are independent: on a
+    mesh that shards nothing else the scan runs on each rank's own
+    (``mesh_ops.batched``)."""
+    head = None if qc.dim() == 3 else 2
+    return mesh_ops.batched(
+        functools.partial(_chunk_scan, chunk=chunk),
+        (qc, kc, vc, dt, da, state),
+        ((0, head), (0, head), (0, 2), (0, 2), (0, 2), (0, 2)),
+        ((0, 2), (0, 2)))
+
+
+def _chunk_scan(qc, kc, vc, dt, da, state, chunk: int):
     b, t = vc.shape[:2]
     shared = qc.dim() == 3
     ys = []
@@ -72,7 +86,7 @@ def chunk_scan(qc, kc, vc, dt, da, chunk: int, state):
         sl = slice(c0, c0 + chunk)
         qb, kb, vb, dtb, dab = qc[:, sl], kc[:, sl], vc[:, sl], dt[:, sl], \
             da[:, sl]
-        cum = torch.cumsum(dab, dim=1)           # (b, c, H) inclusive
+        cum = mesh_ops.cumsum(dab, 1)            # (b, c, H) inclusive
         total = cum[:, -1:, :]                   # (b, 1, H)
         dtx = vb * dtb[..., None]                # (b, c, H, P)
         if shared:
@@ -134,7 +148,7 @@ class Mamba(L.Initialised):
             torch.matmul(xn, self.in_proj.to(xn.dtype)))
         conv_in = torch.cat([xs, bmat, cmat], dim=-1)
         w = self.conv.to(xn.dtype)
-        pad = F.pad(conv_in, (0, 0, 3, 0))
+        pad = mesh_ops.pad(conv_in, (0, 0, 3, 0))
         conv = 0
         for i in range(4):   # depthwise causal conv, width 4
             conv = conv + pad[:, i:i + t, :] * w[i]

@@ -23,7 +23,10 @@ NCCL group of one rank) against the single-device path, and
 launches (the dry run's): their outputs' shapes and strides against the
 real launches', nothing launched or counted, and a dry run of a smoke
 step on the card counting the kernel's attention by the pairs its mask
-leaves.
+leaves; B12 at head dimensions 14 and 40 through unaligned strides; the
+``mesh_ops`` probe's answer on this torch, every smoke config's dry run
+on a (2, 4) mesh on the card, and ``test_torch_mesh_ops.py``'s gloo
+cases (2 CPU ranks, a (1, 2) mesh against one device) on this torch.
 
 These tests need a CUDA card and ``nvcc``; without one they skip (the
 CPU tests hold the same arithmetic through the plain versions and the
@@ -905,6 +908,32 @@ def test_flash_attention_without_the_mask_takes_any_sq(dtype, sq, skv, d, h,
     _hold_attention(q, k, v, False, group)
 
 
+@pytest.mark.parametrize("causal", (True, False))
+@pytest.mark.parametrize("d", (14, 40))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_flash_attention_takes_any_head_dimension_through_its_strides(
+        dtype, d, causal, gpu):
+    """D 14 (qwen2-7b's smoke config) and 40 on the v1 kernel, with GQA,
+    as (B, T, H, D) views of rows one element wider than D: no row of q,
+    k, v starts on 16 bytes, so every load takes the element path; the
+    same operands made contiguous (D 40: the 16-byte path) give the same
+    result bitwise."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(d + int(causal))
+
+    def draw(heads, s, mul):
+        x = torch.randn((2, s, heads, d + 1), generator=gen, device=gpu)
+        return (x * mul).to(dtype)[..., :d].transpose(1, 2)
+
+    q, k, v = draw(4, 100, 0.5), draw(2, 130, 0.5), draw(2, 130, 1.0)
+    assert t_fa.route(dtype, d) == "v1" and not t_fa._aligned(q)
+    _hold_attention(q, k, v, causal, 2)
+    got = t_fa.flash_attention(q, k, v, causal=causal, group=2)
+    want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, group=2)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("entry", ("weld_flash_attention",
                                    "weld_flash_attention_sm90"))
 def test_flash_attention_c_entries_refuse_causal_sq_past_skv(entry, gpu):
@@ -935,7 +964,7 @@ def test_flash_attention_c_entries_refuse_causal_sq_past_skv(entry, gpu):
 @pytest.mark.parametrize("dtype,d,sq,skv,what", [
     (torch.float16, 64, 8, 8, TypeError),
     (torch.float64, 64, 8, 8, TypeError),
-    (torch.bfloat16, 12, 8, 8, ValueError),
+    (torch.bfloat16, 0, 8, 8, ValueError),
     (torch.bfloat16, 264, 8, 8, ValueError),
     (torch.float32, 64, 9, 8, ValueError),
     (torch.bfloat16, 64, 9, 8, ValueError),   # causal Sq > Skv, sm90 route
@@ -1038,6 +1067,8 @@ def test_fused_adamw_refuses_what_it_does_not_take(what, gpu):
     (torch.bfloat16, 64, (None, 4, 4, 100, 160), True),  # sm90, no batch
     (torch.float32, 64, (1, 6, 3, 96, 64), False),       # v1, Sq > Skv
     (torch.bfloat16, 32, (2, 4, 1, 50, 70), True),       # v1 bf16
+    (torch.bfloat16, 14, (2, 4, 2, 40, 56), True),       # v1, D 14
+    (torch.float32, 13, (1, 2, 1, 33, 33), False),       # v1, odd D
 ])
 def test_fake_attention_launch_has_the_real_launchs_shape(dtype, d, shape,
                                                           causal, gpu):
@@ -1112,6 +1143,79 @@ def test_dry_run_on_the_card_counts_the_kernels_pairs(gpu):
         + kernel
     assert recs["cuda"]["param_bytes_per_dev"] \
         == recs["cpu"]["param_bytes_per_dev"]
+
+
+#: the answer of each ``mesh_ops`` probe by the torch (major, minor)
+#: that gives it: torch 2.11's DTensor refuses the operation, 2.13's
+#: does it
+PROBES = {"flattens_inner_shards": {(2, 11): False, (2, 13): True}}
+
+
+@pytest.mark.parametrize("probe", sorted(PROBES))
+def test_mesh_ops_probe_answers_as_this_torch_does(probe, gpu):
+    from repro_torch.distributed import mesh_ops
+
+    version = tuple(int(x) for x in torch.__version__.split(".")[:2])
+    assert version in PROBES[probe], torch.__version__
+    getattr(mesh_ops, probe).cache_clear()
+    assert getattr(mesh_ops, probe)() is PROBES[probe][version]
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks(gpu, tmp_path_factory):
+    """``test_torch_mesh_ops.py``'s gloo cases on this host's torch: 2
+    ranks on the CPU, each case on a (1, 2) mesh and on one device."""
+    import test_torch_mesh_ops as t_mo
+
+    return t_mo.launch_cases(tmp_path_factory.mktemp("gloo"),
+                             torch_211=False)
+
+
+@pytest.mark.parametrize("name", ["train_zamba2-1.2b", "train_xlstm-350m",
+                                  "decode_deepseek-moe-16b",
+                                  "decode_zamba2-1.2b",
+                                  "decode_whisper-large-v3"])
+def test_the_mesh_path_on_this_torch_computes_what_one_device_does(
+        gloo_ranks, name):
+    """The values of ``mesh_ops``' ``batched``, ``pad`` and ``cumsum`` and
+    of ``mergeable`` as this torch takes it (an all-gather on 2.11):
+    losses, gradient norms and logits of the mesh against one device, to
+    ``test_torch_mesh_ops.py``'s tolerance."""
+    import test_torch_mesh_ops as t_mo
+
+    t_mo.check_against_one_device(gloo_ranks, name, "native")
+
+
+def test_every_arch_traces_on_a_small_mesh_on_the_card(gpu):
+    """``test_torch_dryrun.py::test_every_arch_traces_on_a_small_mesh`` on
+    the card's device type and torch: every smoke config's train_4k,
+    prefill_32k and decode_32k traced with fake tensors on the card, on a
+    (2, 4) mesh of a "fake" process group of 8 ranks, batch 4, sequence
+    32.  Torch 2.11 refused six of these cells and qwen2-7b's D of 14
+    two before ``mesh_ops.batched``, ``pad`` and ``cumsum`` and B12's
+    element path."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import list_configs
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    archs = [a for a in list_configs() if a != "weld-bench"]
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = init_device_mesh("cuda", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        recs = {f"{a}|{s}": dryrun_cell(a, s, mesh, smoke=True,
+                                        batch_override=4, seq_override=32,
+                                        device="cuda")
+                for a in archs
+                for s in ("train_4k", "prefill_32k", "decode_32k")}
+    finally:
+        dist.destroy_process_group()
+    bad = {k: r.get("error") for k, r in recs.items() if not r["ok"]}
+    assert not bad, bad
+    assert all("cost" in recs[f"{a}|train_4k"] for a in archs)
 
 
 # -- the attention's gradient ------------------------------------------------

@@ -249,8 +249,8 @@ def test_kernel_names_the_cuda_function_its_route_runs(dtype, d, want):
     ("f64", (1, 2, 8, 64, "f64"), (1, 2, 8, 64, "f64"), None, 1, TypeError),
     ("mixed dtypes", (1, 2, 8, 64, "bf16"), (1, 2, 8, 64, "f32"), None, 1,
      TypeError),
-    ("D not a multiple of 8", (1, 2, 8, 12, "bf16"), (1, 2, 8, 12, "bf16"),
-     None, 1, ValueError),
+    ("D of 0", (1, 2, 8, 0, "bf16"), (1, 2, 8, 0, "bf16"), None, 1,
+     ValueError),
     ("D past 256", (1, 2, 8, 264, "bf16"), (1, 2, 8, 264, "bf16"), None, 1,
      ValueError),
     ("Sq > Skv", (1, 2, 9, 64, "bf16"), (1, 2, 8, 64, "bf16"), None, 1,
@@ -274,6 +274,35 @@ def test_kernel_plan_refuses_what_no_kernel_takes(what, q, k, v, group, err):
     vt = kt if v is None else make(v)
     with pytest.raises(err):
         t_fa.plan(qt, kt, vt, group=group, causal=True)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    *((dt, d, "v1") for dt in (torch.bfloat16, torch.float32)
+      for d in (1, 12, 14, 40, 200)),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+])
+def test_kernel_plan_takes_any_head_dimension_up_to_256(dtype, d, want):
+    """The reference's kernel takes the whole D in each block, whatever it
+    is (qwen2-7b's smoke config has D 14): ``plan`` takes D 1 to 256, bf16
+    at D 64 and 128 on the Hopper route and everything else on v1."""
+    q = torch.zeros((1, 4, 8, d), dtype=dtype)
+    k = torch.zeros((1, 2, 8, d), dtype=dtype)
+    assert t_fa.plan(q, k, k, group=2, causal=True) == want
+    assert t_fa.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d", (1, 13, 14, 40))
+@pytest.mark.parametrize("causal", (True, False))
+def test_the_fake_form_and_flop_formula_read_any_head_dimension(d, causal):
+    """The dry run's view of a launch at any D: the fake form's output
+    is q's shape in (B, Sq, H, D) storage, and the FLOP formula counts
+    4 D a (q, kv) pair the mask leaves, for every (batch, head)."""
+    q, k = (2, 4, 40, d), (2, 2, 56, d)
+    out = t_fa._output(torch.empty(q, device="meta"))
+    assert tuple(out.shape) == q and out.stride() == (40 * 4 * d, d,
+                                                      4 * d, 1)
+    pairs = 40 * 56 if not causal else 40 * 16 + 40 * 41 // 2
+    assert t_fa._flops(q, k, k, causal, 2, d ** -0.5) == 4 * 2 * 4 * d * pairs
 
 
 @pytest.mark.parametrize("dtype,d,want", [

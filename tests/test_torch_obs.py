@@ -3,10 +3,13 @@ package's, on the CPU: the span tracer, its Chrome-trace export and
 tree rendering, the cost ledger, and the spans an evaluation emits.
 
 The tracer cases of ``test_obs.py`` that need neither JAX nor
-``Query.explain`` (which waits for the AOT slice), each run against
-both packages; then the port's pipeline spans, the planner's
-``kernelplan.candidate`` events and the measured replay's ledger
-records, held against the reference's on the same inputs.  Nothing
+``Query.explain`` (whose cases run through ``test_torch_explain.py``),
+each run against both packages; then the port's pipeline spans, the
+planner's ``kernelplan.candidate`` events and the measured replay's
+ledger records, held against the reference's on the same inputs; and
+the ledger's CLI, ``tools/cost_report_torch.py``, held to the
+reference's ``test_cost_report_cli`` and to ``tools/cost_report.py``'s
+output on equal ledgers.  Nothing
 here is timed against a limit: spans are checked for nesting and order
 only, and a record's ``measured_ns`` only for being positive.
 """
@@ -405,3 +408,63 @@ def test_trace_smoke_tool_runs_on_the_cpu():
         timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "ledger summary OK" in proc.stdout
+
+
+def _cli(tool, *args):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, str(root / "tools" / tool),
+                          *args], env=env, capture_output=True, text=True,
+                         check=True, timeout=300)
+    return json.loads(out.stdout)
+
+
+def test_cost_report_cli(tmp_path):
+    """The reference's ``test_obs.py::test_cost_report_cli`` against the
+    port's tool and ledger."""
+    path = str(tmp_path / "l.jsonl")
+    t_ledger.record("group_probe", "float64", 4096, predicted_ns=1500,
+                    measured_ns=4500, path=path)
+    data = _cli("cost_report_torch.py", "--ledger", path, "--json")
+    assert data["records"] == 1
+    assert data["groups"][0]["kernel"] == "group_probe"
+    assert data["groups"][0]["ratio"] == pytest.approx(3.0, abs=0.01)
+
+
+#: (kernel, dtype, n, predicted_ns, measured_ns) written through both
+#: packages' ``ledger.record``: two buckets of one kernel, a group of
+#: several calls, another dtype, and a call with no prediction
+RECORDS = [("group_probe", "float64", 4096, 1500, 4500),
+           ("group_probe", "float64", 4000, 1600, 4100),
+           ("group_probe", "float64", 3000, 1400, 4800),
+           ("group_probe", "float64", 100_000, 20_000, 30_000),
+           ("group_build", "int64", 8192, 900, 2700),
+           ("group_build", "int32", 8192, 800, 1000),
+           ("dict_probe", "float64", 512, None, 700)]
+
+
+def test_cost_report_json_equals_the_reference_cli(tmp_path):
+    """The same records written through each package's ``ledger.record``
+    give equal ``--json`` output from the two CLIs (but for the ledger's
+    path), whole and for one ``--kernel``."""
+    paths = {}
+    for name, mod in (("ref", r_ledger), ("port", t_ledger)):
+        paths[name] = str(tmp_path / f"{name}.jsonl")
+        for kernel, dtype, n, pred, meas in RECORDS:
+            mod.record(kernel, dtype, n, predicted_ns=pred, measured_ns=meas,
+                       path=paths[name])
+    for extra in ([], ["--kernel", "group_probe"]):
+        want = _cli("cost_report.py", "--ledger", paths["ref"], "--json",
+                    *extra)
+        got = _cli("cost_report_torch.py", "--ledger", paths["port"],
+                   "--json", *extra)
+        assert got.pop("ledger") == paths["port"]
+        want.pop("ledger")
+        assert got == want
+        assert got["records"] == (len(RECORDS) if not extra else 4)

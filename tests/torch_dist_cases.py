@@ -100,9 +100,10 @@ def train_mesh(arch="llama3.2-3b", dp=None, tp=1, steps=3, global_batch=4,
 
 
 def step_mesh(arch="llama3.2-3b", dp=2, tp=2, steps=3, global_batch=4,
-              seq_len=16, accum=1, remat=True, seed=0):
-    """``build_train_step`` on the mesh with the config's remat set: the
-    batches of ``TokenPipeline``, the weights of ``train``'s draw."""
+              seq_len=16, accum=1, remat=True, seed=0, mesh=True):
+    """``build_train_step`` on the mesh (on one device without ``mesh``)
+    with the config's remat set: the batches of ``TokenPipeline``, the
+    weights of ``train``'s draw."""
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.distributed import sharding
@@ -114,13 +115,17 @@ def step_mesh(arch="llama3.2-3b", dp=2, tp=2, steps=3, global_batch=4,
     _guard_kernels()
     cfg = dataclasses.replace(get_config(arch, smoke=True), remat=remat)
     model = build_model(cfg)
-    mesh = make_local_mesh(dp, tp)
-    pspecs, mspecs = t_train.state_specs(model, mesh)
     gen = torch.Generator()
     gen.manual_seed(seed)
     with torch.no_grad():
-        params = sharding.distribute(model.init(gen), pspecs, mesh)
-    opt = adamw_init(params, mspecs)
+        params = model.init(gen)
+    if mesh:
+        mesh = make_local_mesh(dp, tp)
+        pspecs, mspecs = t_train.state_specs(model, mesh)
+        params = sharding.distribute(params, pspecs, mesh)
+        opt = adamw_init(params, mspecs)
+    else:
+        mesh, opt = None, adamw_init(params)
     step = t_train.build_train_step(model, mesh=mesh, accum=accum,
                                     peak_lr=1e-3, total_steps=steps)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq_len,
@@ -192,3 +197,84 @@ def mesh_case():
         out["refused"] = True
     return out
 
+
+
+def _torch_211_path():
+    """``mesh_ops.flattens_inner_shards`` answered as torch 2.11 answers
+    it (``mergeable`` all-gathers first); returns the undo."""
+    from repro_torch.distributed import mesh_ops
+
+    saved = mesh_ops.flattens_inner_shards
+    mesh_ops.flattens_inner_shards = lambda: False
+
+    def undo():
+        mesh_ops.flattens_inner_shards = saved
+    return undo
+
+
+def on_mesh_and_one_device(case, torch_211=True, **kw):
+    """``case(**kw)`` on one device (``mesh=False``), on the mesh as this
+    torch runs it, and (with ``torch_211``) on the mesh with
+    ``mesh_ops``' probe false, the path torch 2.11 takes."""
+    out = {"one": globals()[case](mesh=False, **kw),
+           "native": globals()[case](**kw)}
+    if torch_211:
+        undo = _torch_211_path()
+        try:
+            out["torch_211"] = globals()[case](**kw)
+        finally:
+            undo()
+    return out
+
+
+def decode_mesh(arch="deepseek-moe-16b", dp=2, tp=2, batch=4, max_seq=8,
+                steps=3, seed=0, mesh=True):
+    """``decode_step`` on the (dp, tp) mesh, the parameters placed by the
+    rules and the cache zeros placed by ``cache_axes`` (on one device
+    without ``mesh``): the logits of ``steps`` tokens, whole, as
+    numpy."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _guard_kernels()
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        params = model.init(gen)
+    if mesh:
+        mesh = make_local_mesh(dp, tp)
+        pspecs, _ = t_train.state_specs(model, mesh)
+        params = sharding.distribute(params, pspecs, mesh)
+    specs = model.input_specs(ShapeConfig("d", max_seq, batch, "decode"),
+                              "decode")
+    axes = model.input_axes("decode")
+
+    def placed(meta, ax, fill):
+        if isinstance(meta, dict):
+            return {k: placed(meta[k], ax[k], fill) for k in meta}
+        if not mesh:
+            return fill(meta)
+        spec = sharding.spec_for_leaf(meta.shape, ax, mesh)
+        return sharding.distribute({"x": fill(meta)}, {"x": spec},
+                                   mesh)["x"]
+
+    cache = placed(specs["cache"], axes["cache"],
+                   lambda m: torch.zeros(m.shape, dtype=m.dtype))
+    rng = np.random.RandomState(seed)
+    out = []
+    with torch.no_grad(), implicit_replication():
+        for pos in range(steps):
+            tok = torch.from_numpy(rng.randint(
+                0, cfg.vocab, size=specs["tokens"].shape)).to(
+                    specs["tokens"].dtype)
+            tok = placed(specs["tokens"], axes["tokens"], lambda m: tok)
+            logits, cache = model.decode_step(params, cache, tok, pos)
+            out.append(_np(logits))
+    return out

@@ -13,21 +13,16 @@ with tracing on, then asserts the observability surface end to end:
 * ``Query.explain(analyze=True)`` shows ``group_build``/``group_probe``
   launches with both predicted and measured times;
 * the ledger's per-(kernel, dtype, size-bucket) summary — the report
-  ``tools/cost_report.py`` prints — covers both join kernels.  The
-  summary is made by the port's own ledger module (``summarize`` and
-  ``format_report``, the functions that CLI calls), since the CLI
-  itself imports the JAX package's copy.
+  ``tools/cost_report_torch.py`` prints, made by its own functions —
+  covers both join kernels.
 
 State (ledger, autotune cache, kernel health file) is confined to a temp
 directory.
 
     PYTHONPATH=src python tools/trace_smoke_torch.py [--device cpu]
 
-``--calibrate-dump [--ledger PATH] [--kernel NAME]`` runs nothing and
-prints the cost gate's view of a ledger instead (the port's counterpart
-of ``tools/cost_report.py --calibrate-dump``): one row per (kernel,
-dtype, size bucket) with the median ``kernelplan.calibrate`` would
-overlay and whether the group clears ``$WELD_CALIBRATE_MIN``.
+The cost gate's view of a ledger is ``tools/cost_report_torch.py
+--calibrate-dump``.
 """
 from __future__ import annotations
 
@@ -40,8 +35,6 @@ import tempfile
 _TOOLS = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_TOOLS, "..", "src"))
 
-#: the ledger named before this run (what --calibrate-dump reads)
-_USER_LEDGER = os.environ.get("WELD_COST_LEDGER")
 _td = tempfile.mkdtemp(prefix="weld-trace-smoke-torch-")
 os.environ["WELD_COST_LEDGER"] = os.path.join(_td, "cost_ledger.jsonl")
 os.environ["WELD_KERNEL_HEALTH"] = os.path.join(_td, "kernel_health.json")
@@ -50,52 +43,16 @@ os.environ["WELD_AUTOTUNE_CACHE"] = os.path.join(_td, "autotune.json")
 import numpy as np  # noqa: E402
 
 import repro_torch  # noqa: E402
+from cost_report_torch import report_text, summary  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.frames import weldrel  # noqa: E402
-
-
-def calibrate_dump(path: str, kernel=None) -> dict:
-    """The gate's own view of the ledger at ``path``: one row per
-    (kernel, dtype, size bucket, impl, device) with the median it would
-    overlay and
-    whether the group clears the sample floor.  It goes through
-    ``kernelplan.calibrate`` itself, so what it prints is what
-    ``cost.estimate`` would use."""
-    from repro_torch.core.kernelplan import calibrate
-
-    floor = calibrate.min_samples()
-    rows = []
-    groups = sorted(calibrate.medians(path).items(),
-                    key=lambda kv: tuple(str(x) for x in kv[0]))
-    for (kern, dtype, bucket, impl, device), g in groups:
-        if kernel and kern != kernel:
-            continue
-        rows.append({"kernel": kern, "dtype": dtype, "bucket": bucket,
-                     "impl": impl, "device": device, "calls": g["calls"],
-                     "measured_ns_median": g["measured_ns"],
-                     "eligible": g["calls"] >= floor,
-                     "min_samples": floor})
-    return {"ledger": path, "enabled": calibrate.enabled(), "groups": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="evaluation device (default: cuda)")
-    ap.add_argument("--calibrate-dump", action="store_true",
-                    help="print the calibration medians of --ledger and "
-                         "exit")
-    ap.add_argument("--ledger", default=None,
-                    help="ledger for --calibrate-dump (default: "
-                         "$WELD_COST_LEDGER as set before this run, or "
-                         "the default ledger)")
-    ap.add_argument("--kernel", default=None,
-                    help="only this kernel's rows in --calibrate-dump")
     args = ap.parse_args(argv)
-    if args.calibrate_dump:
-        path = args.ledger or _USER_LEDGER or obs.ledger.ledger_path()
-        print(json.dumps(calibrate_dump(path, args.kernel), indent=1))
-        return 0
     repro_torch.set_default_device(args.device)
     obs.enable()
 
@@ -173,9 +130,8 @@ def main(argv=None) -> int:
         stack.append(sp)
     print(f"chrome trace OK: {len(events)} events, nesting monotonic")
 
-    # -- the ledger's summary (what tools/cost_report.py prints) --------
-    summary = obs.ledger.summarize(obs.ledger.read(ledger_path))
-    text = obs.ledger.format_report(summary)
+    # -- the ledger's summary (what tools/cost_report_torch.py prints) --
+    text = report_text(summary(ledger_path))
     assert "group_build" in text and "group_probe" in text, text
     print("ledger summary OK:")
     print(text)
