@@ -34,7 +34,7 @@ def main():
     c = fa.flash_attention
     print(f"flash_attention (D {cfg.head_dim}, {cfg.act_dtype}): "
           f"v1={c.launches - c.launches_sm90} sm90={c.launches_sm90} "
-          f"plain={c.plain_calls}")
+          f"plain={c.plain_calls} pack={c.launches_pack}")
 
 
 if __name__ == "__main__":

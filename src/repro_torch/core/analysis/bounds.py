@@ -136,6 +136,10 @@ class BuilderBound:
     role: str  # "hint" | "cap" | "out_cap"
 
 
+#: the guards of a loop's own iteration: no key proven present yet
+_NO_GUARDS: frozenset = frozenset()
+
+
 class _Unknown(Exception):
     """A merge whose target builder can't be identified — poison the
     enclosing loop's bounds rather than under-count."""
@@ -144,14 +148,59 @@ class _Unknown(Exception):
 # -- certificate terms (mirror of the emitter's charge sites) -------------
 
 
-def _charge_terms(e: ir.Expr) -> List[Tuple[str, Sym]]:
+def _scan(e: ir.Expr):
+    """One walk for what :func:`analyze` reads of the whole tree: the free
+    variables, as ``ir.free_vars`` gives them; the NewBuilder and
+    KernelCall nodes in preorder (``ir.walk``'s order), where the emitter
+    may charge; and the ids of the nodes with a Merge or a For in their
+    subtree outside any Lambda, the only ones where
+    :meth:`_Analyzer._count_merges` can count a merge."""
+    fv: Dict[str, wt.WeldType] = {}
+    sites: List[ir.Expr] = []
+    merging = set()
+
+    def visit(x: ir.Expr, bound: frozenset) -> bool:
+        t = type(x)
+        if t is ir.Ident:
+            if x.name not in bound:
+                fv.setdefault(x.name, x.ty)
+            return False
+        if t is ir.Let:
+            m = visit(x.value, bound)
+            m = visit(x.body, bound | {x.name}) or m
+        elif t is ir.Lambda:
+            # its params are Idents: bound here, and never charge sites;
+            # merges in its body are its loop's, never an enclosing one's
+            visit(x.body, bound | {p.name for p in x.params})
+            return False
+        else:
+            if t is ir.NewBuilder or t is ir.KernelCall:
+                sites.append(x)
+            m = t is ir.Merge or t is ir.For
+            for c in x.children():
+                # leaves inline: a call for each would be most of the walk
+                tc = type(c)
+                if tc is ir.Ident:
+                    if c.name not in bound:
+                        fv.setdefault(c.name, c.ty)
+                elif tc is not ir.Literal:
+                    m = visit(c, bound) or m
+        if m:
+            merging.add(id(x))
+        return m
+
+    visit(e, frozenset())
+    return fv, sites, merging
+
+
+def _charge_terms(sites: Sequence[ir.Expr]) -> List[Tuple[str, Sym]]:
     """One term per emitter charge: hinted scalar vecbuilders (the
     generic lowerings and the m:n group-probe buffers both charge
     ``hint * itemsize``) and kernel footprint hooks.  Unresolvable
     terms evaluate to nothing — exactly what the emitter charges when
     it can't statically size an allocation."""
     terms: List[Tuple[str, Sym]] = []
-    for node in ir.walk(e):
+    for node in sites:
         if (isinstance(node, ir.NewBuilder)
                 and isinstance(node.ty, wt.VecBuilder)
                 and node.size_hint is not None
@@ -215,47 +264,51 @@ def _kernel_term(x: ir.KernelCall) -> Optional[Sym]:
 
 
 class _Analyzer:
-    def __init__(self):
+    def __init__(self, merging):
         self.builders: List[BuilderBound] = []
         self.name_rows: Dict[str, Interval] = {}
+        #: ids of the nodes with a Merge or a For below (``_scan``): in
+        #: any other subtree the count is empty and has no side effect
+        self.merging = merging
 
     # .. value evaluation ..................................................
 
     def eval(self, e: ir.Expr, env: Dict[str, object]):
-        if isinstance(e, ir.Ident):
+        t = type(e)
+        if t is ir.Ident:
             return env.get(e.name)
-        if isinstance(e, ir.Let):
+        if t is ir.Let:
             v = self.eval(e.value, env)
             if isinstance(v, AVec):
                 self.name_rows[e.name] = v.n
             env2 = dict(env)
             env2[e.name] = v
             return self.eval(e.body, env2)
-        if isinstance(e, (ir.If, ir.Select)):
+        if t is ir.If or t is ir.Select:
             self.eval(e.cond, env)
             return self._join(self.eval(e.on_true, env),
                               self.eval(e.on_false, env))
-        if isinstance(e, ir.MakeStruct):
+        if t is ir.MakeStruct:
             return AStruct(tuple(self.eval(i, env) for i in e.items))
-        if isinstance(e, ir.GetField):
+        if t is ir.GetField:
             v = self.eval(e.expr, env)
             if isinstance(v, AStruct) and e.index < len(v.items):
                 return v.items[e.index]
             return None
-        if isinstance(e, ir.MakeVec):
+        if t is ir.MakeVec:
             return AVec(d.point(d.const(len(e.items))))
-        if isinstance(e, ir.Result):
-            if isinstance(e.builder, ir.For):
+        if t is ir.Result:
+            if type(e.builder) is ir.For:
                 return self._ev_for(e.builder, env)
             return self.eval(e.builder, env)
-        if isinstance(e, ir.For):
+        if t is ir.For:
             return self._ev_for(e, env)
-        if isinstance(e, ir.GroupLookup):
+        if t is ir.GroupLookup:
             dv = self.eval(e.expr, env)
             self.eval(e.key, env)
             hi = dv.total.hi if isinstance(dv, ADict) else d.const(INF)
             return AVec(Interval(d.const(0), hi))
-        if isinstance(e, ir.KernelCall):
+        if t is ir.KernelCall:
             return self._ev_kernelcall(e, env)
         # leaves and nodes with no size meaning: still traverse children
         # so nested Lets/loops get analyzed
@@ -285,7 +338,8 @@ class _Analyzer:
             hi = dv.total.hi if isinstance(dv, ADict) else d.const(INF)
             lo = d.const(0)
             try:
-                if (data.expr.name, ir.canon_key(data.key)) in guards:
+                if guards and (data.expr.name,
+                               ir.canon_key(data.key)) in guards:
                     lo = d.const(1)  # key proven present: >= 1 group row
             except Exception:
                 pass
@@ -313,15 +367,17 @@ class _Analyzer:
             return None  # unanalyzable body: no bounds recorded
 
     def _ev_for_inner(self, loop: ir.For, env):
-        n_it = self._iter_interval(loop.iters, env, frozenset())
+        n_it = self._iter_interval(loop.iters, env, _NO_GUARDS)
         if len(loop.func.params) != 3:
             raise _Unknown
         b_name = loop.func.params[0].name
-        counts = self._count_merges(loop.func.body, env, frozenset())
+        counts = self._count_merges(loop.func.body, env, _NO_GUARDS)
 
         def tot(idx) -> Interval:
             per = counts.get((b_name, idx), d.ZERO)
-            return per.mul(n_it)
+            # one merge an iteration (the ONE that _count_merges puts
+            # there): ONE.mul(n_it) equals n_it
+            return n_it if per is d.ONE else per.mul(n_it)
 
         init = loop.builder
         if isinstance(init, ir.NewBuilder):
@@ -340,20 +396,26 @@ class _Analyzer:
 
     def _count_merges(self, e: ir.Expr, env, guards
                       ) -> Dict[Tuple[str, Optional[int]], Interval]:
-        """Per-iteration merge counts into each named builder slot."""
-        if isinstance(e, ir.Merge):
+        """Per-iteration merge counts into each named builder slot.  Empty,
+        with nothing recorded, for a subtree outside ``self.merging``:
+        one with no Merge or For, or a Lambda (kernel fns / non-loop
+        lambdas: no outer merges)."""
+        if id(e) not in self.merging:
+            return {}
+        ty = type(e)
+        if ty is ir.Merge:
             counts = self._count_merges(e.value, env, guards)
             tgt = e.builder
-            if isinstance(tgt, ir.Merge):
+            if type(tgt) is ir.Merge:
                 counts = _sum(counts, self._count_merges(tgt, env, guards))
             slot = _root_slot(tgt)
             if slot is None:
                 raise _Unknown  # can't attribute this merge: poison
-            return _sum(counts, {slot: d.ONE})
-        if isinstance(e, ir.If):
+            return _sum(counts, {slot: d.ONE}) if counts else {slot: d.ONE}
+        if ty is ir.If:
             g2 = guards
-            if isinstance(e.cond, ir.KeyExists) \
-                    and isinstance(e.cond.expr, ir.Ident):
+            if type(e.cond) is ir.KeyExists \
+                    and type(e.cond.expr) is ir.Ident:
                 try:
                     g2 = guards | {(e.cond.expr.name,
                                     ir.canon_key(e.cond.key))}
@@ -363,13 +425,13 @@ class _Analyzer:
             t = self._count_merges(e.on_true, env, g2)
             f = self._count_merges(e.on_false, env, guards)
             return _sum(c, _join_counts(t, f))
-        if isinstance(e, ir.For):
+        if ty is ir.For:
             if len(e.func.params) != 3:
                 raise _Unknown
             fan = self._iter_interval(e.iters, env, guards)
             inner = self._count_merges(e.func.body, env, guards)
             bp = e.func.params[0].name
-            out: Dict[Tuple[str, Optional[int]], Interval] = {}
+            out = {}
             for (nm, idx), cnt in inner.items():
                 key = (nm, idx)
                 if nm == bp:
@@ -384,35 +446,36 @@ class _Analyzer:
                         key = (tgt.expr.name, tgt.index)
                     else:
                         raise _Unknown
-                out = _sum(out, {key: cnt.mul(fan)})
+                v = cnt.mul(fan)
+                out[key] = out[key].add(v) if key in out else v
             # the nested loop's own init builders get their bounds too
             self._ev_for(e, env)
             return out
-        if isinstance(e, ir.Lambda):
-            return {}  # kernel fns / non-loop lambdas: no outer merges
-        if isinstance(e, (ir.Ident, ir.Literal)):
-            return {}
-        out = {}
+        out: Dict[Tuple[str, Optional[int]], Interval] = {}
         for c in e.children():
-            out = _sum(out, self._count_merges(c, env, guards))
+            if id(c) not in self.merging:
+                continue
+            sub = self._count_merges(c, env, guards)
+            if sub:
+                out = _sum(out, sub) if out else sub
         return out
 
     def _builder_result(self, nb: ir.NewBuilder, tot: Interval, env):
         bt = nb.ty
-        if isinstance(bt, wt.VecBuilder):
+        tb = type(bt)
+        if tb is wt.VecBuilder:
             hint = sym_of(nb.size_hint) if nb.size_hint is not None else None
             self.builders.append(BuilderBound(
                 nb, f"vecbuilder[{bt.elem}]", tot, hint, "hint"))
             return AVec(tot)
-        if isinstance(bt, (wt.DictMerger, wt.GroupBuilder)):
+        if tb is wt.DictMerger or tb is wt.GroupBuilder:
             cap = sym_of(nb.arg) if nb.arg is not None else d.const(1024)
-            kind = ("groupbuilder" if isinstance(bt, wt.GroupBuilder)
-                    else "dictmerger")
+            kind = "groupbuilder" if tb is wt.GroupBuilder else "dictmerger"
             self.builders.append(BuilderBound(nb, kind, tot, cap, "cap"))
             hi = tot.hi if cap is None else d.smin(tot.hi, cap)
             return ADict(size=Interval(d.const(0), hi), total=tot,
-                         cap=cap, group=isinstance(bt, wt.GroupBuilder))
-        if isinstance(bt, wt.VecMerger):
+                         cap=cap, group=tb is wt.GroupBuilder)
+        if tb is wt.VecMerger:
             base = self.eval(nb.arg, env) if nb.arg is not None else None
             return base if isinstance(base, AVec) else None
         return None  # merger: scalar result, no size
@@ -428,7 +491,7 @@ class _Analyzer:
         def args_interval(exprs) -> Interval:
             out: Optional[Interval] = None
             for a in exprs:
-                iv = self._vec_interval(a, env, frozenset())
+                iv = self._vec_interval(a, env, _NO_GUARDS)
                 out = iv if out is None else Interval(
                     d.smin(out.lo, iv.lo), d.smin(out.hi, iv.hi))
             return out if out is not None else d.ZERO
@@ -485,11 +548,12 @@ class _Analyzer:
 
 
 def _root_slot(tgt: ir.Expr):
-    while isinstance(tgt, ir.Merge):
+    while type(tgt) is ir.Merge:
         tgt = tgt.builder
-    if isinstance(tgt, ir.GetField) and isinstance(tgt.expr, ir.Ident):
+    t = type(tgt)
+    if t is ir.GetField and type(tgt.expr) is ir.Ident:
         return (tgt.expr.name, tgt.index)
-    if isinstance(tgt, ir.Ident):
+    if t is ir.Ident:
         return (tgt.name, None)
     return None
 
@@ -610,10 +674,10 @@ def analyze(e: ir.Expr, env=None) -> BoundsReport:
     """Run the interval interpreter + certificate walk over a program.
     ``env`` (name -> WeldType) is accepted for checkpoint-API symmetry;
     input types come from the program's free variables."""
-    fv = ir.free_vars(e)
+    fv, sites, merging = _scan(e)
     inputs = sorted(fv)
     rename = {n: f"in{i}" for i, n in enumerate(inputs)}
-    a = _Analyzer()
+    a = _Analyzer(merging)
     env0: Dict[str, object] = {}
     for name, ty in fv.items():
         if isinstance(ty, wt.Vec):
@@ -621,5 +685,5 @@ def analyze(e: ir.Expr, env=None) -> BoundsReport:
             env0[name] = AVec(d.point(n))
     result = a.eval(e, env0)
     return BoundsReport(expr=e, inputs=inputs, rename=rename,
-                        builders=a.builders, terms=_charge_terms(e),
+                        builders=a.builders, terms=_charge_terms(sites),
                         result=result, name_rows=a.name_rows)

@@ -68,76 +68,88 @@ class SCall(Sym):
 
 
 def const(v: Union[int, float]) -> SConst:
-    return SConst(INF if v == INF else int(v))
+    c = _CONSTS.get(v)
+    return c if c is not None else SConst(INF if v == INF else int(v))
 
 
 def length(name: str) -> SLen:
     return SLen(name)
 
 
-def _is_const(s: Sym, v: Optional[float] = None) -> bool:
-    return isinstance(s, SConst) and (v is None or s.value == v)
+#: the constants the interpreter makes most (nodes are immutable, so one
+#: object serves every use)
+_CONSTS = {v: SConst(v) for v in (0, 1, INF)}
+
+
+def _val(s: Sym) -> Optional[float]:
+    return s.value if type(s) is SConst else None
 
 
 def add(a: Sym, b: Sym) -> Sym:
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(a.value + b.value)
-    if _is_const(a, 0):
+    ca, cb = _val(a), _val(b)
+    if ca is not None and cb is not None:
+        return const(ca + cb)
+    if ca == 0:
         return b
-    if _is_const(b, 0):
+    if cb == 0:
         return a
     return SOp("+", a, b)
 
 
 def sub(a: Sym, b: Sym) -> Sym:
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(a.value - b.value)
-    if _is_const(b, 0):
+    ca, cb = _val(a), _val(b)
+    if ca is not None and cb is not None:
+        return const(ca - cb)
+    if cb == 0:
         return a
     return SOp("-", a, b)
 
 
 def mul(a: Sym, b: Sym) -> Sym:
-    if _is_const(a, 0) or _is_const(b, 0):
+    ca, cb = _val(a), _val(b)
+    if ca == 0 or cb == 0:
         return const(0)
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(a.value * b.value)
-    if _is_const(a, 1):
+    if ca is not None and cb is not None:
+        return const(ca * cb)
+    if ca == 1:
         return b
-    if _is_const(b, 1):
+    if cb == 1:
         return a
     return SOp("*", a, b)
 
 
 def div(a: Sym, b: Sym) -> Sym:
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(_apply("/", a.value, b.value))
+    ca, cb = _val(a), _val(b)
+    if ca is not None and cb is not None:
+        return const(_apply("/", ca, cb))
     return SOp("/", a, b)
 
 
 def smin(a: Sym, b: Sym) -> Sym:
-    if a == b:
+    if a is b or a == b:
         return a
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(min(a.value, b.value))
-    if _is_const(a, INF):
+    ca, cb = _val(a), _val(b)
+    if ca is not None and cb is not None:
+        return const(min(ca, cb))
+    if ca == INF:
         return b
-    if _is_const(b, INF):
+    if cb == INF:
         return a
     return SOp("min", a, b)
 
 
 def smax(a: Sym, b: Sym) -> Sym:
-    if a == b:
+    if a is b or a == b:
         return a
-    if isinstance(a, SConst) and isinstance(b, SConst):
-        return const(max(a.value, b.value))
-    if _is_const(a, INF) or _is_const(b, INF):
+    ca, cb = _val(a), _val(b)
+    if ca is not None and cb is not None:
+        return const(max(ca, cb))
+    if ca == INF or cb == INF:
         return const(INF)
     # sizes are nonnegative, so max(x, 0) = x
-    if _is_const(a, 0):
+    if ca == 0:
         return b
-    if _is_const(b, 0):
+    if cb == 0:
         return a
     return SOp("max", a, b)
 
@@ -177,14 +189,15 @@ def evaluate(s: Sym, shapes: Shapes) -> Optional[float]:
     ``INF`` for unbounded constants), or None when a referenced input is
     absent from ``shapes`` — the same "can't resolve" answer the
     emitter's ``_static_eval`` gives, under which it charges nothing."""
-    if isinstance(s, SConst):
+    t = type(s)
+    if t is SConst:
         return s.value
-    if isinstance(s, SLen):
+    if t is SLen:
         shp = shapes.get(s.name)
         if shp is None or not len(shp):
             return None
         return int(shp[0])
-    if isinstance(s, SOp):
+    if t is SOp:
         a = evaluate(s.left, shapes)
         b = evaluate(s.right, shapes)
         if a is None or b is None:
@@ -202,20 +215,21 @@ def render(s: Sym, rename: Optional[Dict[str, str]] = None) -> str:
     """Human-readable form: ``len(in0)*len(in1)`` / ``min(a, b)`` /
     ``fp[hash_probe](len(in0))``."""
     rename = rename or {}
-    if isinstance(s, SConst):
+    t = type(s)
+    if t is SConst:
         return "inf" if s.value == INF else str(int(s.value))
-    if isinstance(s, SLen):
+    if t is SLen:
         return f"len({rename.get(s.name, s.name)})"
-    if isinstance(s, SOp):
+    if t is SOp:
         a, b = render(s.left, rename), render(s.right, rename)
         if s.op in ("min", "max"):
             return f"{s.op}({a}, {b})"
-        if isinstance(s.left, SOp) and s.left.op not in ("min", "max"):
+        if type(s.left) is SOp and s.left.op not in ("min", "max"):
             a = f"({a})"
-        if isinstance(s.right, SOp) and s.right.op not in ("min", "max"):
+        if type(s.right) is SOp and s.right.op not in ("min", "max"):
             b = f"({b})"
         return f"{a}{s.op}{b}"
-    if isinstance(s, SCall):
+    if t is SCall:
         inner = render(s.display, rename) if s.display is not None else "..."
         return f"fp[{s.kernel}]({inner})"
     return "?"

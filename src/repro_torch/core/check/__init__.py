@@ -28,6 +28,7 @@ diagnostic code, and the pretty-printed offending subexpression.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -67,6 +68,10 @@ ANALYSES = {
 }
 
 _override: Optional[bool] = None
+#: ``last``: (stats, program, env, shapes, the program's free-identifier
+#: types when computed, else None) of this thread's last clean
+#: checkpoint, the one verdict :func:`checkpoint` may reuse
+_clean = threading.local()
 
 
 def enabled() -> bool:
@@ -103,7 +108,7 @@ def verify(
     admission path owns that rejection with a typed ResourceError).
     """
     if env is None:
-        env = {k: t for k, t in ir.free_vars(e).items() if t is not None}
+        env = _free_env(e)
     types, diags = annotate(e, env)
     root_ty = types.get(id(e))
     if isinstance(root_ty, wt.BuilderType):
@@ -121,6 +126,11 @@ def verify(
     return diags
 
 
+def _free_env(e: ir.Expr) -> Dict[str, wt.WeldType]:
+    """The types of ``e``'s free identifiers, from their annotations."""
+    return {k: t for k, t in ir.free_vars(e).items() if t is not None}
+
+
 def checkpoint(
     phase: str,
     e: ir.Expr,
@@ -132,20 +142,43 @@ def checkpoint(
 
     No-op when verification is disabled.  Timing and outcome land in
     ``stats["verify.*"]`` and a weldtrace ``verify`` span.
+
+    A checkpoint handed the very object (``is``) that the last
+    checkpoint of the same compile (the same ``stats`` dict, in this
+    thread) verified clean, with equal ``env`` and ``shapes``, reuses
+    that verdict: nodes are frozen, so the program is the one verified
+    (a pass that changed nothing returns its input).  It still counts in
+    ``verify.runs``, ``verify.ms`` and the span, and in
+    ``verify.reused``.
     """
     if not enabled():
         return
     t0 = time.perf_counter()
     with obs.span("verify", phase=phase) as sp:
-        diags = verify(e, env=env, shapes=shapes)
+        last = getattr(_clean, "last", None)
+        free, reused = None, False
+        if (stats is not None and last is not None and last[0] is stats
+                and last[1] is e and last[3] == shapes):
+            # verify types e by its free identifiers' annotations when it
+            # is given no env
+            free = last[4] if last[4] is not None else _free_env(e)
+            reused = (free if env is None else env) == (
+                free if last[2] is None else last[2])
+        diags = [] if reused else verify(e, env=env, shapes=shapes)
         sp.set("diagnostics", len(diags))
+        sp.set("reused", reused)
     ms = (time.perf_counter() - t0) * 1e3
     if stats is not None:
         stats["verify.runs"] = stats.get("verify.runs", 0) + 1
+        stats["verify.reused"] = stats.get("verify.reused", 0) + reused
         stats["verify.ms"] = stats.get("verify.ms", 0.0) + ms
         stats.setdefault("verify.phases", []).append((phase, round(ms, 3)))
     if diags:
+        _clean.last = None
         _raise(phase, e, diags)
+    if stats is not None:
+        # a strong reference: an id could be reused by another object
+        _clean.last = (stats, e, env, shapes, free)
 
 
 def verify_rewrite(

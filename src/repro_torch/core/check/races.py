@@ -49,12 +49,15 @@ def lint_races(
     flagged: Set[int] = set()
 
     # -- WV301: corrupted merge ops, wherever the type is embedded -------
+    loops: List[ir.For] = []
     for node in ir.walk(e):
         ty = None
         if isinstance(node, ir.NewBuilder):
             ty = node.ty
         elif isinstance(node, ir.Ident):
             ty = node.ty
+        elif isinstance(node, ir.For):
+            loops.append(node)
         for bad in _bad_op_types(ty) if ty is not None else ():
             if id(node) in flagged:
                 continue
@@ -66,9 +69,8 @@ def lint_races(
                 node, analysis="races", data={"op": bad.op}))
 
     # -- WV302/WV303: per-loop body analysis -----------------------------
-    for node in ir.walk(e):
-        if isinstance(node, ir.For):
-            _lint_loop(node, types, diags)
+    for loop in loops:
+        _lint_loop(loop, types, diags)
     return diags
 
 
@@ -79,14 +81,15 @@ def _lint_loop(loop: ir.For, types, diags: List[Diagnostic]) -> None:
     iparam = loop.func.params[1] if len(loop.func.params) > 1 else None
     body = loop.func.body
 
-    # names whose value derives from the loop's builder param
+    # names whose value derives from the loop's builder param: the
+    # builder's and those of Lets whose value mentions one already in it
     derived: Set[str] = {bparam.name}
+    candidates = {bparam.name} | {n.name for n in ir.walk(body)
+                                  if isinstance(n, ir.Let)}
+    mentioned = _mentions(body, candidates)
 
     def mentions_derived(x: ir.Expr) -> bool:
-        return any(
-            isinstance(n, ir.Ident) and n.name in derived
-            for n in ir.walk(x)
-        )
+        return not mentioned[id(x)].isdisjoint(derived)
 
     def rec(x: ir.Expr) -> None:
         if isinstance(x, ir.Let):
@@ -109,6 +112,35 @@ def _lint_loop(loop: ir.For, types, diags: List[Diagnostic]) -> None:
             rec(c)
 
     rec(body)
+
+
+_NONE: frozenset = frozenset()
+
+
+def _mentions(e: ir.Expr, names: Set[str]) -> Dict[int, frozenset]:
+    """id(node) -> the names of ``names`` that an Ident under the node
+    (itself included) carries, for every node of ``e``: one post-order
+    pass (a shared subtree once), where asking each Let's value anew
+    walked a subtree once per enclosing Let."""
+    out: Dict[int, frozenset] = {}
+
+    def rec(x: ir.Expr) -> frozenset:
+        got = out.get(id(x))
+        if got is not None:
+            return got
+        if isinstance(x, ir.Ident):
+            got = frozenset((x.name,)) if x.name in names else _NONE
+        else:
+            got = _NONE
+            for c in x.children():
+                sub = rec(c)
+                if sub:
+                    got = sub if not got else got | sub
+        out[id(x)] = got
+        return got
+
+    rec(e)
+    return out
 
 
 def _lint_scatter(m: ir.Merge, iparam: Optional[ir.Ident], types,

@@ -26,31 +26,54 @@ def fresh(prefix: str = "t") -> str:
     return f"{prefix}%{next(_counter)}"
 
 
+#: field annotations that never hold an Expr or a tuple of them
+_LEAF_FIELD_TYPES = frozenset({"str", "int", "WeldType", "wt.Scalar",
+                               "wt.BuilderType"})
+_child_fields: Dict[type, Tuple[str, ...]] = {}
+
+
+def child_fields(cls: type) -> Tuple[str, ...]:
+    """The names of the fields of ``cls`` that may hold an Expr or a tuple
+    of them, in field order: computed once per class (``fields`` on every
+    visit was most of a tree walk's time)."""
+    names = _child_fields.get(cls)
+    if names is None:
+        names = _child_fields[cls] = tuple(
+            f.name for f in fields(cls) if f.type not in _LEAF_FIELD_TYPES)
+    return names
+
+
 class Expr:
     """Base class for IR expressions."""
 
     def children(self) -> Tuple["Expr", ...]:
-        out = []
-        for f in fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, Expr):
-                out.append(v)
-            elif isinstance(v, tuple):
-                out.extend(c for c in v if isinstance(c, Expr))
-        return tuple(out)
+        # kept on the node once computed: nodes are frozen, so their
+        # children never change (a rewrite builds a new node)
+        kids = self.__dict__.get("_children")
+        if kids is None:
+            out = []
+            for name in child_fields(type(self)):
+                v = getattr(self, name)
+                if isinstance(v, Expr):
+                    out.append(v)
+                elif isinstance(v, tuple):
+                    out.extend(c for c in v if isinstance(c, Expr))
+            kids = tuple(out)
+            object.__setattr__(self, "_children", kids)
+        return kids
 
     def map_children(self, fn: Callable[["Expr"], "Expr"]) -> "Expr":
         changes = {}
-        for f in fields(self):
-            v = getattr(self, f.name)
+        for name in child_fields(type(self)):
+            v = getattr(self, name)
             if isinstance(v, Expr):
                 nv = fn(v)
                 if nv is not v:
-                    changes[f.name] = nv
+                    changes[name] = nv
             elif isinstance(v, tuple) and any(isinstance(c, Expr) for c in v):
                 nv = tuple(fn(c) if isinstance(c, Expr) else c for c in v)
                 if any(a is not b for a, b in zip(nv, v)):
-                    changes[f.name] = nv
+                    changes[name] = nv
         return replace(self, **changes) if changes else self
 
     def __str__(self) -> str:
@@ -302,9 +325,13 @@ def postorder_map(e: Expr, fn: Callable[[Expr], Expr]) -> Expr:
 
 
 def walk(e: Expr):
-    yield e
-    for c in e.children():
-        yield from walk(c)
+    """Every node of ``e`` in preorder, children left to right (from an
+    explicit stack: nested generators cost each node its depth)."""
+    stack = [e]
+    while stack:
+        x = stack.pop()
+        yield x
+        stack.extend(reversed(x.children()))
 
 
 def count_nodes(e: Expr, pred=None) -> int:

@@ -35,7 +35,12 @@ def cse(e: ir.Expr, stats: Dict[str, int]) -> ir.Expr:
                 ty = None
             seen2 = dict(seen)
             seen2[key] = (x.name, ty)
-            return ir.Let(x.name, value, rec(x.body, seen2))
+            body = rec(x.body, seen2)
+            # an unchanged binding is returned as it is, so a checkpoint
+            # after a CSE that found nothing sees the program it verified
+            if value is x.value and body is x.body:
+                return x
+            return ir.Let(x.name, value, body)
         if isinstance(x, ir.Lambda):
             # loop bodies are evaluated per-iteration; their duplicates are
             # local and handled by the backend's jaxpr-level sharing.

@@ -80,18 +80,22 @@ _C_SIGNATURES = {
         _P, ctypes.c_int, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P),
     # (slots, n, num_slots, out, stream)
     "weld_slot_hist": (_P, ctypes.c_longlong, ctypes.c_int, _P, _P),
-    # (dtype, q, k, v, o, strides[12], batch, heads, group, sq, skv, d,
-    #  causal, scale, stream)
-    "weld_flash_attention": (
-        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, _P),
     # (q, k, v, o, strides[12], batch, heads, group, sq, skv, d, causal,
-    #  scale, stream)
-    "weld_flash_attention_sm90": (
+    #  scale, stream): f32
+    "weld_flash_attention": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, _P),
+    # (q, k, v, o, strides[12], plan[6], batch, heads, group, sq, skv, d,
+    #  causal, scale, stream): bf16; plan: the three maps' widths, DP, kv
+    #  rows, shared memory (flash_attention.sm90_plan)
+    "weld_flash_attention_sm90": (
+        _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, _P),
+    # (n, desc[8 n], batch, d, w, stream)
+    "weld_flash_attention_pack": (
+        ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     # (p_dtype, g_dtype, p, g, m, v, n, lr, b1, 1 - b1, b2, 1 - b2, eps, wd,
     #  c1, c2, stream)
     "weld_fused_adamw": (

@@ -2,7 +2,7 @@
 
 Each wrapper keeps its counts as attributes of the function
 (``.launches``, ``.plain_calls``; flash_attention also
-``.launches_sm90`` and ``.backward_calls``).  ``f.launches += 1`` is a
+``.launches_sm90``, ``.launches_pack`` and ``.backward_calls``).  ``f.launches += 1`` is a
 read and a write, which two serving threads can interleave and lose a
 count; :func:`bump` makes the pair atomic.
 

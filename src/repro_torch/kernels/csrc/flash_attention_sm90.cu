@@ -1,8 +1,7 @@
 // Online-softmax (flash) attention with grouped-query heads for Hopper:
-// bf16, head dimension 64 or 128, on wgmma and TMA with a warp-specialised
-// pipeline.  The wrapper (flash_attention.py) sends every bf16 call with
-// D in {64, 128} here; f32 and other head dimensions stay on the kernel of
-// flash_attention.cu.
+// bf16, any head dimension from 1 to 256, on wgmma and TMA with a
+// warp-specialised pipeline.  The wrapper (flash_attention.py) sends every
+// bf16 call here; f32 stays on the kernel of flash_attention.cu.
 //
 // Replaces the TPU kernel of repro/kernels/flash_attention.py:74
 //   flash_attention (_kernel :28, pallas_call :101), and computes what it
@@ -37,15 +36,27 @@
 //    an mbarrier ("full"), each buffer reused once the 8 consumer warps
 //    have released it ("empty").  The two consumer warpgroups (240
 //    registers) own 64 q rows of each item.
-//  * Tiles of 128 kv rows.  Every tile is stored as panels of 64 head-dim
+//  * The head dimension is padded with zeros to DP = 64 ceil(D / 64) in
+//    shared memory: every tile is stored as DP / 64 panels of 64 head-dim
 //    columns (128 bytes a row) in the 128-byte swizzle that TMA writes and
-//    the wgmma descriptors read; at D = 128, Q and two K/V stages take
-//    160 KB of dynamic shared memory.
-//  * S = Q K^T: wgmma m64n128k16, bf16 in, f32 out, Q and K both K-major
-//    from shared memory.  O += P V: wgmma with P from registers (the S
-//    accumulators rounded to bf16, as the TPU kernel's p.astype(v.dtype))
-//    and V from shared memory as an MN-major B operand (the transpose flag
-//    of 16-bit types).  The softmax runs on the accumulators in registers,
+//    the wgmma descriptors read.  A tensor map's row is D columns wide (or
+//    the width of a packed copy, below), so TMA fills the columns past it
+//    with zeros on every load: they add exact zeros to S and give O
+//    columns that are never stored.  TMA needs every row stride and base
+//    on 16 bytes; the wrapper first copies an operand that has none (a D
+//    of 14, a view of an odd H * D) into zero-padded rows of 8 ceil(D / 8)
+//    columns with pack_rows below, one launch for all such operands.
+//  * Tiles of 128 kv rows at DP 64 and 128 (Q and two K/V stages take
+//    160 KB of dynamic shared memory at DP 128), of 64 kv rows at DP 192
+//    and 256 (at 128 rows they would take 240 and 320 KB of the 227 KB;
+//    at 64 they take 144 and 192 KB).  A consumer thread holds DP / 2 f32
+//    accumulators of O (128 registers at DP 256) and BK / 2 of S.
+//  * S = Q K^T: wgmma m64n128k16 (m64n64k16 for 64-row tiles), bf16 in,
+//    f32 out, Q and K both K-major from shared memory.  O += P V: wgmma
+//    m64n128k16 over each pair of V's panels (m64n64k16 over an odd last
+//    one) with P from registers (the S accumulators rounded to bf16, as
+//    the TPU kernel's p.astype(v.dtype)) and V from shared memory as an
+//    MN-major B operand (the transpose flag of 16-bit types).  The softmax runs on the accumulators in registers,
 //    in the log2 domain as flash_attention.cu's, with scale * log2(e)
 //    folded into one FMA per score before the SFU's exp2.
 //  * Overlap: the warpgroups take turns on the tensor cores (named
@@ -57,8 +68,9 @@
 //    warp whose rows kept their maxima skips O's rescale.
 //  * Every sum runs in one fixed kv order with no atomics, so two runs are
 //    bitwise equal.  TMA zero-fills rows past Sq or Skv on load; the store
-//    masks rows >= Sq.  q, k and v are read through their (batch, head,
-//    seq) strides: the tensor maps are built from them on the host, so the
+//    masks rows >= Sq and columns >= D, two columns a 4-byte store where
+//    D is even, one at a time otherwise.  q, k and v are read through
+//    their (batch, head, seq) strides: the tensor maps are built from them on the host, so the
 //    (B, T, H, D) activations of a layer go in as (B, H, T, D) views
 //    without a copy.  The maps are encoded by cuTensorMapEncodeTiled,
 //    fetched from the driver through the runtime (cudaGetDriverEntryPoint),
@@ -71,7 +83,6 @@
 namespace {
 
 constexpr int kBQ = 128;      // q rows a block: two consumer warpgroups of 64
-constexpr int kBK = 128;      // kv rows a tile
 constexpr int kStages = 2;    // the K/V ring
 constexpr int kPanel = 64;    // head-dim columns of one 128-byte panel row
 constexpr int kThreads = 384;
@@ -83,21 +94,39 @@ struct Params {
   void* o;
   int64_t o_sb, o_sh, o_ss;  // element strides of o's (batch, head, seq)
   int batch, heads, qtiles, group, sq, skv, causal;
+  int d;      // the head dimension: columns of o written
+  int pairs;  // o's rows take 4-byte stores of two columns (D even)
   float scale;
 };
 
+// The kv rows of a tile at padded head dimension DP: what fits two stages
+// of K and V beside Q in shared memory.
+constexpr int kv_rows(int dp) { return dp <= 128 ? 128 : 64; }
+
 // Byte offsets in the (1024-byte aligned) dynamic shared memory.
-template <int D>
+template <int DP, int BK>
 struct Layout {
-  static constexpr int kTile = kBK * D * 2;      // one K or V tile
+  static constexpr int kTile = BK * DP * 2;      // one K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * D * 2;
+  static constexpr int kK = kQ + kBQ * DP * 2;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   // mbarriers: Q full, Q empty; K full, V full, K empty, V empty per stage
   static constexpr int kBars = 2 + 4 * kStages;
   static constexpr int kBytes = kBar + 8 * kBars;
 };
+
+// The dynamic shared memory a block of the DP instantiation takes: its
+// layout + the 1024-byte alignment.
+template <int DP>
+constexpr int block_smem() { return Layout<DP, kv_rows(DP)>::kBytes + 1024; }
+
+// The most dynamic shared memory one block may take on an H100.
+constexpr int kSmemLimit = 232448;
+static_assert(block_smem<64>() <= kSmemLimit, "DP 64 does not fit");
+static_assert(block_smem<128>() <= kSmemLimit, "DP 128 does not fit");
+static_assert(block_smem<192>() <= kSmemLimit, "DP 192 does not fit");
+static_assert(block_smem<256>() <= kSmemLimit, "DP 256 does not fit");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -226,6 +255,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, f32) {+}= A (64 x 16, shared) B (16 x 64, shared)^T: both
+// operands K-major, through their descriptors; `accumulate` 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared): B is
 // MN-major (its rows are the k index), hence the transpose flag
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -294,13 +340,13 @@ __device__ __forceinline__ float ex2(float x) {
 // rescale factors for rows g and g + 8 in c0, c1.  It touches neither O
 // nor the P fragments, so it runs while the previous tile's P V is in
 // flight.
-template <bool kMasked>
+template <bool kMasked, int BK>
 __device__ __forceinline__ void softmax_scores(
-    const Params& p, float (&s)[kBK / 2], float& m0, float& m1, float& l0,
+    const Params& p, float (&s)[BK / 2], float& m0, float& m1, float& l0,
     float& l1, float& c0, float& c1, float sl2, int kv0, int qi0, int t) {
   float mx0 = kMask, mx1 = kMask;
 #pragma unroll
-  for (int i = 0; i < kBK / 8; ++i) {
+  for (int i = 0; i < BK / 8; ++i) {
     if constexpr (kMasked) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -327,7 +373,7 @@ __device__ __forceinline__ void softmax_scores(
   const float b1 = -mn1 * sl2;
   float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBK / 8; ++i) {
+  for (int i = 0; i < BK / 8; ++i) {
     s[4 * i] = ex2(fmaf(s[4 * i], sl2, b0));
     s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], sl2, b0));
     s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], sl2, b1));
@@ -343,10 +389,10 @@ __device__ __forceinline__ void softmax_scores(
 // by a warp none of whose rows raised its max: a product by 1 is exact),
 // and round p to bf16 into `pa` as the A fragments of the next P V product
 // (k step kk in pa[4 kk .. 4 kk + 3]), the TPU kernel's p.astype(v.dtype).
-template <int NO>
-__device__ __forceinline__ void rescale_and_pack(const float (&s)[kBK / 2],
+template <int NO, int BK>
+__device__ __forceinline__ void rescale_and_pack(const float (&s)[BK / 2],
                                                  float (&o)[NO],
-                                                 uint32_t (&pa)[kBK / 4],
+                                                 uint32_t (&pa)[BK / 4],
                                                  float c0, float c1) {
   if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
 #pragma unroll
@@ -358,7 +404,7 @@ __device__ __forceinline__ void rescale_and_pack(const float (&s)[kBK / 2],
     }
   }
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       pa[4 * kk + r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
@@ -373,6 +419,7 @@ struct Item {
   int q0, h, b, ntiles;
 };
 
+template <int BK>
 __device__ __forceinline__ Item item_at(const Params& p, int i) {
   Item it;
   const int hb = p.heads * p.batch;
@@ -381,17 +428,30 @@ __device__ __forceinline__ Item item_at(const Params& p, int i) {
   it.b = i % hb / p.heads;
   int last = p.skv - 1;  // the last kv row the item's q rows see
   if (p.causal) last = min(last, min(it.q0 + kBQ, p.sq) - 1 + p.skv - p.sq);
-  it.ntiles = last / kBK + 1;
+  it.ntiles = last / BK + 1;
   return it;
 }
 
-template <int D>
+// one column pair (c, c + 1) of an output row, c even and < d: a 4-byte
+// store where the rows allow it, else each column inside the row alone
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c,
+                                           const Params& p, float lo,
+                                           float hi) {
+  if (p.pairs) {
+    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(lo, hi);
+  } else {
+    row[c] = __float2bfloat16(lo);
+    if (c + 1 < p.d) row[c + 1] = __float2bfloat16(hi);
+  }
+}
+
+template <int DP, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
            const __grid_constant__ CUtensorMap vmap, const Params p) {
-  using L = Layout<D>;
-  constexpr int kPanels = D / kPanel;
+  using L = Layout<DP, BK>;
+  constexpr int kPanels = DP / kPanel;
   extern __shared__ __align__(1024) unsigned char smem[];
   // the swizzle atoms (8 rows x 128 bytes) sit on 1024-byte boundaries
   const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
@@ -428,10 +488,10 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
       int jt = 0;
       int n = 0;
       for (int i = blockIdx.x; i < items; i += gridDim.x, ++n) {
-        const Item it = item_at(p, i);
+        const Item it = item_at<BK>(p, i);
         const int hk = it.h / p.group;
         mbar_wait(empty_q, (n & 1) ^ 1);  // the last item's S is done
-        mbar_expect_tx(full_q, kBQ * D * 2);
+        mbar_expect_tx(full_q, kBQ * DP * 2);
         for (int c = 0; c < kPanels; ++c) {
           tma_load(base + L::kQ + c * kBQ * 128, &qmap, full_q, c * kPanel,
                    it.q0, it.h, it.b);
@@ -442,14 +502,14 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
           mbar_wait(empty_k(s), ph ^ 1);
           mbar_expect_tx(full_k(s), L::kTile);
           for (int c = 0; c < kPanels; ++c) {
-            tma_load(base + L::kK + s * L::kTile + c * kBK * 128, &kmap,
-                     full_k(s), c * kPanel, j * kBK, hk, it.b);
+            tma_load(base + L::kK + s * L::kTile + c * BK * 128, &kmap,
+                     full_k(s), c * kPanel, j * BK, hk, it.b);
           }
           mbar_wait(empty_v(s), ph ^ 1);
           mbar_expect_tx(full_v(s), L::kTile);
           for (int c = 0; c < kPanels; ++c) {
-            tma_load(base + L::kV + s * L::kTile + c * kBK * 128, &vmap,
-                     full_v(s), c * kPanel, j * kBK, hk, it.b);
+            tma_load(base + L::kV + s * L::kTile + c * BK * 128, &vmap,
+                     full_v(s), c * kPanel, j * BK, hk, it.b);
           }
         }
       }
@@ -464,13 +524,13 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
     const float sl2 = p.scale * kLog2e;
     const uint32_t qa = base + L::kQ + 64 * wg * 128;  // its rows of Q
 
-    float s[kBK / 2];
-    float o[D / 2];
-    uint32_t pa[kBK / 4];
+    float s[BK / 2];
+    float o[DP / 2];
+    uint32_t pa[BK / 4];
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBK / 4; ++i) pa[i] = 0u;
+    for (int i = 0; i < BK / 4; ++i) pa[i] = 0u;
     float m0, m1, l0, l1;
     int row0, first, jt0 = 0;
 
@@ -497,23 +557,36 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
       if constexpr (kS) {
         const uint32_t kb = base + L::kK + sk * L::kTile;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;  // 16 columns = 32 bytes
-          wgmma_ss_n128(s, sw128_desc(qa + (kk / 4) * kBQ * 128 + col, 16),
-                        sw128_desc(kb + (kk / 4) * kBK * 128 + col, 16),
-                        kk > 0);
+          const uint64_t dq = sw128_desc(qa + (kk / 4) * kBQ * 128 + col, 16);
+          const uint64_t dk = sw128_desc(kb + (kk / 4) * BK * 128 + col, 16);
+          if constexpr (BK == 128) {
+            wgmma_ss_n128(s, dq, dk, kk > 0);
+          } else {
+            wgmma_ss_n64(s, dq, dk, kk > 0);
+          }
         }
         wgmma_commit();
       }
       if constexpr (kPV) {
         const uint32_t vb = base + L::kV + sv * L::kTile;
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          const uint64_t dv = sw128_desc(vb + kk * 16 * 128, kBK * 128);
-          if constexpr (D == 128) {
-            wgmma_rs_n128(o, pa + 4 * kk, dv);
-          } else {
-            wgmma_rs_n64(o, pa + 4 * kk, dv);
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // O's columns of panel c are o[32 c .. 32 c + 31]
+#pragma unroll
+          for (int c = 0; c + 2 <= kPanels; c += 2) {
+            wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 32 * c),
+                          pa + 4 * kk,
+                          sw128_desc(vb + c * BK * 128 + kk * 16 * 128,
+                                     BK * 128));
+          }
+          if constexpr (kPanels % 2 == 1) {
+            constexpr int c = kPanels - 1;
+            wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(o + 32 * c),
+                         pa + 4 * kk,
+                         sw128_desc(vb + c * BK * 128 + kk * 16 * 128,
+                                    BK * 128));
           }
         }
         wgmma_commit();
@@ -530,13 +603,13 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
         pin(s);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty_k(sk));
-        const int kv0 = j * kBK;
-        if (kv0 + kBK > p.skv || (p.causal && kv0 + kBK - 1 > first)) {
-          softmax_scores<true>(p, s, m0, m1, l0, l1, c0, c1, sl2, kv0,
-                               row0 + offset, t);
+        const int kv0 = j * BK;
+        if (kv0 + BK > p.skv || (p.causal && kv0 + BK - 1 > first)) {
+          softmax_scores<true, BK>(p, s, m0, m1, l0, l1, c0, c1, sl2, kv0,
+                                   row0 + offset, t);
         } else {
-          softmax_scores<false>(p, s, m0, m1, l0, l1, c0, c1, sl2, kv0,
-                                row0 + offset, t);
+          softmax_scores<false, BK>(p, s, m0, m1, l0, l1, c0, c1, sl2, kv0,
+                                    row0 + offset, t);
         }
       }
       if constexpr (kPV) {
@@ -546,16 +619,16 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
         __syncwarp();
         if (lane == 0) mbar_arrive(empty_v(sv));
       }
-      if constexpr (kS) rescale_and_pack(s, o, pa, c0, c1);
+      if constexpr (kS) rescale_and_pack<DP / 2, BK>(s, o, pa, c0, c1);
     };
 
     int n = 0;
     for (int i = blockIdx.x; i < items; i += gridDim.x, ++n) {
-      const Item it = item_at(p, i);
+      const Item it = item_at<BK>(p, i);
       row0 = it.q0 + 64 * wg + 16 * warp + g;  // and row0 + 8
       first = it.q0 + 64 * wg + offset;  // the warpgroup's first limit
 #pragma unroll
-      for (int k = 0; k < D / 2; ++k) o[k] = 0.f;
+      for (int k = 0; k < DP / 2; ++k) o[k] = 0.f;
       m0 = m1 = kMask;
       l0 = l1 = 0.f;
 
@@ -582,18 +655,66 @@ flash_sm90(const __grid_constant__ CUtensorMap qmap,
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
                           it.b * p.o_sb + it.h * p.o_sh;
 #pragma unroll
-      for (int k = 0; k < D / 8; ++k) {
+      for (int k = 0; k < DP / 8; ++k) {
         const int c = 8 * k + 2 * t;
-        if (row0 < p.sq) {
-          *reinterpret_cast<uint32_t*>(og + row0 * p.o_ss + c) =
-              pack_bf16(o[4 * k] * d0, o[4 * k + 1] * d0);
-        }
-        if (row0 + 8 < p.sq) {
-          *reinterpret_cast<uint32_t*>(og + (row0 + 8) * p.o_ss + c) =
-              pack_bf16(o[4 * k + 2] * d1, o[4 * k + 3] * d1);
+        if (c < p.d) {
+          if (row0 < p.sq) {
+            store_pair(og + row0 * p.o_ss, c, p, o[4 * k] * d0,
+                       o[4 * k + 1] * d0);
+          }
+          if (row0 + 8 < p.sq) {
+            store_pair(og + (row0 + 8) * p.o_ss, c, p, o[4 * k + 2] * d1,
+                       o[4 * k + 3] * d1);
+          }
         }
       }
     }
+  }
+}
+
+// -- the packing pass --------------------------------------------------------
+
+// One operand to pack: (B, H, S, D) bf16 rows read through element strides
+// (the head dimension's too) into contiguous (B, H, S, W) rows, W = 8
+// ceil(D / 8), columns D .. W - 1 zero.
+struct PackOp {
+  const __nv_bfloat16* src;
+  __nv_bfloat16* dst;
+  int64_t sb, sh, ss, sd;
+  int heads, seq;
+};
+
+struct PackParams {
+  PackOp op[3];
+  int batch, d, w;
+};
+
+// Operand blockIdx.y: each thread writes 16-byte chunks of the packed rows
+// (8 columns), grid-stride, each column read on its own.  Bound by bytes:
+// at the prefill's (4, 24/8, 2,048) and D 14, 9.2 MB read and 10.5 MB
+// written, 6 us at 3.35 TB/s beside an attention of about 0.1 ms.
+__global__ void __launch_bounds__(256) pack_rows(const PackParams p) {
+  const PackOp& op = p.op[blockIdx.y];
+  const int chunks = p.w / 8;
+  const int64_t total =
+      static_cast<int64_t>(p.batch) * op.heads * op.seq * chunks;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int c = static_cast<int>(i % chunks);
+    const int64_t r = i / chunks;
+    const int s = static_cast<int>(r % op.seq);
+    const int h = static_cast<int>(r / op.seq % op.heads);
+    const int b = static_cast<int>(r / op.seq / op.heads);
+    const __nv_bfloat16* row = op.src + b * op.sb + h * op.sh + s * op.ss;
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = 8 * c + e;
+      v[e] = col < p.d ? row[col * op.sd] : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(op.dst + i * 8) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
 
@@ -626,20 +747,20 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The 4-D map (D, S, H, B) of a bf16 (B, H, S, D) tensor read through its
-// element strides: boxes of 64 columns x 128 rows in the 128-byte swizzle,
-// zeros for rows out of bounds.
+// The 4-D map (W, S, H, B) of a bf16 (B, H, S, W) tensor read through its
+// element strides: boxes of 64 columns x `rows` rows in the 128-byte
+// swizzle, zeros for columns past W and rows past S.
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                  int batch, int heads, int seq, int d, long long sb,
-                  long long sh, long long ss) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                  int batch, int heads, int seq, int width, int rows,
+                  long long sb, long long sh, long long ss) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kPanel, kBK, 1, 1};
+  const cuuint32_t box[4] = {kPanel, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, unit,
@@ -648,12 +769,13 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int DP>
 cudaError_t run(const CUtensorMap& qm, const CUtensorMap& km,
                 const CUtensorMap& vm, const Params& p, cudaStream_t s) {
-  const int smem = Layout<D>::kBytes + 1024;  // + the 1024-byte alignment
+  constexpr int BK = kv_rows(DP);
+  constexpr int smem = block_smem<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_sm90<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
@@ -666,7 +788,7 @@ cudaError_t run(const CUtensorMap& qm, const CUtensorMap& km,
   const long long items =
       static_cast<long long>(p.qtiles) * p.heads * p.batch;
   const int blocks = static_cast<int>(items < sms ? items : sms);
-  flash_sm90<D><<<blocks, kThreads, smem, s>>>(qm, km, vm, p);
+  flash_sm90<DP, BK><<<blocks, kThreads, smem, s>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
@@ -674,39 +796,54 @@ cudaError_t run(const CUtensorMap& qm, const CUtensorMap& km,
 
 // q (B, H, Sq, D), k and v (B, H / group, Skv, D), o (B, H, Sq, D), all
 // bf16, each with the element strides of its batch, head and sequence
-// dimensions in `strides` (q, k, v, o in turn: 12 values, each a multiple of
-// 8) and a unit-stride head dimension; D is 64 or 128, Sq and Skv at least
-// 1 and, under the causal mask, Sq <= Skv (without it an item walks every
-// kv tile, the partial last one masked by kj < skv), every pointer 16-byte
-// aligned.  Launches on `stream`, allocates nothing, does
-// not synchronise.  Returns 0, a CUDA error of the launch, or
-// WELD_TMA_ERROR + r when cuTensorMapEncodeTiled returned CUresult r
-// (WELD_TMA_ERROR alone: the driver has no such entry point).
+// dimensions in `strides` (q, k, v, o in turn: 12 values; those of q, k
+// and v multiples of 8) and a unit-stride head dimension; `plan` the
+// wrapper's layout of the call (flash_attention.sm90_plan): the columns of
+// a row of q, k and v as stored (D, or W = 8 ceil(D / 8) for a packed copy
+// whose columns past D are zero), then DP, the kv rows of a tile and the
+// block's dynamic shared memory, which must be this file's (a plan that
+// disagrees with its layout is refused).  D is any of 1 .. 256, Sq and
+// Skv at least 1 and, under the causal mask, Sq <= Skv (without it an item
+// walks every kv tile, the partial last one masked by kj < skv); q, k and
+// v 16-byte aligned.  Launches on `stream`, allocates nothing, does not
+// synchronise.  Returns 0, a CUDA error of the launch, or WELD_TMA_ERROR +
+// r when cuTensorMapEncodeTiled returned CUresult r (WELD_TMA_ERROR alone:
+// the driver has no such entry point).
 #define WELD_TMA_ERROR (1 << 20)
 extern "C" int weld_flash_attention_sm90(const void* q, const void* k,
                                          const void* v, void* o,
-                                         const long long* strides, int batch,
+                                         const long long* strides,
+                                         const int* plan, int batch,
                                          int heads, int group, int sq, int skv,
                                          int d, int causal, float scale,
                                          void* stream) {
   const int qtiles = (sq + kBQ - 1) / kBQ;
-  if (batch < 1 || heads < 1 || group < 1 || heads % group != 0 || sq < 1 ||
-      skv < 1 || (causal && skv < sq) || (d != 64 && d != 128) ||
-      static_cast<long long>(qtiles) * heads * batch > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int dp = 64 * ((d + 63) / 64);
+  bool ok = batch >= 1 && heads >= 1 && group >= 1 && heads % group == 0 &&
+            sq >= 1 && skv >= 1 && !(causal && skv < sq) && d >= 1 &&
+            d <= 256 &&
+            static_cast<long long>(qtiles) * heads * batch <= 0x7fffffff;
+  for (int i = 0; i < 3 && ok; ++i) {
+    ok = plan[i] == d || (plan[i] == 8 * ((d + 7) / 8) && plan[i] <= dp);
   }
+  const int smem = dp == 64    ? block_smem<64>()
+                   : dp == 128 ? block_smem<128>()
+                   : dp == 192 ? block_smem<192>()
+                               : block_smem<256>();
+  ok = ok && plan[3] == dp && plan[4] == kv_rows(dp) && plan[5] == smem;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return WELD_TMA_ERROR;
   CUtensorMap qm, km, vm;
-  CUresult r = make_map(enc, &qm, q, batch, heads, sq, d, strides[0],
-                        strides[1], strides[2]);
+  CUresult r = make_map(enc, &qm, q, batch, heads, sq, plan[0], kBQ,
+                        strides[0], strides[1], strides[2]);
   if (r == CUDA_SUCCESS) {
-    r = make_map(enc, &km, k, batch, heads / group, skv, d, strides[3],
-                 strides[4], strides[5]);
+    r = make_map(enc, &km, k, batch, heads / group, skv, plan[1], plan[4],
+                 strides[3], strides[4], strides[5]);
   }
   if (r == CUDA_SUCCESS) {
-    r = make_map(enc, &vm, v, batch, heads / group, skv, d, strides[6],
-                 strides[7], strides[8]);
+    r = make_map(enc, &vm, v, batch, heads / group, skv, plan[2], plan[4],
+                 strides[6], strides[7], strides[8]);
   }
   if (r != CUDA_SUCCESS) return WELD_TMA_ERROR + static_cast<int>(r);
   Params p;
@@ -721,9 +858,68 @@ extern "C" int weld_flash_attention_sm90(const void* q, const void* k,
   p.sq = sq;
   p.skv = skv;
   p.causal = causal;
+  p.d = d;
+  p.pairs = d % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+            strides[9] % 2 == 0 && strides[10] % 2 == 0 &&
+            strides[11] % 2 == 0;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 128 ? run<128>(qm, km, vm, p, s)
-                                   : run<64>(qm, km, vm, p, s);
+  cudaError_t err;
+  switch (dp) {
+    case 64: err = run<64>(qm, km, vm, p, s); break;
+    case 128: err = run<128>(qm, km, vm, p, s); break;
+    case 192: err = run<192>(qm, km, vm, p, s); break;
+    default: err = run<256>(qm, km, vm, p, s); break;
+  }
   return static_cast<int>(err);
+}
+
+// The packing pass before weld_flash_attention_sm90 for the operands TMA
+// cannot map: `n` (1 .. 3) operands, each 8 values of `desc`: source and
+// destination pointers, heads, seq, and the source's batch, head, seq and
+// column element strides.  Every destination is a contiguous (batch,
+// heads, seq, w) bf16 buffer on 16 bytes, w = 8 ceil(d / 8).  One launch
+// on `stream`; returns its CUDA error.
+extern "C" int weld_flash_attention_pack(int n, const long long* desc,
+                                         int batch, int d, int w,
+                                         void* stream) {
+  if (n < 1 || n > 3 || batch < 1 || d < 1 || d > 256 ||
+      w != 8 * ((d + 7) / 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PackParams p;
+  p.batch = batch;
+  p.d = d;
+  p.w = w;
+  long long most = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* x = desc + 8 * i;
+    PackOp& op = p.op[i];
+    op.src = reinterpret_cast<const __nv_bfloat16*>(x[0]);
+    op.dst = reinterpret_cast<__nv_bfloat16*>(x[1]);
+    op.heads = static_cast<int>(x[2]);
+    op.seq = static_cast<int>(x[3]);
+    op.sb = x[4];
+    op.sh = x[5];
+    op.ss = x[6];
+    op.sd = x[7];
+    if (op.heads < 1 || op.seq < 1 || x[1] % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long chunks = static_cast<long long>(batch) * op.heads *
+                             op.seq * (w / 8);
+    most = chunks > most ? chunks : most;
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long want = (most + 255) / 256;
+  const int blocks = static_cast<int>(want < 8LL * sms ? want : 8LL * sms);
+  pack_rows<<<dim3(blocks, n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -2,30 +2,35 @@
 both ports of the TPU kernel ``flash_attention``
 (repro/kernels/flash_attention.py:74).
 
-Which kernel is an explicit choice by dtype and head dimension
-(:func:`route`), never a reaction to a failure:
+Which kernel is an explicit choice by dtype (:func:`route`), never a
+reaction to a failure:
 
-* ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16 with D in {64, 128}.
-  Hopper's wgmma and TMA in a warp-specialised pipeline, 128 q rows x 128
-  kv rows a tile.
-* ``"v1"``, ``csrc/flash_attention.cu``: f32, and bf16 with any other
-  head dimension (``mma.sync``).  Its f32 kernel runs on the FP32 CUDA
-  cores in full f32: 64 q rows x 64 kv rows a tile, 8 warps, each thread
-  a 4 x 4 micro-tile of the scores and a 4 x (DP / 16) one of the output
-  in registers (DP: D rounded up to 64, 128 or 256), fed by 128-bit
-  shared loads, with K and V brought by ``cp.async`` while the previous
-  product computes.
+* ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16, any head dimension
+  from 1 to 256.  Hopper's wgmma and TMA in a warp-specialised pipeline,
+  128 q rows a tile, the head dimension padded with zeros to whole panels
+  of 64 columns in shared memory (:func:`sm90_plan`).  An operand that TMA
+  cannot map (a row stride or base off 16 bytes: a D of 14, a view of an
+  odd H * D) is first copied into zero-padded rows by the kernel's packing
+  pass, one launch for every such operand of a call.
+* ``"v1"``, ``csrc/flash_attention.cu``: f32, on the FP32 CUDA cores in
+  full f32: 64 q rows x 64 kv rows a tile, 8 warps, each thread a 4 x 4
+  micro-tile of the scores and a 4 x (DP / 16) one of the output in
+  registers (DP: D rounded up to 64, 128 or 256), fed by 128-bit shared
+  loads, with K and V brought by ``cp.async`` while the previous product
+  computes.
 
 A CUDA tensor launches its route's kernel — or raises: a build or launch
 error is not caught.  A CPU tensor takes the plain version,
 ``ref.chunked_attention`` (what the reference's ``ops`` runs off the TPU).
-The wrapper counts every kernel launch in ``.launches``, the launches of
-the ``"sm90"`` route among them also in ``.launches_sm90``, and its
-plain-version calls in ``.plain_calls``.  The launch goes through the
-operator ``torch.ops.weld.flash_attention`` (a ``torch.library.custom_op``):
+The wrapper counts every attention launch in ``.launches``, the launches
+of the ``"sm90"`` route among them also in ``.launches_sm90``, the
+packing pass's launches in ``.launches_pack``, and its plain-version calls
+in ``.plain_calls``.  The launch goes through the operator
+``torch.ops.weld.flash_attention`` (a ``torch.library.custom_op``):
 under a fake mode (the dry run) its fake form gives the output and
 nothing is launched or counted, and ``torch.utils.flop_counter`` counts
-it by the pairs its mask leaves (:func:`attention_pairs`).
+it by the pairs its mask leaves (:func:`attention_pairs`), at D (the
+padding is not the function's work).
 
 Gradients: on a CPU tensor autograd runs through the plain version.  On
 a CUDA tensor that needs a gradient the launch goes through
@@ -47,15 +52,17 @@ cross-attention's text may be longer than what it attends to); anything
 else raises (:func:`plan`).  They read q, k and v through their strides
 (the ``"sm90"`` route through TMA tensor maps built from them), so the
 (B, T, H, D) activations of a layer go in as (B, H, T, D) views without a
-copy, and they write the output in (B, Sq, H, D) storage, returned as a
-(B, H, Sq, D) view.  The ``"v1"`` kernels move rows in 16-byte copies
-where every row starts on 16 bytes and D fills whole 16-byte chunks, and
-element by element otherwise (a D of 14, a view of an odd H * D): the C
-entry decides from the operands at each launch.
+copy where their rows lie on 16 bytes, and they write the output in
+(B, Sq, H, D) storage, returned as a (B, H, Sq, D) view.  The ``"v1"``
+kernel moves rows in 16-byte copies where every row starts on 16 bytes
+and D fills whole 16-byte chunks, and element by element otherwise: the
+C entry decides from the operands at each launch.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -64,10 +71,15 @@ from . import _build, _count
 from . import ref
 from .ref import chunked_attention as attention_plain
 
-DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+DTYPES = (torch.bfloat16, torch.float32)
 MAX_D = 256
-#: the head dimensions of the ``"sm90"`` route (bf16 only)
-SM90_DIMS = (64, 128)
+#: head-dimension columns of one 128-byte panel of the ``"sm90"`` route's
+#: shared-memory tiles (and the width of a tensor map's box)
+PANEL = 64
+#: q rows a block of the ``"sm90"`` route takes
+SM90_Q_ROWS = 128
+#: the dynamic shared memory one block may take on an H100
+SMEM_LIMIT = 232_448
 #: flash_attention_sm90.cu's code for a failed cuTensorMapEncodeTiled
 #: (plus its CUresult; alone: the driver has no such entry point)
 TMA_ERROR = 1 << 20
@@ -101,14 +113,60 @@ def _strides(t: torch.Tensor) -> list:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head dimension launches:
-    ``"sm90"`` for bf16 with D in :data:`SM90_DIMS`, else ``"v1"``."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_DIMS else "v1"
+    ``"sm90"`` for bf16 (any D), ``"v1"`` for f32."""
+    return "sm90" if dtype == torch.bfloat16 else "v1"
 
 
 #: the ``__global__`` function each (route, dtype) runs, and its source
 KERNELS = {("sm90", torch.bfloat16): ("flash_sm90", "flash_attention_sm90.cu"),
-           ("v1", torch.bfloat16): ("flash_bf16", "flash_attention.cu"),
            ("v1", torch.float32): ("flash_f32", "flash_attention.cu")}
+
+
+@dataclass(frozen=True)
+class Sm90Plan:
+    """How the ``"sm90"`` route lays out one call (:func:`sm90_plan`).
+
+    ``dp``: D padded to whole panels of 64 columns, the width of the
+    shared-memory tiles and of O's accumulators; ``kv_rows``: kv rows a
+    tile (two stages of K and V beside Q must fit ``SMEM_LIMIT``), the
+    rows of the K and V maps' boxes; ``smem_bytes``: the dynamic shared
+    memory a block takes (the kernel's ``block_smem<DP>()``); ``pack``:
+    for q, k, v, whether the operand goes through the packing pass (TMA
+    maps only rows whose strides and base lie on 16 bytes); ``dims0``:
+    each tensor map's row width, ``globalDim[0]`` (D, or the packed rows'
+    8 ceil(D / 8) columns, zero past D); ``box``: each map's box (columns,
+    rows).  TMA fills the columns past ``dims0`` up to ``dp`` and the rows
+    past the sequence with zeros.  The C entry launches the instantiation
+    of ``dp`` and ``kv_rows`` with these maps and refuses a plan whose
+    ``dp``, ``kv_rows`` or ``smem_bytes`` are not its own layout's."""
+    dp: int
+    kv_rows: int
+    smem_bytes: int
+    pack: Tuple[bool, bool, bool]
+    dims0: Tuple[int, int, int]
+    box: Tuple[Tuple[int, int], ...]
+
+
+def packed_width(d: int) -> int:
+    """Columns of a row the packing pass writes: D rounded up to whole
+    16-byte chunks, the columns past D zero."""
+    return 8 * -(-d // 8)
+
+
+def sm90_plan(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> Sm90Plan:
+    """The ``"sm90"`` route's layout of a call on (B, H, S, D) q, k, v
+    (checked by :func:`plan`); reads shapes, strides and addresses only,
+    so it runs on CPU tensors."""
+    d = q.shape[-1]
+    dp = PANEL * -(-d // PANEL)
+    rows = 128 if dp <= 128 else 64
+    # Q, two stages of K and V, 10 mbarriers, the 1,024-byte alignment
+    smem = SM90_Q_ROWS * dp * 2 + 2 * 2 * rows * dp * 2 + 8 * 10 + 1024
+    pack = tuple(not _aligned(t) for t in (q, k, v))
+    return Sm90Plan(dp=dp, kv_rows=rows, smem_bytes=smem, pack=pack,
+                    dims0=tuple(packed_width(d) if p else d for p in pack),
+                    box=((PANEL, SM90_Q_ROWS), (PANEL, rows), (PANEL, rows)))
 
 
 def kernel(dtype: torch.dtype, d: int) -> str:
@@ -123,7 +181,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dimension, ``Sq <= Skv`` under ``causal``; not the device) and return
     their :func:`route`.  Raises ``TypeError`` or ``ValueError`` on what no
     kernel takes."""
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -216,26 +274,25 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = q[None], k[None], v[None]
     bsz, h, sq, d = q.shape
     skv = k.shape[2]
-    # the "sm90" route's tensor maps need 16-byte strides (D 64 or 128
-    # has them once contiguous); "v1" takes any strides of a unit-stride D
-    q, k, v = (t if (_aligned(t) if which == "sm90" else t.stride(-1) == 1
-                     or d == 1) else t.contiguous() for t in (q, k, v))
     out = _output(q)
-    strides = (ctypes.c_longlong * 12)(
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if which == "sm90":
+            layout = sm90_plan(q, k, v)
+            q, k, v = _pack(lib, layout, (q, k, v), stream)
             rc = lib.weld_flash_attention_sm90(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, bsz, h, group, sq, skv, d, int(causal), scale,
-                stream)
+                _stride_array(q, k, v, out), _plan_array(layout), bsz, h,
+                group, sq, skv, d, int(causal), scale, stream)
         else:
+            # v1 takes any strides of a unit-stride D
+            q, k, v = (t if t.stride(-1) == 1 or d == 1 else t.contiguous()
+                       for t in (q, k, v))
             rc = lib.weld_flash_attention(
-                DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), strides, bsz, h, group, sq,
-                skv, d, int(causal), scale, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _stride_array(q, k, v, out), bsz, h, group, sq, skv, d,
+                int(causal), scale, stream)
     if rc >= TMA_ERROR:
         raise RuntimeError(
             "flash_attention kernel launch: cuTensorMapEncodeTiled "
@@ -246,6 +303,47 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if which == "sm90":
         _count.bump(flash_attention, "launches_sm90")
     return out[0] if squeeze else out
+
+
+def _stride_array(*ts: torch.Tensor):
+    """The (batch, head, seq) element strides of each operand, as the C
+    entries take them."""
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *(s for t in ts for s in _strides(t)))
+
+
+def _plan_array(layout: Sm90Plan):
+    """``layout`` as the C entry takes it: the three maps' widths, DP, the
+    kv rows of a tile and the block's shared memory (the entry refuses a
+    plan its own layout disagrees with)."""
+    return (ctypes.c_int * 6)(*layout.dims0, layout.dp, layout.kv_rows,
+                              layout.smem_bytes)
+
+
+def _pack(lib, layout: Sm90Plan, ops, stream) -> tuple:
+    """q, k, v with each operand that ``layout`` packs replaced by its
+    zero-padded (B, H, S, :func:`packed_width`) copy, written by one
+    launch of the packing pass (counted in ``.launches_pack``)."""
+    if not any(layout.pack):
+        return tuple(ops)
+    bsz, d = ops[0].shape[0], ops[0].shape[-1]
+    width = packed_width(d)
+    got, desc = [], []
+    for t, pack in zip(ops, layout.pack):
+        if not pack:
+            got.append(t)
+            continue
+        dst = torch.empty((*t.shape[:3], width), dtype=t.dtype,
+                          device=t.device)
+        desc += [t.data_ptr(), dst.data_ptr(), t.shape[1], t.shape[2],
+                 *t.stride()]
+        got.append(dst)
+    rc = lib.weld_flash_attention_pack(
+        len(desc) // 8, (ctypes.c_longlong * len(desc))(*desc), bsz, d,
+        width, stream)
+    _build.check(rc, "flash_attention packing launch")
+    _count.bump(flash_attention, "launches_pack")
+    return tuple(got)
 
 
 def _output(q: torch.Tensor) -> torch.Tensor:
@@ -287,6 +385,7 @@ def _flops(q_shape, k_shape, v_shape, causal, group, scale, *args,
 
 flash_attention.launches = 0
 flash_attention.launches_sm90 = 0
+flash_attention.launches_pack = 0
 flash_attention.plain_calls = 0
 flash_attention.backward_calls = 0
 

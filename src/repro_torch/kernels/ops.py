@@ -66,9 +66,10 @@ def counts() -> dict:
 
 def reset_counts() -> None:
     """Zero every wrapper's counters (flash_attention's
-    ``backward_calls`` and ``launches_sm90`` too)."""
+    ``backward_calls``, ``launches_sm90`` and ``launches_pack`` too)."""
     _count.reset(WRAPPERS.values())
-    _count.reset([_fa.flash_attention], ("backward_calls", "launches_sm90"))
+    _count.reset([_fa.flash_attention],
+                 ("backward_calls", "launches_sm90", "launches_pack"))
 
 
 @_count.clocked

@@ -10,9 +10,10 @@ colliding and overflowing inputs), ``filter_reduce_q6`` on exact data and the se
 (``segment_sum``, ``segment_sum_vectors``) on uniform, one-key and Zipf
 keys, K past MAX_K (its windows), every D and dtype, each against its plain
 version on the same CUDA tensors; the LM's ``flash_attention`` against
-``ref.attention`` on both of its routes (every bf16 call with D in
-{64, 128} counted on the Hopper route, ``.launches_sm90``, the rest on
-v1); and the training path: ``fused_adamw`` against
+``ref.attention`` on both of its routes (every bf16 call, any D from 1
+to 256, counted on the Hopper route, ``.launches_sm90``, with the
+packing pass's launches in ``.launches_pack`` where an operand's rows
+lie off 16 bytes; f32 on v1); and the training path: ``fused_adamw`` against
 ``ref.adamw_update`` for every p/g dtype pair, the attention's gradient
 through ``FlashAttention`` against plain autograd (causal, and without
 the mask at Sq below and past Skv), two ``train`` steps of a smoke
@@ -23,7 +24,8 @@ NCCL group of one rank) against the single-device path, and
 launches (the dry run's): their outputs' shapes and strides against the
 real launches', nothing launched or counted, and a dry run of a smoke
 step on the card counting the kernel's attention by the pairs its mask
-leaves; B12 at head dimensions 14 and 40 through unaligned strides; the
+leaves; B12 at head dimensions 1 to 256 through aligned and unaligned
+strides; the
 ``mesh_ops`` probe's answer on this torch, every smoke config's dry run
 on a (2, 4) mesh on the card, and ``test_torch_mesh_ops.py``'s gloo
 cases (2 CPU ranks, a (1, 2) mesh against one device) on this torch.
@@ -782,13 +784,17 @@ def _qkv(dev, dtype, b, h, group, sq, skv, d, seed):
 def _hold_attention(q, k, v, causal, group):
     t_fa.flash_attention.launches = 0
     t_fa.flash_attention.launches_sm90 = 0
+    t_fa.flash_attention.launches_pack = 0
     got = t_fa.flash_attention(q, k, v, causal=causal, group=group)
     again = t_fa.flash_attention(q, k, v, causal=causal, group=group)
     want = t_ref.attention(q, k, v, causal=causal, group=group)
     torch.cuda.synchronize()
     assert t_fa.flash_attention.launches == 2
-    sm90 = t_fa.route(q.dtype, q.shape[-1]) == "sm90"
+    sm90 = q.dtype == torch.bfloat16
+    assert t_fa.route(q.dtype, q.shape[-1]) == ("sm90" if sm90 else "v1")
     assert t_fa.flash_attention.launches_sm90 == (2 if sm90 else 0)
+    packs = sm90 and any(t_fa.sm90_plan(q, k, v).pack)
+    assert t_fa.flash_attention.launches_pack == (2 if packs else 0)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert torch.equal(got, again), "two runs differ bitwise"
     limit = t_fa.tolerance(q, k, v, want, causal=causal, group=group)
@@ -862,8 +868,9 @@ def test_flash_attention_reads_strided_views(gpu):
 ])
 def test_flash_attention_sm90_on_ragged_shapes(sq, skv, d, group, causal,
                                                gpu):
-    """The Hopper route (bf16, D in {64, 128}) where TMA zero-fills the
-    rows past Sq or Skv and the store masks rows past Sq."""
+    """The Hopper route (bf16) at its full panels, D 64 and 128, where TMA
+    zero-fills the rows past Sq or Skv and the store masks rows past
+    Sq."""
     q, k, v = _qkv(gpu, torch.bfloat16, 2, 2 * group, group, sq, skv, d,
                    seed=sq * 7 + skv + d)
     assert t_fa.route(q.dtype, d) == "sm90"
@@ -913,10 +920,11 @@ def test_flash_attention_without_the_mask_takes_any_sq(dtype, sq, skv, d, h,
 @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
 def test_flash_attention_takes_any_head_dimension_through_its_strides(
         dtype, d, causal, gpu):
-    """D 14 (qwen2-7b's smoke config) and 40 on the v1 kernel, with GQA,
-    as (B, T, H, D) views of rows one element wider than D: no row of q,
-    k, v starts on 16 bytes, so every load takes the element path; the
-    same operands made contiguous (D 40: the 16-byte path) give the same
+    """D 14 (qwen2-7b's smoke config) and 40, with GQA, as (B, T, H, D)
+    views of rows one element wider than D: no row of q, k, v starts on 16
+    bytes, so bf16 packs every operand before the Hopper kernel and f32
+    takes v1's element path; the same operands made contiguous (D 40: TMA
+    maps them as they are, and v1 takes its 16-byte path) give the same
     result bitwise."""
     gen = torch.Generator(device=gpu)
     gen.manual_seed(d + int(causal))
@@ -926,11 +934,70 @@ def test_flash_attention_takes_any_head_dimension_through_its_strides(
         return (x * mul).to(dtype)[..., :d].transpose(1, 2)
 
     q, k, v = draw(4, 100, 0.5), draw(2, 130, 0.5), draw(2, 130, 1.0)
-    assert t_fa.route(dtype, d) == "v1" and not t_fa._aligned(q)
+    assert not t_fa._aligned(q)
     _hold_attention(q, k, v, causal, 2)
     got = t_fa.flash_attention(q, k, v, causal=causal, group=2)
     want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=causal, group=2)
+    assert torch.equal(got, want)
+
+
+#: head dimensions of the Hopper route's card tests: each padded panel
+#: count (DP 64, 128, 192, 256), both ends, one below a panel's end and
+#: one past it, and widths that are and are not multiples of 8
+SM90_ANY_D = (1, 8, 14, 16, 40, 72, 80, 96, 136, 192, 200, 256)
+
+
+@pytest.mark.parametrize("case", ("ragged_causal", "sq_past_skv",
+                                  "wide_views", "wide_views_nc"))
+@pytest.mark.parametrize("d", SM90_ANY_D)
+def test_flash_attention_sm90_at_every_head_dimension(d, case, gpu):
+    """bf16 at any D on the Hopper kernel: causal on a ragged S with GQA
+    (contiguous operands: TMA maps rows of D columns where they lie on 16
+    bytes, the packing pass copies them where not), non-causal with Sq
+    past Skv and Skv past a tile, and (B, T, H, D) views of rows one
+    element wider than D (every operand packed), causal and not.  Each
+    held to ``tolerance`` against ``ref.attention``, twice, bitwise
+    equal."""
+    if case == "ragged_causal":
+        q, k, v = _qkv(gpu, torch.bfloat16, 2, 6, 3, 333, 333, d, seed=d)
+        _hold_attention(q, k, v, True, 3)
+        return
+    if case == "sq_past_skv":
+        q, k, v = _qkv(gpu, torch.bfloat16, 2, 8, 4, 300, 129, d,
+                       seed=d + 1)
+        _hold_attention(q, k, v, False, 4)
+        return
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(d + 2)
+
+    def draw(heads, s, mul):
+        x = torch.randn((2, s, heads, d + 1), generator=gen, device=gpu)
+        return (x * mul).to(torch.bfloat16)[..., :d].transpose(1, 2)
+
+    q, k, v = draw(4, 100, 0.5), draw(2, 130, 0.5), draw(2, 130, 1.0)
+    assert t_fa.sm90_plan(q, k, v).pack == (True, True, True)
+    _hold_attention(q, k, v, case == "wide_views", 2)
+
+
+def test_flash_attention_sm90_maps_aligned_rows_narrower_than_a_chunk(gpu):
+    """D 14 as (B, T, H, 16) rows cut to 14 columns: every stride lies on
+    16 bytes, so TMA maps the rows as they are (``globalDim[0]`` 14) with
+    no packing pass, and the result equals the packed contiguous call's
+    bitwise."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(3)
+
+    def draw(heads, mul):
+        x = torch.randn((2, 200, heads, 16), generator=gen, device=gpu)
+        return (x * mul).to(torch.bfloat16)[..., :14].transpose(1, 2)
+
+    q, k, v = draw(6, 0.5), draw(2, 0.5), draw(2, 1.0)
+    assert t_fa.sm90_plan(q, k, v).pack == (False, False, False)
+    _hold_attention(q, k, v, True, 3)
+    got = t_fa.flash_attention(q, k, v, group=3)
+    want = t_fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), group=3)
     assert torch.equal(got, want)
 
 
@@ -940,24 +1007,53 @@ def test_flash_attention_c_entries_refuse_causal_sq_past_skv(entry, gpu):
     """The C entries check the contract themselves: causal Sq > Skv is
     refused (cudaErrorInvalidValue) before any launch, the same call
     without the mask is taken."""
-    import ctypes
+    from repro_torch.kernels import _build
+
+    sm90 = entry == "weld_flash_attention_sm90"
+    dtype = torch.bfloat16 if sm90 else torch.float32
+    q = torch.zeros((1, 2, 9, 64), dtype=dtype, device=gpu)
+    k = torch.zeros((1, 2, 8, 64), dtype=dtype, device=gpu)
+    out = torch.empty_like(q)
+    strides = t_fa._stride_array(q, k, k, out)
+    plan = ((t_fa._plan_array(t_fa.sm90_plan(q, k, k)),) if sm90 else ())
+    lib = _build.library()
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    for causal, want in ((1, 1), (0, 0)):   # 1: cudaErrorInvalidValue
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
+            strides, *plan, 1, 2, 1, 9, 8, 64, causal, 0.125, stream)
+        assert rc == want, (causal, rc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("d", (16, 96, 200, 256))
+@pytest.mark.parametrize("field", ("dp", "kv_rows", "smem_bytes"))
+def test_flash_attention_sm90_entry_refuses_a_plan_not_its_own(d, field,
+                                                              gpu):
+    """The Hopper entry launches the plan ``sm90_plan`` gives and refuses
+    (cudaErrorInvalidValue, nothing launched) one whose DP, kv rows or
+    shared memory differ from its own layout's: the Python plan cannot
+    drift from the kernel unnoticed."""
+    import dataclasses
 
     from repro_torch.kernels import _build
 
-    q = torch.zeros((1, 2, 9, 64), dtype=torch.bfloat16, device=gpu)
-    k = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=gpu)
+    q = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16, device=gpu)
     out = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(
-        *t_fa._strides(q), *t_fa._strides(k), *t_fa._strides(k),
-        *t_fa._strides(out))
+    good = t_fa.sm90_plan(q, q, q)   # rows on 16 bytes: nothing packed
+    assert good.pack == (False, False, False)
     lib = _build.library()
     stream = torch.cuda.current_stream(gpu).cuda_stream
-    head = (0,) if entry == "weld_flash_attention" else ()
-    for causal, want in ((1, 1), (0, 0)):   # 1: cudaErrorInvalidValue
-        rc = getattr(lib, entry)(
-            *head, q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
-            strides, 1, 2, 1, 9, 8, 64, causal, 0.125, stream)
-        assert rc == want, (causal, rc)
+    wrong = {"dp": good.dp + 64 if good.dp < 256 else 192,
+             "kv_rows": 192 - good.kv_rows, "smem_bytes": good.smem_bytes + 8}
+    for layout, want in ((good, 0),
+                         (dataclasses.replace(good, **{field: wrong[field]}),
+                          1)):
+        rc = lib.weld_flash_attention_sm90(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+            t_fa._stride_array(q, q, q, out), t_fa._plan_array(layout), 1, 2,
+            1, 8, 8, d, 1, d ** -0.5, stream)
+        assert rc == want, (layout, rc)
     torch.cuda.synchronize()
 
 
@@ -975,10 +1071,12 @@ def test_flash_attention_refuses_what_it_does_not_take(dtype, d, sq, skv,
     k = torch.zeros((1, 2, skv, d), dtype=dtype, device=gpu)
     t_fa.flash_attention.launches = 0
     t_fa.flash_attention.launches_sm90 = 0
+    t_fa.flash_attention.launches_pack = 0
     with pytest.raises(what):
         t_fa.flash_attention(q, k, k)
     assert t_fa.flash_attention.launches == 0
     assert t_fa.flash_attention.launches_sm90 == 0
+    assert t_fa.flash_attention.launches_pack == 0
 
 
 # -- fused_adamw -------------------------------------------------------------

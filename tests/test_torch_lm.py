@@ -209,14 +209,13 @@ def test_bf16_limit_rejects_planted_faults(fault):
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
-    (torch.bfloat16, 8, "v1"), (torch.bfloat16, 72, "v1"),
-    (torch.bfloat16, 256, "v1"), (torch.float32, 64, "v1"),
-    (torch.float32, 128, "v1"),
+    *((torch.bfloat16, d, "sm90") for d in (1, 8, 14, 64, 72, 128, 200,
+                                           256)),
+    (torch.float32, 64, "v1"), (torch.float32, 128, "v1"),
 ])
 def test_kernel_route_is_chosen_by_dtype_and_head_dimension(dtype, d, want):
-    """bf16 with D in {64, 128} goes to the Hopper kernel, the rest to
-    v1, batched or not, whatever the sequence lengths."""
+    """bf16 goes to the Hopper kernel at every head dimension, f32 to v1,
+    batched or not, whatever the sequence lengths."""
     assert t_fa.route(dtype, d) == want
     for sq, skv in ((1, 1), (77, 300), (333, 333)):
         q = torch.zeros((2, 6, sq, d), dtype=dtype)
@@ -227,7 +226,7 @@ def test_kernel_route_is_chosen_by_dtype_and_head_dimension(dtype, d, want):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "flash_sm90"), (torch.bfloat16, 128, "flash_sm90"),
-    (torch.bfloat16, 72, "flash_bf16"), (torch.float32, 64, "flash_f32"),
+    (torch.bfloat16, 72, "flash_sm90"), (torch.float32, 64, "flash_f32"),
     (torch.float32, 128, "flash_f32"), (torch.float32, 256, "flash_f32"),
 ])
 def test_kernel_names_the_cuda_function_its_route_runs(dtype, d, want):
@@ -242,6 +241,17 @@ def test_kernel_names_the_cuda_function_its_route_runs(dtype, d, want):
     src = (_build.CSRC / source).read_text()
     assert re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?"
                      rf"{name}\(", src)
+
+
+def test_no_bf16_route_leads_to_the_v1_kernel():
+    """v1's source holds the f32 kernel alone: no route, and no fallback,
+    can reach a bf16 kernel there."""
+    from repro_torch.kernels import _build
+
+    assert set(t_fa.KERNELS) == {("sm90", torch.bfloat16),
+                                 ("v1", torch.float32)}
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "flash_bf16" not in src and "__nv_bfloat16" not in src
 
 
 @pytest.mark.parametrize("what,q,k,v,group,err", [
@@ -277,14 +287,15 @@ def test_kernel_plan_refuses_what_no_kernel_takes(what, q, k, v, group, err):
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    *((dt, d, "v1") for dt in (torch.bfloat16, torch.float32)
+    *((dt, d, "sm90" if dt == torch.bfloat16 else "v1")
+      for dt in (torch.bfloat16, torch.float32)
       for d in (1, 12, 14, 40, 200)),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
 ])
 def test_kernel_plan_takes_any_head_dimension_up_to_256(dtype, d, want):
     """The reference's kernel takes the whole D in each block, whatever it
     is (qwen2-7b's smoke config has D 14): ``plan`` takes D 1 to 256, bf16
-    at D 64 and 128 on the Hopper route and everything else on v1."""
+    on the Hopper route and f32 on v1."""
     q = torch.zeros((1, 4, 8, d), dtype=dtype)
     k = torch.zeros((1, 2, 8, d), dtype=dtype)
     assert t_fa.plan(q, k, k, group=2, causal=True) == want
@@ -307,7 +318,7 @@ def test_the_fake_form_and_flop_formula_read_any_head_dimension(d, causal):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
-    (torch.float32, 64, "v1"), (torch.bfloat16, 72, "v1"),
+    (torch.float32, 64, "v1"), (torch.bfloat16, 72, "sm90"),
 ])
 def test_kernel_plan_takes_sq_past_skv_without_the_mask(dtype, d, want):
     """Sq > Skv is refused under the causal mask only: without it (a
@@ -324,14 +335,68 @@ def test_kernel_plan_takes_sq_past_skv_without_the_mask(dtype, d, want):
 
 def test_cpu_calls_count_no_launch_on_either_route():
     """A CPU tensor takes the plain version: counted in ``.plain_calls``,
-    never in ``.launches`` or ``.launches_sm90``, which
-    ``ops.reset_counts`` zeroes with the rest."""
+    never in ``.launches``, ``.launches_sm90`` or ``.launches_pack``,
+    which ``ops.reset_counts`` zeroes with the rest."""
     t_fa.flash_attention.launches_sm90 = 5
+    t_fa.flash_attention.launches_pack = 5
     ops.reset_counts()
-    q, k, v = _bf16(*_attn_inputs(2, 4, 16, 16, 64, 2))
+    q, k, v = _bf16(*_attn_inputs(2, 4, 16, 16, 14, 2))
     t_fa.flash_attention(q, k, v, group=2)
     assert (t_fa.flash_attention.launches, t_fa.flash_attention.launches_sm90,
-            t_fa.flash_attention.plain_calls) == (0, 0, 1)
+            t_fa.flash_attention.launches_pack,
+            t_fa.flash_attention.plain_calls) == (0, 0, 0, 1)
+
+
+def _views(kind: str, d: int):
+    """(B, H, S, D) bf16 q, k, v of one layout: ``contiguous``;
+    ``wide``: views of (B, S, H, D + 1) rows; ``narrow``: views of
+    (B, S, H, 8 ceil(D / 8)) rows cut to D; ``offset``: contiguous rows
+    one element past a 16-byte base."""
+    def one(heads):
+        if kind == "contiguous":
+            return torch.zeros((2, heads, 33, d), dtype=torch.bfloat16)
+        if kind == "offset":
+            flat = torch.zeros(2 * heads * 33 * d + 1, dtype=torch.bfloat16)
+            return flat[1:].view(2, heads, 33, d)
+        wide = d + 1 if kind == "wide" else 8 * -(-d // 8)
+        x = torch.zeros((2, 33, heads, wide), dtype=torch.bfloat16)
+        return x[..., :d].transpose(1, 2)
+
+    return one(6), one(2), one(2)
+
+
+@pytest.mark.parametrize("kind", ("contiguous", "wide", "narrow", "offset"))
+def test_sm90_plan_fits_every_head_dimension(kind):
+    """The Hopper route's layout at every D from 1 to 256: D padded to
+    whole 64-column panels, 128-row kv tiles up to DP 128 and 64-row ones
+    above, never more than 227 KB of shared memory (the C entry refuses a
+    plan whose DP, kv rows or shared memory are not its layout's, and
+    static_asserts prove each instantiation fits); an operand packed
+    exactly when a row stride or its base lies off 16 bytes (TMA maps the
+    rest as they are), its map then D, or the packed 8 ceil(D / 8)
+    columns, wide; boxes of 64 columns; every D planned on the Hopper
+    route."""
+    for d in range(1, 257):
+        q, k, v = _views(kind, d)
+        assert t_fa.plan(q, k, v, group=3) == "sm90"
+        got = t_fa.sm90_plan(q, k, v)
+        dp = 64 * -(-d // 64)
+        assert got.dp == dp and got.dp in (64, 128, 192, 256)
+        assert got.kv_rows == (128 if dp <= 128 else 64)
+        assert 0 < got.smem_bytes <= t_fa.SMEM_LIMIT
+        for t, pack, dims0 in zip((q, k, v), got.pack, got.dims0):
+            off = (t.data_ptr() % 16 != 0 or t.stride(-1) != 1
+                   or any(st * t.element_size() % 16
+                          for n, st in zip(t.shape[:3], t.stride()[:3])
+                          if n > 1))
+            assert pack == off, (d, kind, t.stride())
+            assert dims0 == (8 * -(-d // 8) if pack else d) <= dp
+        assert got.box == ((64, 128), (64, got.kv_rows),
+                           (64, got.kv_rows))
+        if kind == "offset" or kind == "wide" and (d + 1) % 8:
+            assert got.pack == (True, True, True)
+        if kind == "narrow":
+            assert got.pack == (False, False, False)
 
 
 # -- the dense LM against the reference --------------------------------------
