@@ -139,6 +139,11 @@ class BuilderBound:
 #: the guards of a loop's own iteration: no key proven present yet
 _NO_GUARDS: frozenset = frozenset()
 
+#: the constants and interval the interpreter makes most (immutable:
+#: one object serves every use)
+_C0, _C1, _CINF = d.const(0), d.const(1), d.const(INF)
+_TOP = d.top()
+
 
 class _Unknown(Exception):
     """A merge whose target builder can't be identified — poison the
@@ -306,8 +311,8 @@ class _Analyzer:
         if t is ir.GroupLookup:
             dv = self.eval(e.expr, env)
             self.eval(e.key, env)
-            hi = dv.total.hi if isinstance(dv, ADict) else d.const(INF)
-            return AVec(Interval(d.const(0), hi))
+            hi = dv.total.hi if isinstance(dv, ADict) else _CINF
+            return AVec(Interval(_C0, hi))
         if t is ir.KernelCall:
             return self._ev_kernelcall(e, env)
         # leaves and nodes with no size meaning: still traverse children
@@ -335,26 +340,27 @@ class _Analyzer:
         if isinstance(data, ir.GroupLookup) \
                 and isinstance(data.expr, ir.Ident):
             dv = env.get(data.expr.name)
-            hi = dv.total.hi if isinstance(dv, ADict) else d.const(INF)
-            lo = d.const(0)
+            hi = dv.total.hi if isinstance(dv, ADict) else _CINF
+            lo = _C0
             try:
                 if guards and (data.expr.name,
                                ir.canon_key(data.key)) in guards:
-                    lo = d.const(1)  # key proven present: >= 1 group row
+                    lo = _C1  # key proven present: >= 1 group row
             except Exception:
                 pass
             return Interval(lo, hi)
         v = self.eval(data, env)
         if isinstance(v, AVec):
             return v.n
-        return d.top()
+        return _TOP
 
     def _iter_interval(self, iters: Sequence[ir.Iter], env,
                        guards) -> Interval:
         out: Optional[Interval] = None
         for it in iters:
-            if not it.is_plain:
-                return d.top()  # strided views: length not yet modeled
+            if not (it.start is None and it.end is None
+                    and it.stride is None):
+                return _TOP  # strided views: length not yet modeled
             iv = self._vec_interval(it.data, env, guards)
             out = iv if out is None else Interval(
                 d.smin(out.lo, iv.lo), d.smin(out.hi, iv.hi))
@@ -372,27 +378,27 @@ class _Analyzer:
             raise _Unknown
         b_name = loop.func.params[0].name
         counts = self._count_merges(loop.func.body, env, _NO_GUARDS)
-
-        def tot(idx) -> Interval:
-            per = counts.get((b_name, idx), d.ZERO)
-            # one merge an iteration (the ONE that _count_merges puts
-            # there): ONE.mul(n_it) equals n_it
-            return n_it if per is d.ONE else per.mul(n_it)
-
         init = loop.builder
-        if isinstance(init, ir.NewBuilder):
-            return self._builder_result(init, tot(None), env)
-        if isinstance(init, ir.MakeStruct):
-            items = []
-            for k, nb in enumerate(init.items):
-                if isinstance(nb, ir.NewBuilder):
-                    items.append(self._builder_result(nb, tot(k), env))
-                else:
-                    items.append(None)
-            return AStruct(tuple(items))
-        if isinstance(init, ir.Ident):
+        struct = isinstance(init, ir.MakeStruct)
+        if struct:
+            slots = enumerate(init.items)
+        elif isinstance(init, ir.NewBuilder):
+            slots = ((None, init),)
+        elif isinstance(init, ir.Ident):
             return env.get(init.name)
-        return None
+        else:
+            return None
+        items = []
+        for idx, nb in slots:
+            if isinstance(nb, ir.NewBuilder):
+                per = counts.get((b_name, idx), d.ZERO)
+                # one merge an iteration (the ONE that _count_merges
+                # puts there): ONE.mul(n_it) equals n_it
+                items.append(self._builder_result(
+                    nb, n_it if per is d.ONE else per.mul(n_it), env))
+            else:
+                items.append(None)
+        return AStruct(tuple(items)) if struct else items[0]
 
     def _count_merges(self, e: ir.Expr, env, guards
                       ) -> Dict[Tuple[str, Optional[int]], Interval]:
@@ -473,7 +479,7 @@ class _Analyzer:
             kind = "groupbuilder" if tb is wt.GroupBuilder else "dictmerger"
             self.builders.append(BuilderBound(nb, kind, tot, cap, "cap"))
             hi = tot.hi if cap is None else d.smin(tot.hi, cap)
-            return ADict(size=Interval(d.const(0), hi), total=tot,
+            return ADict(size=Interval(_C0, hi), total=tot,
                          cap=cap, group=tb is wt.GroupBuilder)
         if tb is wt.VecMerger:
             base = self.eval(nb.arg, env) if nb.arg is not None else None
@@ -505,32 +511,32 @@ class _Analyzer:
             n_b = args_interval(x.args)
             cap = params.get("capacity")
             cap_s = d.const(int(cap)) if cap is not None else None
-            lo = d.const(0)
+            lo = _C0
             total = Interval(
                 lo if params.get("has_pred") else n_b.lo, n_b.hi)
             hi = n_b.hi if cap_s is None else d.smin(n_b.hi, cap_s)
-            return ADict(size=Interval(d.const(0), hi), total=total,
+            return ADict(size=Interval(_C0, hi), total=total,
                          cap=cap_s, group=(k == "group_build"))
         if k == "hash_probe":
             n_pr = args_interval(x.args[1:])
             how = params.get("how", "inner")
             lo = (n_pr.lo if how == "left" and not params.get("has_pred")
-                  else d.const(0))
+                  else _C0)
             rows = Interval(lo, n_pr.hi)
             return self._probe_struct(x, rows)
         if k == "group_probe":
             n_iters = int(params.get("n_iters", 1))
             n_pr = args_interval(x.args[1:1 + n_iters])
             dv = self.eval(x.args[0], env) if x.args else None
-            fan_hi = dv.total.hi if isinstance(dv, ADict) else d.const(INF)
+            fan_hi = dv.total.hi if isinstance(dv, ADict) else _CINF
             how = params.get("how", "inner")
             if how == "left":
-                exp_hi = d.mul(n_pr.hi, d.smax(fan_hi, d.const(1)))
+                exp_hi = d.mul(n_pr.hi, d.smax(fan_hi, _C1))
                 lo = (n_pr.lo if not params.get("has_pred")
-                      else d.const(0))
+                      else _C0)
             else:
                 exp_hi = d.mul(n_pr.hi, fan_hi)
-                lo = d.const(0)
+                lo = _C0
             derived = Interval(lo, exp_hi)
             out_cap = params.get("out_cap")
             decl = d.const(int(out_cap)) if out_cap is not None else None
@@ -655,18 +661,25 @@ class BoundsReport:
     def builder_lines(self, shapes: Optional[Shapes]) -> List[str]:
         shp = {k: tuple(v) for k, v in (shapes or {}).items() if v}
         lines = []
+        #: a rows interval shared by several builders (each field of a
+        #: struct of builders merged once an iteration) is shown once
+        shown_rows: Dict[int, str] = {}
         for bb in self.builders:
-            hi = bb.rows.hi_val(shp)
-            hi_s = "inf" if hi == INF else str(int(hi))
+            rows = bb.rows
+            text = shown_rows.get(id(rows))
+            if text is None:
+                hi = rows.hi_val(shp)
+                hi_s = "inf" if hi == INF else str(int(hi))
+                text = shown_rows[id(rows)] = (
+                    f"{rows.render(self.rename)} = "
+                    f"[{rows.lo_val(shp)}, {hi_s}]")
             decl = ""
             if bb.declared is not None:
                 dv = d.evaluate(bb.declared, shp)
                 shown = (d.render(bb.declared, self.rename)
                          if dv is None else str(int(dv)))
                 decl = f" {bb.role}={shown}"
-            lines.append(
-                f"{bb.kind:<22} rows={bb.rows.render(self.rename)}"
-                f" = [{bb.rows.lo_val(shp)}, {hi_s}]{decl}")
+            lines.append(f"{bb.kind:<22} rows={text}{decl}")
         return lines
 
 

@@ -81,12 +81,9 @@ def length(name: str) -> SLen:
 _CONSTS = {v: SConst(v) for v in (0, 1, INF)}
 
 
-def _val(s: Sym) -> Optional[float]:
-    return s.value if type(s) is SConst else None
-
-
 def add(a: Sym, b: Sym) -> Sym:
-    ca, cb = _val(a), _val(b)
+    ca = a.value if type(a) is SConst else None
+    cb = b.value if type(b) is SConst else None
     if ca is not None and cb is not None:
         return const(ca + cb)
     if ca == 0:
@@ -97,7 +94,8 @@ def add(a: Sym, b: Sym) -> Sym:
 
 
 def sub(a: Sym, b: Sym) -> Sym:
-    ca, cb = _val(a), _val(b)
+    ca = a.value if type(a) is SConst else None
+    cb = b.value if type(b) is SConst else None
     if ca is not None and cb is not None:
         return const(ca - cb)
     if cb == 0:
@@ -106,9 +104,10 @@ def sub(a: Sym, b: Sym) -> Sym:
 
 
 def mul(a: Sym, b: Sym) -> Sym:
-    ca, cb = _val(a), _val(b)
+    ca = a.value if type(a) is SConst else None
+    cb = b.value if type(b) is SConst else None
     if ca == 0 or cb == 0:
-        return const(0)
+        return _CONSTS[0]
     if ca is not None and cb is not None:
         return const(ca * cb)
     if ca == 1:
@@ -119,16 +118,17 @@ def mul(a: Sym, b: Sym) -> Sym:
 
 
 def div(a: Sym, b: Sym) -> Sym:
-    ca, cb = _val(a), _val(b)
-    if ca is not None and cb is not None:
-        return const(_apply("/", ca, cb))
+    if type(a) is SConst and type(b) is SConst:
+        return const(_apply("/", a.value, b.value))
     return SOp("/", a, b)
 
 
 def smin(a: Sym, b: Sym) -> Sym:
-    if a is b or a == b:
+    # equal only within one class (a dataclass compares no other class)
+    if a is b or (type(a) is type(b) and a == b):
         return a
-    ca, cb = _val(a), _val(b)
+    ca = a.value if type(a) is SConst else None
+    cb = b.value if type(b) is SConst else None
     if ca is not None and cb is not None:
         return const(min(ca, cb))
     if ca == INF:
@@ -139,13 +139,14 @@ def smin(a: Sym, b: Sym) -> Sym:
 
 
 def smax(a: Sym, b: Sym) -> Sym:
-    if a is b or a == b:
+    if a is b or (type(a) is type(b) and a == b):
         return a
-    ca, cb = _val(a), _val(b)
+    ca = a.value if type(a) is SConst else None
+    cb = b.value if type(b) is SConst else None
     if ca is not None and cb is not None:
         return const(max(ca, cb))
     if ca == INF or cb == INF:
-        return const(INF)
+        return _CONSTS[INF]
     # sizes are nonnegative, so max(x, 0) = x
     if ca == 0:
         return b

@@ -1,8 +1,8 @@
 """weldcheck: a static IR verifier + race/linearity linter.
 
 Four analyses over a Weld program, run from one shared non-throwing type
-annotation pass (so a checkpoint costs one O(n) walk plus three linear
-lints, never repeated inference):
+annotation pass that also gathers what the lints read (``facts``), so a
+checkpoint costs one O(n) walk, never repeated inference:
 
 1. **types** (``verify_types.annotate``) — whole-program type/shape
    re-verification closing over ``Let``/``Lambda``/``For`` environments,
@@ -41,7 +41,7 @@ from .capacity import check_regrow_monotone, lint_capacity
 from .diagnostics import CODES, Diagnostic
 from .linear import lint_linearity
 from .races import lint_races
-from .verify_types import annotate
+from .verify_types import annotate, walk
 
 __all__ = [
     "CODES",
@@ -69,8 +69,8 @@ ANALYSES = {
 
 _override: Optional[bool] = None
 #: ``last``: (stats, program, env, shapes, the program's free-identifier
-#: types when computed, else None) of this thread's last clean
-#: checkpoint, the one verdict :func:`checkpoint` may reuse
+#: types) of this thread's last clean checkpoint, the one verdict
+#: :func:`checkpoint` may reuse
 _clean = threading.local()
 
 
@@ -107,9 +107,20 @@ def verify(
     certificate-contradiction check (checkpoints never pass it — the
     admission path owns that rejection with a typed ResourceError).
     """
+    return _verify(e, env, analyses, shapes, memory_limit)[0]
+
+
+def _verify(e, env, analyses=None, shapes=None, memory_limit=None):
+    """:func:`verify`'s diagnostics, and the types of ``e``'s free
+    identifiers by their annotations (what :func:`_free_env` gives)."""
     if env is None:
-        env = _free_env(e)
-    types, diags = annotate(e, env)
+        # type e by its free identifiers' annotations
+        free = _free_env(e)
+        types, diags, facts = walk(e, free)
+    else:
+        types, diags, facts = walk(e, env)
+        free = (_free_env(e) if facts.free is None else
+                {k: t for k, t in facts.free.items() if t is not None})
     root_ty = types.get(id(e))
     if isinstance(root_ty, wt.BuilderType):
         diags.append(Diagnostic(
@@ -120,10 +131,11 @@ def verify(
     for name in (analyses if analyses is not None else ANALYSES):
         if name == "bounds":
             diags.extend(ANALYSES[name](e, types, shapes=shapes,
-                                        memory_limit=memory_limit))
+                                        memory_limit=memory_limit,
+                                        facts=facts))
         else:
-            diags.extend(ANALYSES[name](e, types))
-    return diags
+            diags.extend(ANALYSES[name](e, types, facts=facts))
+    return diags, free
 
 
 def _free_env(e: ir.Expr) -> Dict[str, wt.WeldType]:
@@ -156,15 +168,18 @@ def checkpoint(
     t0 = time.perf_counter()
     with obs.span("verify", phase=phase) as sp:
         last = getattr(_clean, "last", None)
-        free, reused = None, False
+        reused = False
         if (stats is not None and last is not None and last[0] is stats
                 and last[1] is e and last[3] == shapes):
             # verify types e by its free identifiers' annotations when it
-            # is given no env
-            free = last[4] if last[4] is not None else _free_env(e)
+            # is given no env; the last verify read those off e
+            free = last[4]
             reused = (free if env is None else env) == (
                 free if last[2] is None else last[2])
-        diags = [] if reused else verify(e, env=env, shapes=shapes)
+        if reused:
+            diags = []
+        else:
+            diags, free = _verify(e, env, shapes=shapes)
         sp.set("diagnostics", len(diags))
         sp.set("reused", reused)
     ms = (time.perf_counter() - t0) * 1e3

@@ -27,6 +27,7 @@ from .. import ir
 from .. import wtypes as wt
 from ..analysis import bounds as _bounds
 from ..analysis import domain as _dom
+from . import facts as F
 from .diagnostics import Diagnostic
 
 
@@ -35,8 +36,12 @@ def lint_bounds(
     types: Dict[int, wt.WeldType],
     shapes: Optional[dict] = None,
     memory_limit: Optional[int] = None,
+    facts: Optional[F.Facts] = None,
 ) -> List[Diagnostic]:
     diags: List[Diagnostic] = []
+    if memory_limit is None and not _declares_a_size(
+            facts if facts is not None else F.scan(e)):
+        return diags  # nothing the analysis could contradict
     try:
         rep = _bounds.analyze(e)
     except Exception:
@@ -80,3 +85,19 @@ def lint_bounds(
                 e, analysis="bounds",
                 data={"peak": peak, "limit": int(memory_limit)}))
     return diags
+
+
+def _declares_a_size(facts: F.Facts) -> bool:
+    """True when the program holds a site the analysis reports with a
+    declared size: a hinted vecbuilder or a ``group_probe`` with an
+    ``out_cap`` (without either, and without a ``memory_limit``, the
+    lint has nothing to compare)."""
+    for ev in facts.events:
+        if ev[0] == F.NB:
+            nb = ev[1]
+            if type(nb.ty) is wt.VecBuilder and nb.size_hint is not None:
+                return True
+        elif ev[0] == F.KC and ev[1].kernel == "group_probe" \
+                and dict(ev[1].params).get("out_cap") is not None:
+            return True
+    return False

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 
 from .. import ir
 from .. import wtypes as wt
+from . import facts as F
 from .diagnostics import Diagnostic
 
 #: kernels whose first arg is a probed dict and whose segment width must
@@ -38,30 +39,23 @@ _BUILD_KERNELS = ("dict_hash_build", "group_build", "dict_group_sum")
 def lint_capacity(
     e: ir.Expr,
     types: Dict[int, Optional[wt.WeldType]],
+    facts: Optional[F.Facts] = None,
 ) -> List[Diagnostic]:
+    if facts is None:
+        facts = F.scan(e)
     diags: List[Diagnostic] = []
     #: let-bound name -> static capacity of the dict it holds
     dict_caps: Dict[str, int] = {}
-
-    def note_binding(name: str, v: ir.Expr) -> None:
-        cap = _static_dict_cap(v)
-        if cap is not None:
-            dict_caps[name] = cap
-
-    def rec(x: ir.Expr) -> None:
-        if isinstance(x, ir.Let):
-            rec(x.value)
-            note_binding(x.name, x.value)
-            rec(x.body)
-            return
-        if isinstance(x, ir.NewBuilder):
-            _lint_newbuilder(x, diags)
-        if isinstance(x, ir.KernelCall):
-            _lint_kernelcall(x, dict_caps, diags)
-        for c in x.children():
-            rec(c)
-
-    rec(e)
+    for ev in facts.events:
+        kind = ev[0]
+        if kind == F.LET:
+            cap = _static_dict_cap(ev[1].value)
+            if cap is not None:
+                dict_caps[ev[1].name] = cap
+        elif kind == F.NB:
+            _lint_newbuilder(ev[1], diags)
+        elif kind == F.KC:
+            _lint_kernelcall(ev[1], dict_caps, diags)
     return diags
 
 

@@ -21,13 +21,10 @@ from typing import Dict, List, Optional, Set
 
 from .. import ir
 from .. import wtypes as wt
+from . import facts as F
 from .diagnostics import Diagnostic
 
 _MERGER_FAMILY = (wt.Merger, wt.DictMerger, wt.VecMerger)
-
-#: read operations that observe a collection's contents
-_READS = (ir.Result, ir.Lookup, ir.GroupLookup, ir.KeyExists, ir.Len)
-
 
 def _bad_op_types(ty) -> List[wt.WeldType]:
     """Merger-family types reachable inside ``ty`` whose op is not
@@ -44,103 +41,79 @@ def _bad_op_types(ty) -> List[wt.WeldType]:
 def lint_races(
     e: ir.Expr,
     types: Dict[int, Optional[wt.WeldType]],
+    facts: Optional[F.Facts] = None,
 ) -> List[Diagnostic]:
+    """WV301 over every builder-typed Ident and NewBuilder in preorder,
+    then each loop's WV302/WV303 in loop preorder: one pass over the
+    events of :func:`~.facts.scan`, each loop body's events read by
+    every loop open around them."""
+    if facts is None:
+        facts = F.scan(e)
     diags: List[Diagnostic] = []
     flagged: Set[int] = set()
+    names = facts.names
+    #: per loop, by its ordinal: [builder param, index param, the names
+    #: derived from the builder, the loop's diagnostics], or None for a
+    #: loop with no params; ``order``: the loops in preorder
+    loops: Dict[int, Optional[list]] = {}
+    order: List[Optional[list]] = []
+    open_: List[list] = []
 
-    # -- WV301: corrupted merge ops, wherever the type is embedded -------
-    loops: List[ir.For] = []
-    for node in ir.walk(e):
-        ty = None
-        if isinstance(node, ir.NewBuilder):
-            ty = node.ty
-        elif isinstance(node, ir.Ident):
-            ty = node.ty
-        elif isinstance(node, ir.For):
-            loops.append(node)
-        for bad in _bad_op_types(ty) if ty is not None else ():
-            if id(node) in flagged:
-                continue
-            flagged.add(id(node))
-            diags.append(Diagnostic(
-                "WV301",
-                f"non-commutative merge op {bad.op!r} on {bad} — parallel "
-                f"merges reorder freely, result is nondeterministic",
-                node, analysis="races", data={"op": bad.op}))
-
-    # -- WV302/WV303: per-loop body analysis -----------------------------
-    for loop in loops:
-        _lint_loop(loop, types, diags)
-    return diags
-
-
-def _lint_loop(loop: ir.For, types, diags: List[Diagnostic]) -> None:
-    if not loop.func.params:
-        return
-    bparam = loop.func.params[0]
-    iparam = loop.func.params[1] if len(loop.func.params) > 1 else None
-    body = loop.func.body
-
-    # names whose value derives from the loop's builder param: the
-    # builder's and those of Lets whose value mentions one already in it
-    derived: Set[str] = {bparam.name}
-    candidates = {bparam.name} | {n.name for n in ir.walk(body)
-                                  if isinstance(n, ir.Let)}
-    mentioned = _mentions(body, candidates)
-
-    def mentions_derived(x: ir.Expr) -> bool:
-        return not mentioned[id(x)].isdisjoint(derived)
-
-    def rec(x: ir.Expr) -> None:
-        if isinstance(x, ir.Let):
-            rec(x.value)
-            if mentions_derived(x.value):
-                derived.add(x.name)
-            rec(x.body)
-            return
-        if isinstance(x, _READS):
-            target = x.builder if isinstance(x, ir.Result) else x.expr
-            if mentions_derived(target):
+    for ev in facts.events:
+        kind = ev[0]
+        if kind == F.TY:
+            node = ev[1]
+            # -- WV301: corrupted merge ops, wherever the type is embedded
+            for bad in _bad_op_types(node.ty):
+                if id(node) in flagged:
+                    continue
+                flagged.add(id(node))
                 diags.append(Diagnostic(
-                    "WV302",
-                    f"loop body reads builder {bparam.name} while it is "
-                    f"still being built ({type(x).__name__.lower()})",
-                    x, analysis="races", data={"builder": bparam.name}))
-        if isinstance(x, ir.Merge):
-            _lint_scatter(x, iparam, types, diags)
-        for c in x.children():
-            rec(c)
-
-    rec(body)
-
-
-_NONE: frozenset = frozenset()
-
-
-def _mentions(e: ir.Expr, names: Set[str]) -> Dict[int, frozenset]:
-    """id(node) -> the names of ``names`` that an Ident under the node
-    (itself included) carries, for every node of ``e``: one post-order
-    pass (a shared subtree once), where asking each Let's value anew
-    walked a subtree once per enclosing Let."""
-    out: Dict[int, frozenset] = {}
-
-    def rec(x: ir.Expr) -> frozenset:
-        got = out.get(id(x))
-        if got is not None:
-            return got
-        if isinstance(x, ir.Ident):
-            got = frozenset((x.name,)) if x.name in names else _NONE
-        else:
-            got = _NONE
-            for c in x.children():
-                sub = rec(c)
-                if sub:
-                    got = sub if not got else got | sub
-        out[id(x)] = got
-        return got
-
-    rec(e)
-    return out
+                    "WV301",
+                    f"non-commutative merge op {bad.op!r} on {bad} — "
+                    f"parallel merges reorder freely, result is "
+                    f"nondeterministic",
+                    node, analysis="races", data={"op": bad.op}))
+        elif kind == F.FOR:
+            params = ev[1].func.params
+            st = loops[ev[2]] = [
+                params[0], params[1] if len(params) > 1 else None,
+                {params[0].name}, []] if params else None
+            order.append(st)
+        # -- WV302/WV303: what the open loops' bodies do ------------------
+        elif kind == F.LOOP:
+            st = loops[ev[1]]
+            if st is not None:
+                open_.append(st)
+        elif kind == F.END:
+            if loops[ev[1]] is not None:
+                open_.pop()
+        elif kind == F.LET:
+            # names whose value derives from the loop's builder param:
+            # the builder's and those of Lets whose value mentions one
+            # already in it
+            seen = names[ev[2]:ev[3]]
+            for st in open_:
+                if not st[2].isdisjoint(seen):
+                    st[2].add(ev[1].name)
+        elif kind == F.READ:
+            seen = names[ev[2]:ev[3]]
+            for st in open_:
+                if not st[2].isdisjoint(seen):
+                    st[3].append(Diagnostic(
+                        "WV302",
+                        f"loop body reads builder {st[0].name} while it "
+                        f"is still being built "
+                        f"({type(ev[1]).__name__.lower()})",
+                        ev[1], analysis="races",
+                        data={"builder": st[0].name}))
+        elif kind == F.MERGE:
+            for st in open_:
+                _lint_scatter(ev[1], st[1], types, st[3])
+    for st in order:
+        if st is not None:
+            diags.extend(st[3])
+    return diags
 
 
 def _lint_scatter(m: ir.Merge, iparam: Optional[ir.Ident], types,

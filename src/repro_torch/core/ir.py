@@ -43,6 +43,18 @@ def child_fields(cls: type) -> Tuple[str, ...]:
     return names
 
 
+_field_names: Dict[type, Tuple[str, ...]] = {}
+
+
+def field_names(cls: type) -> Tuple[str, ...]:
+    """The names of all the fields of ``cls``, in field order (what
+    ``dataclasses.fields`` gives, kept per class)."""
+    names = _field_names.get(cls)
+    if names is None:
+        names = _field_names[cls] = tuple(f.name for f in fields(cls))
+    return names
+
+
 class Expr:
     """Base class for IR expressions."""
 
@@ -447,8 +459,8 @@ def canon_key(e: Expr, name_map: Optional[Dict[str, object]] = None) -> str:
             return
         tag = type(x).__name__
         parts.append(f"({tag}")
-        for f in fields(x):
-            v = getattr(x, f.name)
+        for name in field_names(type(x)):
+            v = getattr(x, name)
             if isinstance(v, Expr):
                 rec(v, depth, level)
             elif isinstance(v, tuple) and any(isinstance(c, Expr) for c in v):

@@ -221,7 +221,8 @@ def _races_by_walks(e, types):
                     derived.add(x.name)
                 rec(x.body)
                 return
-            if isinstance(x, races._READS):
+            if isinstance(x, (ir.Result, ir.Lookup, ir.GroupLookup,
+                              ir.KeyExists, ir.Len)):
                 target = x.builder if isinstance(x, ir.Result) else x.expr
                 if mentions(target):
                     diags.append(Diagnostic("WV302", "", x,
